@@ -1,0 +1,218 @@
+"""Graph containers and generators for LGRASS (host/numpy side).
+
+A copy of `repro.core.graph` for the PyTorch port: the same numpy calls
+give the same arrays, so a graph made from a seed here equals the one the
+JAX package makes. Edges are stored as parallel arrays (u, v, w). The
+graph is undirected, connected, simple (no self loops / multi edges).
+Node ids are 0..n-1.
+
+Conventions shared by the numpy oracle (`baseline.py`) and the torch
+pipeline (`sparsify.py`) — these pin down every tie-break so the two
+implementations are bit-identical:
+
+  * root            = node with maximum degree, ties -> smallest id.
+  * BFS parent rule = smallest-id neighbour in the previous level.
+  * effective weight eff(e) = w(e) * (depth[u] + depth[v] + 1.0)
+    with depth from the *graph* BFS (feGRASS-style depth-scaled weight).
+  * spanning tree   = MAXIMUM spanning tree under (eff desc, edge-id asc)
+    total order (unique because the order is total).
+  * criticality     = w(e) * R_tree(u, v) for off-tree e, processed in
+    (criticality desc, edge-id asc) order.
+  * beta(e)         = max(min(depth_t[u], depth_t[v]) - depth_t[lca], 1)
+    with depth_t from the *tree* BFS rooted at `root`.
+  * ball(u, b)      = nodes with tree distance (hops) <= b from u.
+  * greedy          = accept edge iff not marked; accepted edge marks all
+    off-tree edges (x, y) with (x in B(u), y in B(v)) or swapped; stop
+    after `budget` accepts.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+
+@dataclasses.dataclass
+class Graph:
+    """Undirected weighted graph in edge-list form (host/numpy side)."""
+
+    n: int
+    u: np.ndarray  # (L,) int32
+    v: np.ndarray  # (L,) int32
+    w: np.ndarray  # (L,) float32, positive
+
+    @property
+    def m(self) -> int:
+        return int(self.u.shape[0])
+
+    def validate(self) -> None:
+        assert self.u.shape == self.v.shape == self.w.shape
+        assert np.all(self.u != self.v), "self loops not allowed"
+        assert np.all(self.w > 0), "weights must be positive"
+        key = np.minimum(self.u, self.v) * np.int64(self.n) + np.maximum(
+            self.u, self.v
+        )
+        assert len(np.unique(key)) == self.m, "multi-edges not allowed"
+
+
+def trivial_graph() -> Graph:
+    """The minimal legal graph: one node, zero edges.
+
+    The canonical degenerate input: the pipeline returns empty masks
+    for it.
+    """
+    return Graph(n=1, u=np.zeros(0, np.int32), v=np.zeros(0, np.int32),
+                 w=np.zeros(0, np.float32))
+
+
+def random_connected_graph(
+    n: int,
+    extra_edges: int,
+    seed: int = 0,
+    weight: str = "lognormal",
+) -> Graph:
+    """Random spanning tree + `extra_edges` distinct chords."""
+    rng = np.random.default_rng(seed)
+    # random spanning tree: attach node i to a uniform previous node
+    parents = np.array([rng.integers(0, i) for i in range(1, n)])
+    tu = np.arange(1, n, dtype=np.int64)
+    tv = parents.astype(np.int64)
+    existing = set(zip(np.minimum(tu, tv).tolist(), np.maximum(tu, tv).tolist()))
+    cu, cv = [], []
+    max_extra = n * (n - 1) // 2 - (n - 1)
+    extra_edges = min(extra_edges, max_extra)
+    while len(cu) < extra_edges:
+        k = extra_edges - len(cu)
+        a = rng.integers(0, n, size=2 * k + 8)
+        b = rng.integers(0, n, size=2 * k + 8)
+        for x, y in zip(a.tolist(), b.tolist()):
+            if x == y:
+                continue
+            key = (min(x, y), max(x, y))
+            if key in existing:
+                continue
+            existing.add(key)
+            cu.append(x)
+            cv.append(y)
+            if len(cu) == extra_edges:
+                break
+    u = np.concatenate([tu, np.array(cu, dtype=np.int64)])
+    v = np.concatenate([tv, np.array(cv, dtype=np.int64)])
+    m = len(u)
+    if weight == "lognormal":
+        w = rng.lognormal(mean=0.0, sigma=1.0, size=m)
+    elif weight == "uniform":
+        w = rng.uniform(0.5, 2.0, size=m)
+    elif weight == "ties":  # many duplicate weights to stress tie-breaks
+        w = rng.integers(1, 4, size=m).astype(np.float64)
+    else:
+        raise ValueError(weight)
+    # shuffle edge order so edge-id tie-breaks are exercised
+    perm = rng.permutation(m)
+    g = Graph(n=n, u=u[perm].astype(np.int32), v=v[perm].astype(np.int32),
+              w=w[perm].astype(np.float32))
+    g.validate()
+    return g
+
+
+def feeder_like_graph(
+    n: int,
+    chords: int,
+    span: int = 24,
+    seed: int = 0,
+) -> Graph:
+    """Radial-feeder topology: a chain with `chords` local shortcuts.
+
+    Distribution networks are chain-heavy; on a chain, a chord (i, j)
+    has its shallower endpoint as the LCA, so almost every off-tree edge
+    is NON-crossing — phase 1 has nothing to decide and the Algorithm-6
+    recovery replay does all the work. This is the recovery-dominated
+    regime; the parity tests use it to hammer the non-crossing /
+    after-effects paths.
+    """
+    rng = np.random.default_rng(seed)
+    span = min(max(span, 2), n - 1)
+    tu = np.arange(n - 1, dtype=np.int64)
+    tv = np.arange(1, n, dtype=np.int64)
+    seen = set(zip(tu.tolist(), tv.tolist()))
+    cu, cv = [], []
+    # the generator only reaches pairs with 2 <= j - i <= span; clamping
+    # to the all-pairs bound would let the rejection loop spin forever
+    max_chords = sum(n - d for d in range(2, span + 1))
+    chords = min(chords, max_chords)
+    while len(cu) < chords:
+        i = int(rng.integers(0, n - 2))
+        j = min(i + int(rng.integers(2, span + 1)), n - 1)
+        key = (min(i, j), max(i, j))
+        if i == j or key in seen:
+            continue
+        seen.add(key)
+        cu.append(i)
+        cv.append(j)
+    u = np.concatenate([tu, np.array(cu, dtype=np.int64)])
+    v = np.concatenate([tv, np.array(cv, dtype=np.int64)])
+    w = rng.lognormal(0.0, 1.0, size=len(u))
+    perm = rng.permutation(len(u))
+    g = Graph(n=n, u=u[perm].astype(np.int32), v=v[perm].astype(np.int32),
+              w=w[perm].astype(np.float32))
+    g.validate()
+    return g
+
+
+def powergrid_like_graph(n_side: int, chord_frac: float = 0.25,
+                         seed: int = 0) -> Graph:
+    """2-D grid (power-grid-ish topology, as in the IPCC cases) + chords."""
+    rng = np.random.default_rng(seed)
+    n = n_side * n_side
+    idx = np.arange(n).reshape(n_side, n_side)
+    hu = idx[:, :-1].ravel()
+    hv = idx[:, 1:].ravel()
+    vu = idx[:-1, :].ravel()
+    vv = idx[1:, :].ravel()
+    u = np.concatenate([hu, vu])
+    v = np.concatenate([hv, vv])
+    existing = set(zip(np.minimum(u, v).tolist(), np.maximum(u, v).tolist()))
+    n_chords = int(chord_frac * n)
+    cu, cv = [], []
+    while len(cu) < n_chords:
+        x, y = int(rng.integers(0, n)), int(rng.integers(0, n))
+        if x == y:
+            continue
+        key = (min(x, y), max(x, y))
+        if key in existing:
+            continue
+        existing.add(key)
+        cu.append(x)
+        cv.append(y)
+    u = np.concatenate([u, np.array(cu, dtype=np.int64)])
+    v = np.concatenate([v, np.array(cv, dtype=np.int64)])
+    w = rng.lognormal(0.0, 0.5, size=len(u))
+    perm = rng.permutation(len(u))
+    g = Graph(n=n, u=u[perm].astype(np.int32), v=v[perm].astype(np.int32),
+              w=w[perm].astype(np.float32))
+    g.validate()
+    return g
+
+
+# The three official IPCC cases are 4K / 7K / 16K nodes. We reconstruct
+# equivalently-sized synthetic cases (the official inputs are not public).
+OFFICIAL_CASE_SHAPES = {
+    "case1": dict(n_side=64, chord_frac=0.25, seed=101),   # ~4K nodes
+    "case2": dict(n_side=84, chord_frac=0.20, seed=202),   # ~7K nodes
+    "case3": dict(n_side=127, chord_frac=0.25, seed=303),  # ~16K nodes
+}
+
+
+def official_case(name: str) -> Graph:
+    return powergrid_like_graph(**OFFICIAL_CASE_SHAPES[name])
+
+
+def from_reference(g) -> Graph:
+    """The port's `Graph` from any object with `.n` and `.u/.v/.w` numpy
+    arrays (for example `repro.core.graph.Graph`). The graph is the
+    system's only state, so this is how an input crosses between the
+    two packages; arrays are copied with the pipeline's dtypes."""
+    return Graph(n=int(g.n),
+                 u=np.array(g.u, dtype=np.int32),
+                 v=np.array(g.v, dtype=np.int32),
+                 w=np.array(g.w, dtype=np.float32))

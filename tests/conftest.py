@@ -20,6 +20,8 @@ def pytest_addoption(parser):
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: excluded from tier-1; enable with --run-slow")
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device; skips without one")
 
 
 def pytest_collection_modifyitems(config, items):
