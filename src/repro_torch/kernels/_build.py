@@ -24,18 +24,22 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("radix_hist.cu", "tree_dist.cu")
+SOURCES = ("radix_hist.cu", "tree_dist.cu", "spmv.cu",
+           "bitmap_intersect.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "librepro_torch_kernels.so"
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C entry points and their argument types (pointers and the stream as
 # c_void_p, so ctypes never truncates them to 32 bits)
 SIGNATURES = {
     "radix_hist_tile_elems": (),
     "radix_hist_launch": (_P, _I, _P, _P, _P, _P),
     "tree_dist_launch": (_P, _P, _I, _I, _P, _P, _I, _P, _P),
+    "spmv_csr_launch": (_P, _P, _P, _P, _I, _I, _P, _P),
+    "arc_sum_launch": (_P, _P, _I, _P, _I, _I, _I, _P, _P),
+    "bitmap_intersect_launch": (_P, _P, _LL, _I, _I, _P, _P),
 }
 
 _lib = None

@@ -1,8 +1,8 @@
 """The port's kernels and sorts against the JAX package, on the CPU.
 
-The plain versions of the two ported kernels (`repro_torch.kernels`) are
+The plain versions of the ported kernels (`repro_torch.kernels`) are
 held against the Pallas kernels run in interpret mode and against their
-jnp oracles; the port's radix sorts against `repro.core.sort` with both
+jnp oracles (the spmv's are in `tests/test_torch_spectral_probe.py`); the port's radix sorts against `repro.core.sort` with both
 of its engines. Every output is an integer or a permutation: tolerance
 zero (exact equality). The CUDA legs (marker `cuda`) need a card and
 skip here; on the card the JAX legs skip instead, since JAX is imported
@@ -17,7 +17,8 @@ import torch
 from repro_torch.core import _host as H
 from repro_torch.core import sort as tsort
 from repro_torch.core.graph import random_connected_graph
-from repro_torch.kernels import ops, radix_hist, ref, tree_dist
+from repro_torch.kernels import (bitmap_intersect, ops, radix_hist, ref,
+                                 tree_dist)
 
 torch.set_num_threads(1)
 
@@ -79,7 +80,11 @@ def test_bucket_rank_hist_plain_empty_and_chunk_invariant():
 def test_ops_route_by_device_and_never_count_cpu_calls():
     ops.reset_launch_counts()
     ops.bucket_rank_hist(torch.zeros(10, dtype=torch.int32))
-    assert ops.launch_counts() == {"radix_hist": 0, "tree_dist": 0}
+    ops.bitmap_intersect_any(torch.ones((3, 2), dtype=torch.int32),
+                             torch.ones((3, 2), dtype=torch.int32))
+    assert ops.launch_counts() == {
+        "radix_hist": 0, "tree_dist": 0, "laplacian_spmv": 0, "arc_sum": 0,
+        "bitmap_intersect": 0}
     with pytest.raises(ValueError):
         ops.bucket_rank_hist(torch.zeros(10, dtype=torch.int32,
                                          device="meta"))
@@ -88,6 +93,8 @@ def test_ops_route_by_device_and_never_count_cpu_calls():
     up = torch.zeros((1, 4), dtype=torch.int32)
     with pytest.raises(ValueError):
         tree_dist.tree_dist_pairs_cuda(up, up[0], up[0], up[0])
+    with pytest.raises(ValueError):
+        bitmap_intersect.bitmap_intersect_any_cuda(up, up)
 
 
 # -- sorts: the port's radix engine against repro.core.sort ----------------
@@ -196,6 +203,46 @@ def test_tree_dist_plain_matches_pallas(J, m):
         torch.from_numpy(b)).numpy(), want)
 
 
+# -- bitmap_intersect: per-row AND != 0 ----------------------------------
+
+def _bitmaps(l, w):
+    """Two (l, w) uint32 bitmaps, the second sparse, as in
+    tests/test_kernels.py."""
+    rng = np.random.default_rng(l + w)
+    m1 = rng.integers(0, 2 ** 32, (l, w), dtype=np.uint32)
+    m2 = (rng.integers(0, 2 ** 32, (l, w), dtype=np.uint32)
+          * (rng.random((l, w)) < 0.2)).astype(np.uint32)
+    return m1, m2
+
+
+@pytest.mark.parametrize("l,w", [(100, 1), (1024, 2), (2000, 4), (1, 3),
+                                 (0, 4)])
+def test_bitmap_intersect_plain_matches_pallas_and_ref(J, l, w):
+    m1, m2 = _bitmaps(l, w)
+    got = ops.bitmap_intersect_any(torch.from_numpy(m1.view(np.int32)),
+                                   torch.from_numpy(m2.view(np.int32)))
+    assert got.dtype == torch.bool and got.shape == (l,)
+    jm1, jm2 = J.jnp.asarray(m1), J.jnp.asarray(m2)
+    want = np.asarray(J.ref.bitmap_intersect_any_ref(jm1, jm2))
+    assert np.array_equal(got.numpy(), want)
+    assert np.array_equal(ref.bitmap_intersect_any_ref(
+        torch.from_numpy(m1.view(np.int32)),
+        torch.from_numpy(m2.view(np.int32))).numpy(), want)
+    if l:  # the Pallas entry cannot slice an empty array
+        assert np.array_equal(got.numpy(), np.asarray(
+            J.ops.bitmap_intersect_any(jm1, jm2, interpret=True)))
+
+
+def test_bitmap_intersect_sign_bit_counts():
+    """Only AND != 0 matters: a shared top bit (negative as int32) is an
+    intersection; disjoint words are not."""
+    top = np.array([[0x80000000, 0]], np.uint32)
+    low = np.array([[0x7FFFFFFF, 1]], np.uint32)
+    t = lambda a: torch.from_numpy(a.view(np.int32))  # noqa: E731
+    assert ops.bitmap_intersect_any(t(top), t(top)).tolist() == [True]
+    assert ops.bitmap_intersect_any(t(top), t(low)).tolist() == [False]
+
+
 # -- the CUDA kernels against their plain versions (card only) -------------
 
 @pytest.mark.cuda
@@ -220,3 +267,14 @@ def test_tree_dist_cuda_equals_plain(cuda_device, m):
     got = ops.tree_dist_pairs(*args)
     want = tree_dist.tree_dist_pairs_plain(*args)
     assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("l,w", [(0, 4), (1, 4), (36036, 1), (36036, 26),
+                                 (4096, 128), (100, 33)])
+def test_bitmap_intersect_cuda_equals_plain(cuda_device, l, w):
+    m1, m2 = (torch.from_numpy(x.view(np.int32)).to(cuda_device)
+              for x in _bitmaps(l, w))
+    got = ops.bitmap_intersect_any(m1, m2)
+    assert torch.equal(got, bitmap_intersect.bitmap_intersect_any_plain(
+        m1, m2))
