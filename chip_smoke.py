@@ -31,17 +31,31 @@ Phases, in order; any failed check exits non-zero:
      calibration against the dense pinv at n = 768, and the user's path
      (lgrass_sparsify on case3, then trace_similarity of tree, sparsifier
      and full graph); last, `bitmap_intersect_any` through its entry
-     against its plain version.
+     against its plain version;
+  5. lm: the flash-attention kernel (`csrc/flash_attention.cu`) against
+     its plain version on the card (the phi3-mini-3.8b prefill shape in
+     bf16 and fp32, internlm2-20b's GQA ratio, a window, ragged Sq != Sk,
+     -1 padding with query rows that see no key, one query against a
+     full and a ring cache), timed beside the plain version,
+     F.scaled_dot_product_attention and the bound; then phi3-mini-3.8b
+     at full width and depth 2 in fp32, the card against the CPU
+     (prefill and three decode steps); then the serving run: phi3 at
+     full width and depth in bf16, `generate` on 4 prompts of 2,048
+     tokens with 32 new tokens, twice (equal tokens, bit-equal logits),
+     32 flash launches per prefill, the serving contract (prefill +
+     decode against the full forward) and prefill, decode and profile
+     times.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. In the kernels line, `launches` counts the
 wrapper's calls over the whole run of its path (the four graphs of the
 default path for radix_hist; case1 and case3 under use_tree_kernel for
 tree_dist; the quality path for laplacian_spmv; the entry's five shapes
-for bitmap_intersect), `launches_per_graph` splits that count by graph
+for bitmap_intersect; one `generate` call of the serving run for
+flash_attention), `launches_per_graph` splits that count by graph
 (by estimator call, or by shape), and `cuda_kernels_per_launch` says how
-many CUDA kernels one wrapper call enqueues. Imports nothing of JAX or
-of `repro`.
+many CUDA kernels one wrapper call enqueues. Each phase prints its wall
+time. Imports nothing of JAX or of `repro`.
 """
 from __future__ import annotations
 
@@ -59,6 +73,7 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12      # H100 SXM non-tensor-core fp32/int32 rate
+BF16_OPS_PER_S = 989e12     # H100 SXM dense bf16 tensor-core rate
 CASES = ("case1", "case2", "case3")
 TIMED_CALLS = 3
 
@@ -101,9 +116,10 @@ def device_ms(fn, kernel_prefix: str, iters: int = 20) -> float:
     return total_us / iters / 1e3
 
 
-def bound_ms(n_bytes: float, n_ops: float) -> tuple:
+def bound_ms(n_bytes: float, n_ops: float,
+             ops_per_s: float = FP32_OPS_PER_S) -> tuple:
     by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    by_ops = n_ops / FP32_OPS_PER_S * 1e3
+    by_ops = n_ops / ops_per_s * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
                                                            "operations")
 
@@ -628,6 +644,418 @@ def phase_quality(dev, graphs):
     return spmv_entry, bit_entry, path_counts["radix_hist"]
 
 
+# -- phase 5: the LM serving path -----------------------------------------
+
+LM_ARCH = "phi3-mini-3.8b"
+SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 2048, 32
+PARITY_DEPTH, PARITY_BATCH, PARITY_PROMPT = 2, 2, 256
+F32_TOL = 2e-5  # atol = rtol, the reference's own kernel tests
+
+
+def _ring(slots: int, last: int) -> np.ndarray:
+    """Slot positions of a ring cache after writing 0..last (-1 empty)."""
+    kpos = np.full(slots, -1, np.int32)
+    p = np.arange(last + 1)
+    kpos[p % slots] = p  # later positions overwrite earlier ones
+    return kpos
+
+
+def _flash_cases():
+    """(b, sq, sk, h, kv, d, dtype, qpos, kpos, causal, window) per name;
+    positions None mean 0..S-1."""
+    bf, f32 = torch.bfloat16, torch.float32
+    pad_q, pad_k = np.arange(512, dtype=np.int32), np.arange(
+        512, dtype=np.int32)
+    pad_q[:4], pad_q[4] = -1, 1     # rows 0-4 see no key
+    pad_k[:2], pad_k[-7:] = -1, -1
+    full_cache = np.full(2081, -1, np.int32)
+    full_cache[:2049] = np.arange(2049)
+    return {
+        "phi3 prefill bf16": (4, 2048, 2048, 32, 32, 96, bf, None, None,
+                              True, None),
+        "phi3 prefill fp32": (4, 2048, 2048, 32, 32, 96, f32, None, None,
+                              True, None),
+        "internlm2 GQA 48/8 d128 bf16": (1, 1024, 1024, 48, 8, 128, bf,
+                                         None, None, True, None),
+        "window 1024 S=3072 bf16": (1, 3072, 3072, 32, 32, 96, bf, None,
+                                    None, True, 1024),
+        "ragged Sq=1000 Sk=1537 fp32": (2, 1000, 1537, 32, 32, 96, f32,
+                                        np.arange(537, 1537), None, True,
+                                        None),
+        "padding, empty rows fp32": (2, 512, 512, 8, 8, 128, f32, pad_q,
+                                     pad_k, True, None),
+        "padding, empty rows bf16": (2, 512, 512, 8, 8, 128, bf, pad_q,
+                                     pad_k, True, None),
+        "Sq=1, full cache bf16": (4, 1, 2081, 32, 32, 96, bf,
+                                  np.array([2048]), full_cache, True, None),
+        "Sq=1, ring of 1024 bf16": (4, 1, 1024, 32, 32, 96, bf,
+                                    np.array([3000]), _ring(1024, 3000),
+                                    True, 1024),
+    }
+
+
+def _flash_inputs(dev, case, seed):
+    b, sq, sk, h, kv, d, dt, qpos, kpos, causal, window = case
+    g = torch.Generator(dev).manual_seed(seed)
+    q, k, v = (torch.randn(shape, generator=g, device=dev).to(dt)
+               for shape in ((b, sq, h, d), (b, sk, kv, d), (b, sk, kv, d)))
+    qp = torch.as_tensor(np.arange(sq) if qpos is None else qpos,
+                         dtype=torch.int32, device=dev)
+    kp = torch.as_tensor(np.arange(sk) if kpos is None else kpos,
+                         dtype=torch.int32, device=dev)
+    return q, k, v, qp, kp, causal, window
+
+
+def _flash_bound(q, k, v, qpos, kpos, causal, window) -> tuple:
+    """Bytes: q, k, v read once and out written once; operations: the two
+    products over the visible (query, key) pairs of this run's positions
+    (4·d FLOP per pair and query head), at the dtype's peak rate."""
+    from repro_torch.kernels import flash_attention as fa
+
+    b, _, h, d = q.shape
+    visible = int(fa.visible_mask(qpos, kpos, causal, window).sum())
+    n_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    rate = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else FP32_OPS_PER_S
+    return bound_ms(n_bytes, 4 * d * b * h * visible, rate)
+
+
+def _check_flash(dev):
+    """The kernel against its plain version on the card at every case;
+    returns {case: max abs error}."""
+    from repro_torch.kernels import flash_attention as fa
+
+    errors = {}
+    for i, (name, case) in enumerate(_flash_cases().items()):
+        args = _flash_inputs(dev, case, seed=100 + i)
+        got = fa.flash_attention_cuda(*args)
+        torch.cuda.synchronize()
+        if got.dtype == torch.bfloat16:
+            # one ulp of the output plus what rounding p to bf16 can move
+            # it (fa.bf16_agreement), and a relative L2 limit
+            res = fa.bf16_agreement(got, *args)
+            ok, err = res.pop("ok"), res["max_abs_err"]
+            how = (f"worst err / its bound {res['worst']:.3f}, relative L2 "
+                   f"{res['rel_l2']:.3e} (limit {fa.BF16_REL_L2:g}), mean "
+                   f"|want| {res['mean_abs_want']:.3e}")
+        else:
+            want = fa.flash_attention_plain(*args)
+            err = float((got - want).abs().max())
+            ok = torch.allclose(got, want, atol=F32_TOL, rtol=F32_TOL)
+            how = f"atol = rtol = {F32_TOL:g}"
+        errors[name] = err
+        print(f"flash_attention {name}: max abs err {err:.3e}, {how}, "
+              f"within {ok}")
+        check(ok, f"flash_attention differs from its plain version at {name}")
+        check(torch.equal(got, fa.flash_attention_cuda(*args)),
+              f"flash_attention: two launches differ at {name}")
+    return errors
+
+
+def _time_flash(dev, name):
+    """The kernel at one case: CUDA-event and device time beside the plain
+    version, F.scaled_dot_product_attention and the bound."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v, qp, kp, causal, window = args = _flash_inputs(
+        dev, _flash_cases()[name], seed=7)
+    check(window is None and causal and torch.equal(qp, kp),
+          "the SDPA yardstick takes a causal square case")
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, is_causal=True)
+    lib_diff = float((sdpa().transpose(1, 2).float()
+                      - fa.flash_attention_cuda(*args).float()).abs().max())
+    b_ms, b_by = _flash_bound(*args)
+    kernel = ("flash_attention_mma_kernel" if q.dtype == torch.bfloat16
+              else "flash_attention_tile_kernel")
+    return dict(
+        ms=time_cuda(lambda: fa.flash_attention_cuda(*args), iters=10),
+        device_ms=device_ms(lambda: fa.flash_attention_cuda(*args), kernel,
+                            iters=10),
+        plain_ms=time_cuda(lambda: fa.flash_attention_plain(*args), iters=3,
+                           warmup=1),
+        library_ms=time_cuda(sdpa, iters=10),
+        library_max_abs_diff=lib_diff,
+        bound_ms=b_ms, bound_by=b_by,
+        at=f"B={q.shape[0]} S={q.shape[1]} H={q.shape[2]} d={q.shape[3]} "
+           f"{str(q.dtype).replace('torch.', '')} causal")
+
+
+def _parity_depth2(dev):
+    """phi3 at full width and depth 2 in fp32, weights drawn on a CPU
+    generator: the card against the CPU, prefill's last logits and three
+    decode steps fed the same (the CPU's greedy) tokens. Returns the max
+    abs difference and the card run's flash launches."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import LM
+
+    cfg = dataclasses.replace(get_arch(LM_ARCH), n_layers=PARITY_DEPTH,
+                              dtype="float32")
+    cpu = LM(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    gpu = LM(cfg, device=dev)
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(1)
+    prompt = torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, (PARITY_BATCH, PARITY_PROMPT)), dtype=torch.int32)
+    max_len = PARITY_PROMPT + 4
+    ops.reset_launch_counts()
+    with torch.inference_mode():
+        c_cpu = cpu.init_caches(PARITY_BATCH, max_len)
+        c_gpu = gpu.init_caches(PARITY_BATCH, max_len)
+        l_cpu, c_cpu = cpu.prefill(prompt, c_cpu)
+        l_gpu, c_gpu = gpu.prefill(prompt.to(dev), c_gpu)
+        pairs = [("prefill", l_cpu, l_gpu)]
+        for i in range(3):
+            tok = torch.argmax(l_cpu, dim=-1).to(torch.int32)[:, None]
+            pos = PARITY_PROMPT + i
+            l_cpu, c_cpu = cpu.decode_step(tok, pos, c_cpu)
+            l_gpu, c_gpu = gpu.decode_step(tok.to(dev), pos, c_gpu)
+            pairs.append((f"decode {pos}", l_cpu, l_gpu))
+    launches = ops.launch_counts()["flash_attention"]
+    worst = 0.0
+    for what, a, b in pairs:
+        b = b.cpu()
+        diff = float((a - b).abs().max())
+        worst = max(worst, diff)
+        ok = torch.allclose(b, a, atol=1e-4, rtol=1e-4)
+        print(f"lm parity {LM_ARCH} depth {PARITY_DEPTH} fp32 {what}: max abs "
+              f"diff card vs CPU {diff:.3e} (|logit| max "
+              f"{float(a.abs().max()):.2f}), allclose 1e-4 {ok}")
+        check(ok, f"lm parity: card and CPU differ at {what}")
+    check(launches == PARITY_DEPTH,
+          f"lm parity: {launches} flash launches on the card's prefill")
+    return worst, launches
+
+
+def _run_steps(model, prompt, max_len):
+    """`generate`'s loop through the serving steps, keeping what generate
+    drops: the (B, new) tokens, the (B, new, V) logits that chose them,
+    the prefill's ms and each decode step's ms (host clock around work
+    that ends in a synchronize)."""
+    from repro_torch.serve.serve_step import make_decode_step, \
+        make_prefill_step
+
+    prefill, decode = make_prefill_step(model), make_decode_step(model)
+    b, s = prompt.shape
+    with torch.inference_mode():
+        caches = model.init_caches(b, max_len)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = prefill(prompt, caches)
+        torch.cuda.synchronize()
+        pre_ms = (time.perf_counter() - t0) * 1e3
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+        toks, all_logits, dec_ms = [tok], [logits], []
+        for i in range(SERVE_NEW - 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tok, logits, caches = decode(tok, s + i, caches)
+            torch.cuda.synchronize()
+            dec_ms.append((time.perf_counter() - t0) * 1e3)
+            toks.append(tok)
+            all_logits.append(logits)
+    return torch.cat(toks, dim=1), torch.stack(all_logits, dim=1), \
+        pre_ms, dec_ms
+
+
+def _profile(fn):
+    """Device time of one call of fn by kind of kernel, from torch.profiler;
+    the device's busy share of its wall time and its kernel launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kinds = {"flash": 0.0, "gemm": 0.0, "other": 0.0}
+    launches = 0
+    for e in prof.key_averages():
+        if e.key == "cudaLaunchKernel":
+            launches += e.count
+        if e.device_type != DeviceType.CUDA or e.is_user_annotation:
+            continue
+        key = e.key.lower()
+        if "flash_attention_" in key:
+            kind = "flash"
+        elif any(t in key for t in ("gemm", "xmma", "cutlass", "nvjet")):
+            kind = "gemm"
+        else:
+            kind = "other"
+        kinds[kind] += e.self_device_time_total / 1e3
+    busy = sum(kinds.values())
+    return dict(kinds, wall_ms=wall, busy_ms=busy, busy_share=busy / wall,
+                launches=launches)
+
+
+def _profile_serving(model, prompt, max_len):
+    """One prefill and one decode step under the profiler."""
+    caches = model.init_caches(prompt.shape[0], max_len)
+    s = prompt.shape[1]
+    tok = prompt[:, -1:]
+    with torch.inference_mode():
+        prefill = _profile(lambda: model.prefill(prompt, caches))
+        decode = _profile(lambda: model.decode_step(tok, s, caches))
+    return prefill, decode
+
+
+def _flash_on_path_inputs(model, prompt, max_len):
+    """The flash kernel alone on the inputs the path gives it: those of
+    the first layer's call in one prefill, caught by wrapping
+    ops.flash_attention for that prefill. Device time per launch from
+    torch.profiler, beside the inputs' strides."""
+    from repro_torch.kernels import ops
+
+    wrapped, seen = ops.flash_attention, []
+
+    def catch(*args, **kwargs):
+        seen.append((args, kwargs))
+        return wrapped(*args, **kwargs)
+
+    ops.flash_attention = catch
+    try:
+        with torch.inference_mode():
+            model.prefill(prompt, model.init_caches(prompt.shape[0],
+                                                    max_len))
+    finally:
+        ops.flash_attention = wrapped
+    args, kwargs = seen[0]
+    with torch.inference_mode():
+        ms = device_ms(lambda: wrapped(*args, **kwargs),
+                       "flash_attention_mma_kernel", iters=10)
+    return dict(isolated_device_ms=ms,
+                strides=[list(x.stride()) for x in args[:3]])
+
+
+def _serve(dev):
+    """The serving run at full width and depth in bf16. Returns the flash
+    launches of one `generate` call and the run's numbers."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import LM
+    from repro_torch.serve.serve_step import generate
+
+    cfg = get_arch(LM_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = LM(cfg, generator=torch.Generator(dev).manual_seed(0),
+               device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    rng = np.random.default_rng(2)
+    prompt = torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT)), dtype=torch.int32,
+        device=dev)
+    max_len = SERVE_PROMPT + SERVE_NEW + 1
+
+    runs = []
+    for _ in range(2):
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        toks = generate(model, prompt, SERVE_NEW, max_len)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        print(f"lm serve {LM_ARCH} B={SERVE_BATCH} S={SERVE_PROMPT} new="
+              f"{SERVE_NEW}: generate {wall:.2f} s, launches {counts}")
+        check(counts["flash_attention"] == cfg.n_layers,
+              f"generate made {counts['flash_attention']} flash launches, "
+              f"not {cfg.n_layers} (one per layer of the prefill)")
+        check(sum(counts.values()) == counts["flash_attention"],
+              "generate launched another kernel of the port")
+        runs.append((toks, wall, counts["flash_attention"]))
+    (toks, gen_s, launches), (toks2, gen2_s, _) = runs
+    check(toks.shape == (SERVE_BATCH, SERVE_NEW), f"tokens {toks.shape}")
+    check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+          "a token outside the vocabulary")
+    check(torch.equal(toks, toks2), "two generate runs differ")
+
+    # the same loop through the serving steps, for its logits and times:
+    # a warm-up run, then TIMED_CALLS runs; each the tokens of generate
+    steps = []
+    for _ in range(1 + TIMED_CALLS):
+        ops.reset_launch_counts()
+        steps.append(_run_steps(model, prompt, max_len))
+        check(ops.launch_counts()["flash_attention"] == cfg.n_layers,
+              "the serving steps made another number of flash launches")
+    logits = steps[0][1]
+    check(bool(torch.isfinite(logits).all()), "serving logits not finite")
+    for st_toks, st_logits, _, _ in steps:
+        check(torch.equal(st_toks, toks), "the serving steps chose other "
+              "tokens than generate")
+        check(torch.equal(st_logits, logits), "two runs' logits differ")
+    prefill_ms = statistics.median(st[2] for st in steps[1:])
+    decode_ms = statistics.median(t for st in steps[1:] for t in st[3])
+
+    # the serving contract: decode's logits at position S against the full
+    # forward over the prompt and the first generated token
+    with torch.inference_mode():
+        full = model(torch.cat([prompt, toks[:, :1]], dim=1))[:, -1]
+    a, b = full.float(), logits[:, 1].float()
+    rel = float(torch.linalg.vector_norm(a - b)
+                / torch.linalg.vector_norm(a))
+    print(f"lm serve contract: decode logits at position {SERVE_PROMPT} vs "
+          f"the full forward over {SERVE_PROMPT + 1} tokens: relative L2 "
+          f"{rel:.4e} (limit 5e-2), max abs {float((a - b).abs().max()):.4e}"
+          f", greedy tokens equal {bool(torch.equal(a.argmax(-1), b.argmax(-1)))}")
+    check(rel <= 5e-2, f"serving contract: relative L2 {rel}")
+
+    prof_prefill, prof_decode = _profile_serving(model, prompt, max_len)
+    on_path = _flash_on_path_inputs(model, prompt, max_len)
+    on_path["profile_prefill_ms_per_launch"] = (prof_prefill["flash"]
+                                                / cfg.n_layers)
+    print(f"lm flash per launch: {on_path}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    numbers = dict(
+        arch=LM_ARCH, params=n_params, batch=SERVE_BATCH,
+        prompt=SERVE_PROMPT, new_tokens=SERVE_NEW, init_s=init_s,
+        generate_s=[gen_s, gen2_s], prefill_ms=prefill_ms,
+        prefill_tok_per_s=SERVE_BATCH * SERVE_PROMPT / prefill_ms * 1e3,
+        decode_ms_per_step=decode_ms,
+        decode_tok_per_s=SERVE_BATCH / decode_ms * 1e3,
+        contract_rel_l2=rel, peak_memory_gb=peak_gb,
+        flash_on_path=on_path,
+        prefill_profile_ms=prof_prefill, decode_profile_ms=prof_decode)
+    print(f"lm serve numbers: {json.dumps(numbers)}")
+    return launches, numbers
+
+
+def phase_lm(dev):
+    """Kernel checks and times, the depth-2 parity, then the serving run.
+    Returns the flash_attention entry of the kernels line."""
+    from repro_torch.kernels import ops
+
+    errors = _check_flash(dev)
+    timing = _time_flash(dev, "phi3 prefill bf16")
+    timing32 = _time_flash(dev, "phi3 prefill fp32")
+    print(f"flash_attention timings {timing['at']}: {timing}")
+    print(f"flash_attention timings {timing32['at']}: {timing32}")
+    ops.reset_launch_counts()  # the checks above are not the main path
+    parity_diff, parity_launches = _parity_depth2(dev)
+    launches, numbers = _serve(dev)
+    bf16_errs = [e for n, e in errors.items() if "fp32" not in n]
+    return dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:72",
+        launches=launches, launches_per_graph={"prefill": launches},
+        cuda_kernels_per_launch=1, max_abs_err=max(bf16_errs),
+        max_abs_err_fp32=max(e for n, e in errors.items() if "fp32" in n),
+        max_abs_err_per_case=errors, **timing, fp32=timing32,
+        parity_depth2_max_abs_diff=parity_diff,
+        parity_depth2_launches=parity_launches, serve=numbers)
+
+
 def phase_profile(dev, g, out_dir):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -694,22 +1122,31 @@ def main(argv) -> int:
     lifting = (H.build_lifting_np(b3.parent_tree, b3.depth_tree,
                                   graphs["case3"].n), b3.depth_tree)
 
+    t0 = time.perf_counter()
     report = phase_kernels(dev, lifting)
+    print(f"phase kernels: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     main_counts, tree_counts, radix_per, tree_per = phase_pipeline(
         dev, graphs, {k: b.edge_mask for k, b in base.items()})
+    print(f"phase pipeline: {time.perf_counter() - t0:.1f} s")
     report["radix_hist"]["launches"] = main_counts["radix_hist"]
     report["radix_hist"]["launches_per_graph"] = radix_per
     report["tree_dist"]["launches"] = tree_counts["tree_dist"]
     report["tree_dist"]["launches_per_graph"] = tree_per
+    t0 = time.perf_counter()
     spmv_entry, bit_entry, radix_quality = phase_quality(dev, graphs)
+    print(f"phase quality: {time.perf_counter() - t0:.1f} s")
     report["radix_hist"]["launches_quality_path"] = radix_quality
+    t0 = time.perf_counter()
+    flash_entry = phase_lm(dev)
+    print(f"phase lm: {time.perf_counter() - t0:.1f} s")
     if args.profile:
         phase_profile(dev, graphs["case3"], args.profile)
         profile_estimator(dev, _big_graph(), args.profile)
 
     print(f"card: {card}")
     print(json.dumps({"kernels": [report["radix_hist"], report["tree_dist"],
-                                  spmv_entry, bit_entry]}))
+                                  spmv_entry, bit_entry, flash_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -25,12 +25,13 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("radix_hist.cu", "tree_dist.cu", "spmv.cu",
-           "bitmap_intersect.cu")
+           "bitmap_intersect.cu", "flash_attention.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "librepro_torch_kernels.so"
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_F = ctypes.c_float
 # C entry points and their argument types (pointers and the stream as
 # c_void_p, so ctypes never truncates them to 32 bits)
 SIGNATURES = {
@@ -40,6 +41,8 @@ SIGNATURES = {
     "spmv_csr_launch": (_P, _P, _P, _P, _I, _I, _P, _P),
     "arc_sum_launch": (_P, _P, _I, _P, _I, _I, _I, _P, _P),
     "bitmap_intersect_launch": (_P, _P, _LL, _I, _I, _P, _P),
+    "flash_attention_launch": (_P,) * 6 + (_I,) * 7 + (_LL,) * 9
+                              + (_I, _I, _F, _P),
 }
 
 _lib = None

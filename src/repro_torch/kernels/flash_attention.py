@@ -1,0 +1,205 @@
+"""Forward attention with masks from position vectors (flash attention).
+
+The port of `repro.kernels.flash_attention.flash_attention_bhsd` with
+the layout and GQA mapping of `repro.kernels.ops.flash_attention`: q
+(B, Sq, H, d), k and v (B, Sk, Kv, d), query head h reading kv head
+h // (H / Kv); qpos (Sq,) and kpos (Sk,) int32 positions, −1 marking
+padding. For each query row the visible keys are
+
+    kpos >= 0  ∧  (causal: kpos <= qpos)  ∧  (window: kpos > qpos − window),
+
+the fp32 scores q·k are scaled by d**-0.5 after the product, masked
+scores are −1e30, and the output is softmax(scores) · v in q's dtype. A
+row with no visible key therefore averages v over all Sk keys, as both
+the Pallas kernel and its jnp oracle do.
+
+Two executions of the one function:
+
+  * `flash_attention_cuda` launches the hand-written Hopper kernels in
+    `csrc/flash_attention.cu` on the tensors as they lie: q, k and v are
+    read in the (B, S, H, d) layout through their strides (no transpose
+    and no GQA repeat is made), the output is a new contiguous
+    (B, Sq, H, d) tensor. bfloat16 runs on the tensor cores (mma.sync),
+    float32 on the CUDA cores in full fp32. It takes d in `HEAD_DIMS` and
+    any Sq, Sk. Its launches are counted in `launches`;
+  * `flash_attention_plain` is the plain PyTorch version, the formula of
+    `repro.kernels.ref.flash_attention_ref`: fp32 scores, −1e30, softmax,
+    P·V in fp32. Above `CHUNK_THRESHOLD` queries it works in chunks of
+    `CHUNK` queries, as the reference's CPU attention bounds its memory.
+
+`bf16_agreement` is the bound that the checks hold a bfloat16 output to.
+
+`kernels/ops.py` picks between them by the tensors' device.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+NEG_INF = -1e30
+HEAD_DIMS = (16, 32, 64, 80, 96, 128)
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# query chunking of the plain version (repro.models.attention:94-95)
+CHUNK_THRESHOLD = 8192
+CHUNK = 1024
+
+# the bf16 agreement of the kernel with the plain version (bf16_agreement)
+BF16_ATOL, BF16_RTOL, BF16_REL_L2 = 2e-3, 1e-2, 1e-2
+BF16_MAX_ABS = 3e-2  # the reference's own bf16 tolerance, kept as a ceiling
+
+# CUDA launches of the kernel since the last reset (kernels/ops.py).
+launches = 0
+
+
+def visible_mask(qpos: torch.Tensor, kpos: torch.Tensor, causal: bool,
+                 window: Optional[int]) -> torch.Tensor:
+    """(Sq, Sk) bool: which keys each query row sees."""
+    qp, kp = qpos.to(torch.int64)[:, None], kpos.to(torch.int64)[None, :]
+    mask = (kp >= 0).expand(qp.shape[0], kp.shape[1])
+    if causal:
+        mask = mask & (kp <= qp)
+    if window is not None:
+        mask = mask & (kp > qp - window)
+    return mask
+
+
+def _attend_plain(q, k, v, qpos, kpos, causal, window):
+    b, sq, h, d = q.shape
+    kvh = k.shape[2]
+    g = h // kvh
+    qg = q.reshape(b, sq, kvh, g, d).to(torch.float32)
+    s = torch.einsum("bqkgd,btkd->bkgqt", qg, k.to(torch.float32))
+    s = s * (d ** -0.5)
+    mask = visible_mask(qpos, kpos, causal, window)
+    s = torch.where(mask, s, torch.full((), NEG_INF, dtype=s.dtype,
+                                        device=s.device))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgqt,btkd->bqkgd", p, v.to(torch.float32))
+    return out.reshape(b, sq, h, d).to(q.dtype)
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          qpos: torch.Tensor, kpos: torch.Tensor,
+                          causal: bool = True,
+                          window: Optional[int] = None) -> torch.Tensor:
+    """Plain version: q (B, Sq, H, d), k/v (B, Sk, Kv, d) → (B, Sq, H, d)
+    in q's dtype; the query heads of a group share their kv head by a
+    reshape, not a copy."""
+    sq = q.shape[1]
+    if sq <= CHUNK_THRESHOLD:
+        return _attend_plain(q, k, v, qpos, kpos, causal, window)
+    return torch.cat([_attend_plain(q[:, i:i + CHUNK], k, v,
+                                    qpos[i:i + CHUNK], kpos, causal, window)
+                      for i in range(0, sq, CHUNK)], dim=1)
+
+
+def bf16_agreement(out: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
+                   v: torch.Tensor, qpos: torch.Tensor, kpos: torch.Tensor,
+                   causal: bool = True,
+                   window: Optional[int] = None) -> dict:
+    """How far a bfloat16 `out` of an engine that rounds p to bf16 before
+    P·V (the kernel, and the reference's Pallas kernel) lies from the plain
+    version, which does not. Each element is held to
+
+        BF16_ATOL + BF16_RTOL·|plain| + 2^-7 · Σ p|v| / l :
+
+    the fp32 sums' own differences near 0; one bf16 ulp of the output
+    (at most 2^-7 of |x|); and twice the most that rounding each p (by at
+    most 2^-8 of p) can move the output, Σ p|v| / l being the plain
+    version on |v|. The whole is held to a relative L2 error of
+    BF16_REL_L2, and no error may pass BF16_MAX_ABS. Returns the max abs error, `worst` (the largest error
+    over its element's bound), the relative L2 error, the mean |plain|
+    and `ok`."""
+    want = flash_attention_plain(q, k, v, qpos, kpos, causal,
+                                 window).float()
+    spread = flash_attention_plain(q, k, v.abs(), qpos, kpos, causal,
+                                   window).float()
+    bound = BF16_ATOL + BF16_RTOL * want.abs() + 2 ** -7 * spread
+    diff = (out.float() - want).abs()
+    worst = float((diff / bound).max())
+    rel = float(torch.linalg.vector_norm(diff)
+                / torch.linalg.vector_norm(want))
+    err = float(diff.max())
+    return dict(max_abs_err=err, worst=worst, rel_l2=rel,
+                mean_abs_want=float(want.abs().mean()),
+                ok=worst <= 1.0 and rel <= BF16_REL_L2
+                and err <= BF16_MAX_ABS)
+
+
+def check_kernel_args(q, k, v, qpos, kpos, window) -> None:
+    """Raise ValueError on shapes, dtypes or a window that the kernel
+    does not take (devices aside)."""
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"q (B, Sq, H, d) and k, v (B, Sk, Kv, d) expected, "
+                         f"got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    b, sq, h, d = q.shape
+    if k.shape[0] != b or k.shape[3] != d or h % k.shape[2] != 0:
+        raise ValueError(f"k/v {tuple(k.shape)} do not fit q {tuple(q.shape)}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head_dim {d} not taken by the kernel "
+                         f"(takes {HEAD_DIMS})")
+    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"q, k, v must share one dtype of "
+                         f"{tuple(DTYPES)}, got {q.dtype}, {k.dtype}, "
+                         f"{v.dtype}")
+    if qpos.shape != (sq,) or kpos.shape != (k.shape[1],):
+        raise ValueError(f"qpos ({sq},) and kpos ({k.shape[1]},) expected, "
+                         f"got {tuple(qpos.shape)}, {tuple(kpos.shape)}")
+    if window is not None and window <= 0:
+        raise ValueError(f"window must be positive, got {window}")
+
+
+def _readable(x: torch.Tensor) -> bool:
+    """Whether the kernel reads x in place: a unit stride on d and, for
+    the bf16 kernel's 16-byte loads of 8 elements, a 16-byte aligned start
+    and strides in multiples of 8 elements."""
+    if x.stride(-1) != 1:
+        return False
+    if x.dtype != torch.bfloat16:
+        return True
+    return x.data_ptr() % 16 == 0 and all(st % 8 == 0
+                                          for st in x.stride()[:-1])
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         qpos: torch.Tensor, kpos: torch.Tensor,
+                         causal: bool = True,
+                         window: Optional[int] = None) -> torch.Tensor:
+    """Launch `csrc/flash_attention.cu` on the current stream of q's
+    device. q (B, Sq, H, d), k/v (B, Sk, Kv, d), any strides with a unit
+    stride on d (a tensor the kernel cannot read in place is copied);
+    qpos (Sq,), kpos (Sk,) integer positions. Returns a contiguous
+    (B, Sq, H, d) tensor."""
+    global launches
+    dev = q.device
+    for name, x in (("q", q), ("k", k), ("v", v), ("qpos", qpos),
+                    ("kpos", kpos)):
+        if x.device != dev or dev.type != "cuda":
+            raise ValueError(f"{name} must be on q's CUDA device, got "
+                             f"{x.device}")
+    check_kernel_args(q, k, v, qpos, kpos, window)
+    q, k, v = (x if _readable(x) else x.clone(
+        memory_format=torch.contiguous_format) for x in (q, k, v))
+    qpos = qpos.to(torch.int32).contiguous()
+    kpos = kpos.to(torch.int32).contiguous()
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    if out.numel() == 0:
+        return out
+    from repro_torch.kernels._build import library
+
+    lib = library()
+    with torch.cuda.device(dev):
+        err = lib.flash_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), qpos.data_ptr(),
+            kpos.data_ptr(), out.data_ptr(), DTYPES[q.dtype], b, h, kvh, sq,
+            sk, d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            int(causal), 0 if window is None else int(window),
+            float(d ** -0.5), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
+    launches += 1
+    return out

@@ -11,7 +11,9 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import bitmap_intersect, radix_hist, spmv, tree_dist
+from repro_torch.kernels import bitmap_intersect
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import radix_hist, spmv, tree_dist
 
 # counter name -> (module, attribute holding its CUDA launches)
 _COUNTERS = {
@@ -20,6 +22,7 @@ _COUNTERS = {
     "laplacian_spmv": (spmv, "launches"),
     "arc_sum": (spmv, "arc_sum_launches"),
     "bitmap_intersect": (bitmap_intersect, "launches"),
+    "flash_attention": (fa, "launches"),
 }
 
 
@@ -80,6 +83,22 @@ def bitmap_intersect_any(m1: torch.Tensor, m2: torch.Tensor) -> torch.Tensor:
         return bitmap_intersect.bitmap_intersect_any_cuda(
             m1.contiguous(), m2.contiguous())
     return bitmap_intersect.bitmap_intersect_any_plain(m1, m2)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    qpos: Optional[torch.Tensor] = None,
+                    kpos: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """q: (B, Sq, H, d); k/v: (B, Sk, Kv, d), query head h reading kv
+    head h // (H / Kv). qpos (Sq,) / kpos (Sk,) default to 0..S-1; -1
+    marks padding. Returns (B, Sq, H, d) in q's dtype."""
+    if qpos is None:
+        qpos = torch.arange(q.shape[1], dtype=torch.int32, device=q.device)
+    if kpos is None:
+        kpos = torch.arange(k.shape[1], dtype=torch.int32, device=k.device)
+    if _route(q) == "cuda":
+        return fa.flash_attention_cuda(q, k, v, qpos, kpos, causal, window)
+    return fa.flash_attention_plain(q, k, v, qpos, kpos, causal, window)
 
 
 def launch_counts() -> dict:

@@ -84,7 +84,7 @@ def test_ops_route_by_device_and_never_count_cpu_calls():
                              torch.ones((3, 2), dtype=torch.int32))
     assert ops.launch_counts() == {
         "radix_hist": 0, "tree_dist": 0, "laplacian_spmv": 0, "arc_sum": 0,
-        "bitmap_intersect": 0}
+        "bitmap_intersect": 0, "flash_attention": 0}
     with pytest.raises(ValueError):
         ops.bucket_rank_hist(torch.zeros(10, dtype=torch.int32,
                                          device="meta"))
@@ -95,6 +95,23 @@ def test_ops_route_by_device_and_never_count_cpu_calls():
         tree_dist.tree_dist_pairs_cuda(up, up[0], up[0], up[0])
     with pytest.raises(ValueError):
         bitmap_intersect.bitmap_intersect_any_cuda(up, up)
+
+
+def test_build_signatures_name_every_c_entry_point():
+    """Each `extern "C"` function of csrc/*.cu has its ctypes signature in
+    `_build.SIGNATURES`, with its number of arguments, and nothing else is
+    listed (a name missing from the library fails only at load time)."""
+    import re
+
+    from repro_torch.kernels import _build
+
+    found = {}
+    for name in _build.SOURCES:
+        src = (_build.CSRC / name).read_text()
+        for m in re.finditer(r'extern "C" int (\w+)\(([^)]*)\)', src):
+            args = [a for a in m.group(2).split(",") if a.strip()]
+            found[m.group(1)] = len(args)
+    assert found == {k: len(v) for k, v in _build.SIGNATURES.items()}
 
 
 # -- sorts: the port's radix engine against repro.core.sort ----------------
