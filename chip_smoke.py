@@ -9,12 +9,16 @@ Phases, in order; any failed check exits non-zero:
 
   1. the card's name and power limit (nvidia-smi), then the build of
      src/repro_torch/csrc/*.cu with nvcc for sm_90a, timed;
-  2. kernels: the radix and tree-distance kernels against their plain
-     PyTorch versions on the card, at the main path's shapes (outputs
-     must be equal), then timed
-     with CUDA events beside its plain version, the least time the card
-     could take (bytes over 3.35 TB/s) and, for the radix pass, the full
-     4-pass argsort beside torch.sort(stable=True) as a yardstick;
+  2. kernels: the radix argsort (`csrc/radix_hist.cu`, onesweep), u32
+     and (hi, lo) pair, equal to torch.sort(stable=True) and to its plain
+     version on a CPU copy at tile edges and the main path's sizes, with
+     random, all-equal and 0xFFFFFFFF-mixed keys, called back to back and
+     at changing sizes; the radix rank entry and the tree-distance kernel
+     against their plain versions (outputs must be equal); then each
+     timed with CUDA events and torch.profiler beside its plain version,
+     the least time the card could take (bytes over 3.35 TB/s) and, for
+     the argsort at M = 36,036, 72,072 and 639,998,
+     torch.sort(stable=True) on the same keys as a yardstick;
   3. pipeline: `repro_torch.core.lgrass_sparsify` on the CUDA device for
      the three IPCC cases and the 4K feeder, masks equal to the numpy
      baseline oracle (and to a CPU run of the port for case1), with the
@@ -98,22 +102,45 @@ def time_cuda(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, kernel_prefix: str, iters: int = 20) -> float:
-    """Mean device time per call of the CUDA kernels whose names contain
-    `kernel_prefix`, from a torch.profiler trace of `iters` calls: the
-    card's own time, without the host's launch overhead."""
+def device_profile(fn, kernel_prefix, iters: int = 20) -> tuple:
+    """Device time of `iters` calls of fn, from a torch.profiler trace,
+    for the CUDA kernels (and memsets) whose names contain
+    `kernel_prefix` (a string, or a tuple of them): the card's own time,
+    without the host's launch overhead. Returns (busy ms per call: the
+    union of those kernels' intervals, so kernels that overlap count
+    once; {name from the prefix on: ms per call of that kernel's own
+    interval})."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    prefixes = (kernel_prefix,) if isinstance(kernel_prefix, str) \
+        else kernel_prefix
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    total_us = sum(e.self_device_time_total for e in prof.key_averages()
-                   if kernel_prefix in e.key)
-    check(total_us > 0, f"no device time traced for {kernel_prefix}")
-    return total_us / iters / 1e3
+    spans, by_kernel = [], {}
+    for e in prof.events():
+        hit = [p for p in prefixes if p in e.name]
+        if e.device_type != DeviceType.CUDA or not hit:
+            continue
+        t0, t1 = e.time_range.start, e.time_range.end
+        spans.append((t0, t1))
+        name = e.name[e.name.index(hit[0]):].split("(")[0]
+        by_kernel[name] = by_kernel.get(name, 0.0) + (t1 - t0) / iters / 1e3
+    busy_us, end = 0.0, float("-inf")
+    for t0, t1 in sorted(spans):
+        busy_us += max(0.0, t1 - max(t0, end))
+        end = max(end, t1)
+    check(busy_us > 0, f"no device time traced for {kernel_prefix}")
+    return busy_us / iters / 1e3, by_kernel
+
+
+def device_ms(fn, kernel_prefix, iters: int = 20) -> float:
+    """The device ms of one call (device_profile's busy time)."""
+    return device_profile(fn, kernel_prefix, iters)[0]
 
 
 def bound_ms(n_bytes: float, n_ops: float,
@@ -131,29 +158,168 @@ def phase_build():
     path = _build.build()
     lib = _build.library()
     print(f"build: {path.name} in {time.perf_counter() - t0:.2f} s "
-          f"(radix tile {lib.radix_hist_tile_elems()} digits)")
+          f"(radix tile {lib.radix_tile_elems()} keys, scratch "
+          f"{lib.radix_scratch_bytes(72072, 4)} bytes at M = 72,072)")
     for line in _build.build_log().splitlines():
-        if "registers" in line or line.startswith("=="):
+        if "registers" in line or "spill" in line or line.startswith("=="):
             print("  " + line.strip())
 
 
+# the argsort's profile: its kernels and the memset of its scratch
+RADIX_DEVICE = ("radix_onesweep", "Memset")
+ARGSORT_SIZES = (0, 1, 2047, 2048, 2049, 5000, 36036, 72072, 639998)
+PLAIN_CHECK_MAX_M = 72072  # larger sizes: the plain check on one kind
+# one wrapper call per argsort of lgrass_sparsify: the eff order, the
+# Euler arc sort, the crit order, the (hi, lo) pair sort, the recovery order
+ARGSORTS_PER_CALL = 5
+
+
+def _u32_keys(rng, m, kind):
+    """(m,) int64 keys holding u32 values: random with ties, one value,
+    or random with about a third of them the 0xFFFFFFFF sentinel."""
+    if kind == "all-equal":
+        return np.full(m, 0x9A5A5A5A, np.int64)
+    keys = rng.integers(0, 2 ** 32, m, dtype=np.int64)
+    if kind == "random":
+        keys[::5] = keys[:1]
+    else:
+        keys[rng.random(m) < 0.35] = 0xFFFFFFFF
+    return keys
+
+
+def _pair_keys(rng, m, kind):
+    """(hi, lo) as the Euler arc sort's: hi from a small range (UMAX for
+    invalid slots), lo random."""
+    lo = _u32_keys(rng, m, kind)
+    if kind == "all-equal":
+        return np.full(m, 7, np.int64), lo
+    hi = rng.integers(0, 300, m).astype(np.int64)
+    if kind == "umax-mixed":
+        hi[rng.random(m) < 0.35] = 0xFFFFFFFF
+    return hi, lo
+
+
+def _pair_order(hi, lo):
+    """The stable order of (hi, lo) pairs from two torch.sort(stable=True)."""
+    first = torch.sort(lo, stable=True).indices
+    return first[torch.sort(hi[first], stable=True).indices]
+
+
+def _check_argsorts(dev, rng):
+    """The argsort, u32 and pair, against torch.sort(stable=True) and the
+    plain version on a CPU copy; back-to-back calls and changing sizes.
+    Returns the max abs difference of any permutation from torch.sort's."""
+    from repro_torch.kernels import ops, radix_hist
+
+    err, firsts = 0, {}
+    for m in ARGSORT_SIZES:
+        for kind in ("random", "all-equal", "umax-mixed"):
+            k = torch.as_tensor(_u32_keys(rng, m, kind))
+            hi, lo = (torch.as_tensor(x) for x in _pair_keys(rng, m, kind))
+            kd, hid, lod = k.to(dev), hi.to(dev), lo.to(dev)
+            got = ops.radix_argsort_u32(kd)
+            got_p = ops.radix_argsort_u64pair(hid, lod)
+            want = torch.sort(kd, stable=True).indices
+            want_p = _pair_order(hid, lod)
+            torch.cuda.synchronize()
+            if m:
+                err = max(err, int((got - want).abs().max()),
+                          int((got_p - want_p).abs().max()))
+            ok = torch.equal(got, want) and torch.equal(got_p, want_p)
+            plain = m <= PLAIN_CHECK_MAX_M or kind == "random"
+            if plain:
+                ok = ok and torch.equal(got.cpu(),
+                                        radix_hist.radix_argsort_plain(k))
+                ok = ok and torch.equal(
+                    got_p.cpu(), radix_hist.radix_argsort_plain(lo, hi))
+            again = torch.equal(ops.radix_argsort_u32(kd), got) and \
+                torch.equal(ops.radix_argsort_u64pair(hid, lod), got_p)
+            print(f"radix argsort M={m} {kind}: u32 and pair == torch.sort"
+                  f"(stable=True){' and the CPU plain' if plain else ''}: "
+                  f"{ok}; a second call equal: {again}")
+            check(ok, f"radix argsort differs at M={m} {kind}")
+            check(again, f"radix argsort: two calls differ at M={m} {kind}")
+            if kind == "umax-mixed":
+                firsts[m] = (kd, hid, lod, got, got_p)
+    order = list(ARGSORT_SIZES[::-1]) + list(ARGSORT_SIZES)
+    same = all(torch.equal(ops.radix_argsort_u32(firsts[m][0]), firsts[m][3])
+               and torch.equal(ops.radix_argsort_u64pair(*firsts[m][1:3]),
+                               firsts[m][4]) for m in order)
+    print(f"radix argsort at changing sizes {order}: equal to the first "
+          f"calls: {same}")
+    check(same, "radix argsort: calls at changing sizes differ")
+    return err
+
+
+def _argsort_case(keys, hi=None) -> tuple:
+    """(the argsort call, torch.sort(stable=True) on the same keys, the
+    bound) at one shape. The bound: each int64 key read once and the int64
+    permutation written once."""
+    from repro_torch.kernels import ops
+
+    if hi is None:
+        fn = lambda: ops.radix_argsort_u32(keys)  # noqa: E731
+        lib = lambda: torch.sort(keys, stable=True)  # noqa: E731
+        n_bytes = 16 * keys.shape[0]
+    else:
+        fn = lambda: ops.radix_argsort_u64pair(hi, keys)  # noqa: E731
+        lib = lambda: _pair_order(hi, keys)  # noqa: E731
+        n_bytes = 24 * keys.shape[0]
+    return fn, lib, bound_ms(n_bytes, 0)
+
+
+def _host_us(keys, calls: int = 200) -> dict:
+    """Host microseconds per call of the argsort wrapper's parts, each
+    timed alone over `calls` calls on the host's clock (the card is
+    synchronised before and after each loop)."""
+    from repro_torch.kernels import _build, ops
+
+    lib, dev, m = _build.library(), keys.device, keys.shape[0]
+
+    def per_call(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        t = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return t / calls * 1e6
+
+    scratch = torch.empty((lib.radix_scratch_bytes(m, 4),),
+                          dtype=torch.uint8, device=dev)
+    perm = torch.empty((m,), dtype=torch.int64, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    c_call = lambda: lib.radix_argsort_launch(  # noqa: E731
+        keys.data_ptr(), None, m, 4, perm.data_ptr(), scratch.data_ptr(),
+        stream)
+    return dict(
+        wrapper=per_call(lambda: ops.radix_argsort_u32(keys)),
+        c_call_alone=per_call(c_call),
+        c_call_alone_cuda_event=time_cuda(c_call) * 1e3,
+        torch_empty=per_call(lambda: torch.empty((m,), dtype=torch.int64,
+                                                 device=dev)),
+        current_stream=per_call(
+            lambda: torch.cuda.current_stream(dev).cuda_stream),
+        scratch_bytes_c_call=per_call(lambda: lib.radix_scratch_bytes(m, 4)))
+
+
 def phase_kernels(dev, lifting):
-    from repro_torch.core.sort import radix_argsort_u32
     from repro_torch.kernels import ops, radix_hist, tree_dist
 
     rng = np.random.default_rng(0)
     report = {}
 
-    # -- radix_hist: every sort pass of the path ------------------------
+    # -- radix_hist: the argsort under every sort of the path -------------
+    err = _check_argsorts(dev, rng)
     digit_cases = {
         "M=36036 random": rng.integers(0, 256, 36036),
         "M=72072 random": rng.integers(0, 256, 72072),
         "M=72072 all-equal": np.full(72072, 200),
         "M=1": np.array([7]),
+        "M=2049 ragged": rng.integers(0, 256, 2049),
         "M=5000 ragged": rng.integers(0, 256, 5000),
         "M=0": np.zeros(0),
     }
-    err = 0
     for name, d in digit_cases.items():
         dt = torch.as_tensor(d.astype(np.int32), device=dev)
         rank, hist = radix_hist.bucket_rank_hist_cuda(dt)
@@ -163,32 +329,61 @@ def phase_kernels(dev, lifting):
         if rank.numel():
             err = max(err, int((rank - want_r).abs().max()))
         err = max(err, int((hist - want_h).abs().max()))
-        print(f"radix_hist {name}: equal={ok}")
-        check(ok, f"radix_hist differs from its plain version at {name}")
+        print(f"radix_hist rank entry {name}: equal={ok}")
+        check(ok, f"radix_hist rank entry differs from its plain version "
+                  f"at {name}")
+
+    # CUDA-event times first: no profiler has traced this process yet
+    cases = {}
+    for m in (36036, 72072, 639998):
+        keys = torch.as_tensor(rng.integers(0, 2 ** 32, m, dtype=np.int64),
+                               device=dev)
+        cases[f"u32 M={m}"] = _argsort_case(keys)
+        if m == 72072:
+            keys72 = keys
+    # the estimator's arc sort at n = 160,000: node ids as keys
+    tails = torch.as_tensor(rng.integers(0, 160000, 639998), device=dev)
+    cases["u32 M=639998 node ids < 160000"] = _argsort_case(tails)
+    hi, lo = (torch.as_tensor(x, device=dev)
+              for x in _pair_keys(rng, 36036, "random"))
+    cases["pair M=36036"] = _argsort_case(lo, hi)
+    timings = {name: dict(ms=time_cuda(fn, iters=50),
+                          library_ms=time_cuda(lib, iters=50),
+                          bound_ms=b[0], bound_by=b[1])
+               for name, (fn, lib, b) in cases.items()}
     m = 72072
+    host = _host_us(keys72)
     dt = torch.as_tensor(digit_cases["M=72072 random"].astype(np.int32),
                          device=dev)
-    keys = torch.as_tensor(rng.integers(0, 2 ** 32, m, dtype=np.int64),
-                           device=dev)
-    perm = radix_argsort_u32(keys)
-    check(torch.equal(perm, torch.sort(keys, stable=True).indices),
-          "radix_argsort_u32 differs from torch.sort(stable=True)")
-    b_ms, b_by = bound_ms(8 * m + 4 * 256, m)
+    rank_call = lambda: radix_hist.bucket_rank_hist_cuda(dt)  # noqa: E731
+    r_ms, r_by = bound_ms(8 * m + 4 * 256, 0)
+    rank_entry = dict(
+        ms=time_cuda(rank_call, iters=50),
+        plain_ms=time_cuda(lambda: radix_hist.bucket_rank_hist_plain(dt),
+                           iters=5),
+        bound_ms=r_ms, bound_by=r_by, at_m=m)
+    plain_ms = time_cuda(lambda: radix_hist.radix_argsort_plain(keys72),
+                         iters=3, warmup=1)
+    # then device times from the profiler
+    for name, (fn, _, _) in cases.items():
+        busy, by_kernel = device_profile(fn, RADIX_DEVICE)
+        timings[name].update(device_ms=busy, device_ms_by_kernel=by_kernel)
+        print(f"radix argsort {name}: {timings[name]}")
+    print(f"radix argsort host us per call at M={m}: {host}")
+    rank_entry["device_ms"] = device_ms(rank_call, RADIX_DEVICE)
+    print(f"radix_hist rank entry timings: {rank_entry}")
+    at = timings[f"u32 M={m}"]
     report["radix_hist"] = dict(
         name="radix_hist", route="cuda",
         source="src/repro_torch/csrc/radix_hist.cu",
         replaces="src/repro/kernels/radix_hist.py:56",
-        max_abs_err=err,
-        ms=time_cuda(lambda: radix_hist.bucket_rank_hist_cuda(dt)),
-        device_ms=device_ms(lambda: radix_hist.bucket_rank_hist_cuda(dt),
-                            "tile_"),
-        plain_ms=time_cuda(lambda: radix_hist.bucket_rank_hist_plain(dt),
-                           iters=5),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None, at_m=m,
-        cuda_kernels_per_launch=3,
-        argsort_u32_ms=time_cuda(lambda: radix_argsort_u32(keys)),
-        torch_sort_stable_ms=time_cuda(
-            lambda: torch.sort(keys, stable=True)))
+        max_abs_err=err, at_m=m, what="u32 argsort, random keys",
+        ms=at["ms"], device_ms=at["device_ms"],
+        plain_ms=plain_ms, bound_ms=at["bound_ms"], bound_by=at["bound_by"],
+        library_ms=at["library_ms"], library="torch.sort(stable=True)",
+        cuda_kernels_per_launch={"argsort_u32": 5, "argsort_pair": 9,
+                                 "rank": 2, "memsets_per_launch": 1},
+        argsort=timings, host_us_at_72072=host, rank_entry=rank_entry)
 
     # -- tree_dist: the cover tables under use_tree_kernel ---------------
     up = torch.as_tensor(lifting[0], device=dev)
@@ -240,7 +435,9 @@ def phase_pipeline(dev, graphs, oracles):
         per_call[name] = ops.launch_counts()["radix_hist"] - before
         check(np.array_equal(r.edge_mask, oracles[name]),
               f"{name}: CUDA mask differs from the numpy baseline")
-        check(per_call[name] > 0, f"{name}: no radix_hist launch")
+        check(per_call[name] == ARGSORTS_PER_CALL,
+              f"{name}: {per_call[name]} radix_hist launches, not "
+              f"{ARGSORTS_PER_CALL} (one per argsort)")
         print(f"pipeline {name}: n={g.n} L={g.m} mask == baseline, "
               f"accepted {r.n_accepted}, radix launches/call "
               f"{per_call[name]}")
@@ -483,7 +680,8 @@ def _drive_estimator(dev, big, case3):
             rel = float(((r1.cpu() - r_cpu).abs()
                          / r_cpu.abs().clamp_min(1e-30)).max())
             check(torch.allclose(r1.cpu(), r_cpu, rtol=1e-5, atol=0),
-                  f"{tag}: CUDA R̂ not allclose (rtol 1e-5) to the CPU run")
+                  f"{tag}: CUDA R̂ not allclose (rtol 1e-5) to the CPU run, "
+                  f"max rel diff {rel:.3e}")
             print(f"estimator {tag}: allclose to the CPU run (rtol 1e-5), "
                   f"max rel diff {rel:.3e}; CPU run {cpu_s:.2f} s")
 

@@ -4,12 +4,11 @@ The port of `repro.core.sort`. Criticality keys are float32, so they are
 mapped to u32 by the IEEE-754 order-preserving bit trick and sorted with
 4 byte passes (an 8-pass variant sorts (hi, lo) u32 pairs).
 
-Each pass is one stable counting-sort step: the digit of every element,
-its stable rank within its digit bucket and the 256-bin histogram from
-`kernels.ops.bucket_rank_hist` (the CUDA kernel for CUDA tensors, its
-plain version for CPU tensors), the exclusive scan of the histogram, and
-one scatter to the stable output position. That is the default engine on
-every device.
+Both argsorts are `kernels.ops.radix_argsort_u32` / `_u64pair` on every
+device: on a CUDA tensor the onesweep kernels of `csrc/radix_hist.cu`
+(one histogram launch and one launch per byte, in one host call); on a
+CPU tensor their plain version, stable counting passes of the per-byte
+rank and histogram (`kernels/radix_hist.radix_argsort_plain`).
 
 u32 values are carried as int64 tensors holding the value (masked with
 0xFFFFFFFF): PyTorch's uint32 lacks shifts, `~`, comparisons and scatter
@@ -37,38 +36,17 @@ def float32_sort_key(x: torch.Tensor) -> torch.Tensor:
     return torch.where(sign == 1, ~bits & U32_MASK, bits | 0x80000000)
 
 
-def _counting_pass(keys: torch.Tensor, perm: torch.Tensor,
-                   shift: int) -> torch.Tensor:
-    """One stable byte pass: reorder `perm` by byte `shift` of keys[perm]."""
-    digits = ((keys[perm] >> shift) & 0xFF).to(torch.int32)
-    rank, hist = ops.bucket_rank_hist(digits)
-    hist = hist.to(torch.int64)
-    offsets = torch.cumsum(hist, dim=0) - hist  # exclusive
-    pos = offsets[digits.to(torch.int64)] + rank.to(torch.int64)
-    out = torch.empty_like(perm)
-    out[pos] = perm
-    return out
-
-
 def radix_argsort_u32(keys: torch.Tensor) -> torch.Tensor:
     """Stable ascending argsort of u32 keys (int64 tensor), (L,) int64,
     in 4 byte passes."""
-    perm = torch.arange(keys.shape[0], dtype=torch.int64, device=keys.device)
-    for shift in (0, 8, 16, 24):
-        perm = _counting_pass(keys, perm, shift)
-    return perm
+    return ops.radix_argsort_u32(keys)
 
 
 def radix_argsort_u64pair(hi: torch.Tensor,
                           lo: torch.Tensor) -> torch.Tensor:
     """Stable ascending argsort of (hi, lo) u32 pairs — the paper's
     8-pass INT64 sort."""
-    perm = torch.arange(hi.shape[0], dtype=torch.int64, device=hi.device)
-    for shift in (0, 8, 16, 24):
-        perm = _counting_pass(lo, perm, shift)
-    for shift in (0, 8, 16, 24):
-        perm = _counting_pass(hi, perm, shift)
-    return perm
+    return ops.radix_argsort_u64pair(hi, lo)
 
 
 def sort_f32_desc_stable(keys: torch.Tensor,

@@ -35,8 +35,10 @@ _F = ctypes.c_float
 # C entry points and their argument types (pointers and the stream as
 # c_void_p, so ctypes never truncates them to 32 bits)
 SIGNATURES = {
-    "radix_hist_tile_elems": (),
-    "radix_hist_launch": (_P, _I, _P, _P, _P, _P),
+    "radix_tile_elems": (),
+    "radix_scratch_bytes": (_I, _I),
+    "radix_argsort_launch": (_P, _P, _I, _I, _P, _P, _P),
+    "radix_rank_launch": (_P, _I, _P, _P, _P),
     "tree_dist_launch": (_P, _P, _I, _I, _P, _P, _I, _P, _P),
     "spmv_csr_launch": (_P, _P, _P, _P, _I, _I, _P, _P),
     "arc_sum_launch": (_P, _P, _I, _P, _I, _I, _I, _P, _P),
@@ -44,6 +46,8 @@ SIGNATURES = {
     "flash_attention_launch": (_P,) * 6 + (_I,) * 7 + (_LL,) * 9
                               + (_I, _I, _F, _P),
 }
+# entry points that return something other than a C int
+RESTYPES = {"radix_scratch_bytes": _LL}
 
 _lib = None
 
@@ -118,7 +122,7 @@ def library() -> ctypes.CDLL:
         for name, argtypes in SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = list(argtypes)
-            fn.restype = ctypes.c_int
+            fn.restype = RESTYPES.get(name, ctypes.c_int)
         _lib = lib
     return _lib
 

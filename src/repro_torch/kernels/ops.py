@@ -40,6 +40,26 @@ def bucket_rank_hist(digits: torch.Tensor):
     return radix_hist.bucket_rank_hist_plain(digits)
 
 
+def radix_argsort_u32(keys: torch.Tensor) -> torch.Tensor:
+    """keys: (M,) int64 holding u32 values. Returns the stable ascending
+    argsort, (M,) int64."""
+    if _route(keys) == "cuda":
+        return radix_hist.radix_argsort_cuda(
+            keys.to(torch.int64).contiguous())
+    return radix_hist.radix_argsort_plain(keys)
+
+
+def radix_argsort_u64pair(hi: torch.Tensor, lo: torch.Tensor
+                          ) -> torch.Tensor:
+    """hi, lo: (M,) int64 holding u32 values. Returns the stable ascending
+    argsort of the (hi, lo) pairs, (M,) int64."""
+    if _route(lo) == "cuda":
+        return radix_hist.radix_argsort_cuda(
+            lo.to(torch.int64).contiguous(),
+            hi.to(torch.int64).contiguous())
+    return radix_hist.radix_argsort_plain(lo, hi)
+
+
 def tree_dist_pairs(up: torch.Tensor, depth: torch.Tensor, a: torch.Tensor,
                     b: torch.Tensor) -> torch.Tensor:
     """up: (LOG, n) int32 lifting table; depth: (n,) int32; a, b: (M,)

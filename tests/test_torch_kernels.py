@@ -2,11 +2,13 @@
 
 The plain versions of the ported kernels (`repro_torch.kernels`) are
 held against the Pallas kernels run in interpret mode and against their
-jnp oracles (the spmv's are in `tests/test_torch_spectral_probe.py`); the port's radix sorts against `repro.core.sort` with both
-of its engines. Every output is an integer or a permutation: tolerance
-zero (exact equality). The CUDA legs (marker `cuda`) need a card and
-skip here; on the card the JAX legs skip instead, since JAX is imported
-only by the `J` fixture.
+jnp oracles (the spmv's are in `tests/test_torch_spectral_probe.py`);
+the port's radix sorts against `repro.core.sort` with both of its
+engines (the argsorts' edge cases, and the radix kernels on the card,
+are in `tests/test_torch_radix.py`). Every output is an integer or a
+permutation: tolerance zero (exact equality). The CUDA legs (marker
+`cuda`) need a card and skip here; on the card the JAX legs skip
+instead, since JAX is imported only by the `J` fixture.
 """
 import types
 
@@ -80,6 +82,9 @@ def test_bucket_rank_hist_plain_empty_and_chunk_invariant():
 def test_ops_route_by_device_and_never_count_cpu_calls():
     ops.reset_launch_counts()
     ops.bucket_rank_hist(torch.zeros(10, dtype=torch.int32))
+    keys = torch.tensor([3, 1, 2], dtype=torch.int64)
+    assert ops.radix_argsort_u32(keys).tolist() == [1, 2, 0]
+    assert ops.radix_argsort_u64pair(keys, keys).tolist() == [1, 2, 0]
     ops.bitmap_intersect_any(torch.ones((3, 2), dtype=torch.int32),
                              torch.ones((3, 2), dtype=torch.int32))
     assert ops.launch_counts() == {
@@ -88,8 +93,15 @@ def test_ops_route_by_device_and_never_count_cpu_calls():
     with pytest.raises(ValueError):
         ops.bucket_rank_hist(torch.zeros(10, dtype=torch.int32,
                                          device="meta"))
-    with pytest.raises(ValueError):  # the CUDA entry refuses CPU tensors
+    with pytest.raises(ValueError):
+        ops.radix_argsort_u32(torch.zeros(4, dtype=torch.int64,
+                                          device="meta"))
+    with pytest.raises(ValueError):  # the CUDA entries refuse CPU tensors
         radix_hist.bucket_rank_hist_cuda(torch.zeros(4, dtype=torch.int32))
+    with pytest.raises(ValueError):
+        radix_hist.radix_argsort_cuda(keys)
+    with pytest.raises(ValueError):
+        radix_hist.radix_argsort_cuda(keys, keys)
     up = torch.zeros((1, 4), dtype=torch.int32)
     with pytest.raises(ValueError):
         tree_dist.tree_dist_pairs_cuda(up, up[0], up[0], up[0])
@@ -100,18 +112,25 @@ def test_ops_route_by_device_and_never_count_cpu_calls():
 def test_build_signatures_name_every_c_entry_point():
     """Each `extern "C"` function of csrc/*.cu has its ctypes signature in
     `_build.SIGNATURES`, with its number of arguments, and nothing else is
-    listed (a name missing from the library fails only at load time)."""
+    listed (a name missing from the library fails only at load time); a
+    function returning `long long` has that restype in `_build.RESTYPES`."""
+    import ctypes
     import re
 
     from repro_torch.kernels import _build
 
-    found = {}
+    found, wide = {}, set()
     for name in _build.SOURCES:
         src = (_build.CSRC / name).read_text()
-        for m in re.finditer(r'extern "C" int (\w+)\(([^)]*)\)', src):
-            args = [a for a in m.group(2).split(",") if a.strip()]
-            found[m.group(1)] = len(args)
+        for m in re.finditer(r'extern "C" (int|long long) (\w+)\(([^)]*)\)',
+                             src):
+            args = [a for a in m.group(3).split(",") if a.strip()]
+            found[m.group(2)] = len(args)
+            if m.group(1) == "long long":
+                wide.add(m.group(2))
     assert found == {k: len(v) for k, v in _build.SIGNATURES.items()}
+    assert "radix_argsort_launch" in found and "radix_rank_launch" in found
+    assert _build.RESTYPES == {k: ctypes.c_longlong for k in wide}
 
 
 # -- sorts: the port's radix engine against repro.core.sort ----------------
@@ -261,16 +280,6 @@ def test_bitmap_intersect_sign_bit_counts():
 
 
 # -- the CUDA kernels against their plain versions (card only) -------------
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("m", [0, 1, 2047, 2048, 36036, 72072])
-def test_radix_hist_cuda_equals_plain(cuda_device, m):
-    d = torch.from_numpy(np.random.default_rng(m).integers(
-        0, 256, m).astype(np.int32)).to(cuda_device)
-    rank, hist = ops.bucket_rank_hist(d)
-    want_r, want_h = radix_hist.bucket_rank_hist_plain(d)
-    assert torch.equal(rank, want_r) and torch.equal(hist, want_h)
-
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("m", [1, 300, 8192])
