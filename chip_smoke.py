@@ -36,17 +36,25 @@ Phases, in order; any failed check exits non-zero:
      (lgrass_sparsify on case3, then trace_similarity of tree, sparsifier
      and full graph); last, `bitmap_intersect_any` through its entry
      against its plain version;
-  5. lm: the flash-attention kernel (`csrc/flash_attention.cu`) against
-     its plain version on the card (the phi3-mini-3.8b prefill shape in
-     bf16 and fp32, internlm2-20b's GQA ratio, a window, ragged Sq != Sk,
-     -1 padding with query rows that see no key, one query against a
-     full and a ring cache), timed beside the plain version,
+  5. lm: the flash-attention kernels' registers and spills (`-Xptxas -v`)
+     and the wgmma kernels' HGMMA and UTMALDG instructions (cuobjdump);
+     each flash kernel against its plain version on the card, through the
+     route `flash_attention.cuda_route` picks (bf16 at d = 64, 96, 128:
+     `csrc/flash_attention_sm90.cu`, wgmma and TMA; bf16 at the other
+     head dims: `csrc/flash_attention.cu`'s mma.sync kernel; fp32: its
+     CUDA-core kernel) at the phi3-mini-3.8b prefill shape in bf16 and
+     fp32, internlm2-20b's GQA ratio, granite's d = 64 GQA, hubert's
+     d = 80 (the mma.sync route), a window, ragged Sq != Sk, -1 padding
+     with query rows that see no key (also over more work items than
+     SMs), and one query against a full and a ring cache; the route's
+     kernel timed at the phi3 prefill shape beside the plain version,
      F.scaled_dot_product_attention and the bound; then phi3-mini-3.8b
      at full width and depth 2 in fp32, the card against the CPU
      (prefill and three decode steps); then the serving run: phi3 at
      full width and depth in bf16, `generate` on 4 prompts of 2,048
      tokens with 32 new tokens, twice (equal tokens, bit-equal logits),
-     32 flash launches per prefill, the serving contract (prefill +
+     32 flash launches per prefill, all through the wgmma kernel, the
+     serving contract (prefill +
      decode against the full forward) and prefill, decode and profile
      times.
 
@@ -102,14 +110,15 @@ def time_cuda(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_profile(fn, kernel_prefix, iters: int = 20) -> tuple:
+def device_profile(fn, kernel_prefix, iters: int = 20,
+                   required: bool = True) -> tuple:
     """Device time of `iters` calls of fn, from a torch.profiler trace,
     for the CUDA kernels (and memsets) whose names contain
     `kernel_prefix` (a string, or a tuple of them): the card's own time,
     without the host's launch overhead. Returns (busy ms per call: the
     union of those kernels' intervals, so kernels that overlap count
     once; {name from the prefix on: ms per call of that kernel's own
-    interval})."""
+    interval}). With required=False, (None, {}) when no such kernel ran."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -134,6 +143,8 @@ def device_profile(fn, kernel_prefix, iters: int = 20) -> tuple:
     for t0, t1 in sorted(spans):
         busy_us += max(0.0, t1 - max(t0, end))
         end = max(end, t1)
+    if not required and busy_us == 0:
+        return None, {}
     check(busy_us > 0, f"no device time traced for {kernel_prefix}")
     return busy_us / iters / 1e3, by_kernel
 
@@ -884,11 +895,17 @@ def _flash_cases():
                                      pad_k, True, None),
         "padding, empty rows bf16": (2, 512, 512, 8, 8, 128, bf, pad_q,
                                      pad_k, True, None),
+        "padding, empty rows, 512 items bf16": (4, 512, 512, 32, 32, 96, bf,
+                                                pad_q, pad_k, True, None),
         "Sq=1, full cache bf16": (4, 1, 2081, 32, 32, 96, bf,
                                   np.array([2048]), full_cache, True, None),
         "Sq=1, ring of 1024 bf16": (4, 1, 1024, 32, 32, 96, bf,
                                     np.array([3000]), _ring(1024, 3000),
                                     True, 1024),
+        "granite GQA 24/8 d64 bf16": (2, 2048, 2048, 24, 8, 64, bf, None,
+                                      None, True, None),
+        "hubert d80 bidirectional bf16": (2, 1000, 1000, 16, 16, 80, bf,
+                                          None, None, False, None),
     }
 
 
@@ -918,13 +935,14 @@ def _flash_bound(q, k, v, qpos, kpos, causal, window) -> tuple:
 
 
 def _check_flash(dev):
-    """The kernel against its plain version on the card at every case;
-    returns {case: max abs error}."""
+    """The kernel its route picks against the plain version on the card at
+    every case; returns {case: max abs error}."""
     from repro_torch.kernels import flash_attention as fa
 
     errors = {}
     for i, (name, case) in enumerate(_flash_cases().items()):
         args = _flash_inputs(dev, case, seed=100 + i)
+        route = fa.cuda_route(case[6], case[5])
         got = fa.flash_attention_cuda(*args)
         torch.cuda.synchronize()
         if got.dtype == torch.bfloat16:
@@ -941,8 +959,8 @@ def _check_flash(dev):
             ok = torch.allclose(got, want, atol=F32_TOL, rtol=F32_TOL)
             how = f"atol = rtol = {F32_TOL:g}"
         errors[name] = err
-        print(f"flash_attention {name}: max abs err {err:.3e}, {how}, "
-              f"within {ok}")
+        print(f"flash_attention {name} ({fa.ROUTES[route]}): max abs err "
+              f"{err:.3e}, {how}, within {ok}")
         check(ok, f"flash_attention differs from its plain version at {name}")
         check(torch.equal(got, fa.flash_attention_cuda(*args)),
               f"flash_attention: two launches differ at {name}")
@@ -950,8 +968,9 @@ def _check_flash(dev):
 
 
 def _time_flash(dev, name):
-    """The kernel at one case: CUDA-event and device time beside the plain
-    version, F.scaled_dot_product_attention and the bound."""
+    """The kernel its route picks at one case: CUDA-event and device time
+    beside the plain version, F.scaled_dot_product_attention and the
+    bound."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
@@ -966,19 +985,26 @@ def _time_flash(dev, name):
     lib_diff = float((sdpa().transpose(1, 2).float()
                       - fa.flash_attention_cuda(*args).float()).abs().max())
     b_ms, b_by = _flash_bound(*args)
-    kernel = ("flash_attention_mma_kernel" if q.dtype == torch.bfloat16
-              else "flash_attention_tile_kernel")
-    return dict(
-        ms=time_cuda(lambda: fa.flash_attention_cuda(*args), iters=10),
-        device_ms=device_ms(lambda: fa.flash_attention_cuda(*args), kernel,
-                            iters=10),
+    route = fa.cuda_route(q.dtype, q.shape[3])
+    run = lambda: fa.flash_attention_cuda(*args)  # noqa: E731
+    t = dict(
+        # CUDA-event time first: a profiler session skews later ones
+        ms=time_cuda(run, iters=10),
+        device_ms=device_ms(run, fa.ROUTES[route], iters=10),
         plain_ms=time_cuda(lambda: fa.flash_attention_plain(*args), iters=3,
                            warmup=1),
         library_ms=time_cuda(sdpa, iters=10),
         library_max_abs_diff=lib_diff,
-        bound_ms=b_ms, bound_by=b_by,
+        bound_ms=b_ms, bound_by=b_by, kernel_route=route,
+        cuda_kernel=f"{fa.ROUTES[route]}<{q.shape[3]}>",
         at=f"B={q.shape[0]} S={q.shape[1]} H={q.shape[2]} d={q.shape[3]} "
            f"{str(q.dtype).replace('torch.', '')} causal")
+    # SDPA's kernel (cuDNN's or PyTorch's own flash kernel) by the same
+    # method; None where the trace names neither
+    t["library_device_ms"], lib_kernels = device_profile(
+        sdpa, ("sdpa", "flash_fwd", "fmha"), iters=10, required=False)
+    t["library_kernels"] = sorted(lib_kernels)
+    return t
 
 
 def _parity_depth2(dev):
@@ -1128,9 +1154,9 @@ def _flash_on_path_inputs(model, prompt, max_len):
         ops.flash_attention = wrapped
     args, kwargs = seen[0]
     with torch.inference_mode():
-        ms = device_ms(lambda: wrapped(*args, **kwargs),
-                       "flash_attention_mma_kernel", iters=10)
-    return dict(isolated_device_ms=ms,
+        ms, by_kernel = device_profile(lambda: wrapped(*args, **kwargs),
+                                       "flash_attention_", iters=10)
+    return dict(isolated_device_ms=ms, cuda_kernels=sorted(by_kernel),
                 strides=[list(x.stride()) for x in args[:3]])
 
 
@@ -1138,6 +1164,7 @@ def _serve(dev):
     """The serving run at full width and depth in bf16. Returns the flash
     launches of one `generate` call and the run's numbers."""
     from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.models.model import LM
     from repro_torch.serve.serve_step import generate
@@ -1171,8 +1198,13 @@ def _serve(dev):
               f"not {cfg.n_layers} (one per layer of the prefill)")
         check(sum(counts.values()) == counts["flash_attention"],
               "generate launched another kernel of the port")
-        runs.append((toks, wall, counts["flash_attention"]))
-    (toks, gen_s, launches), (toks2, gen2_s, _) = runs
+        routes = dict(fa.launches)
+        want = fa.cuda_route(torch.bfloat16, cfg.resolved_head_dim)
+        check(routes[want] == cfg.n_layers,
+              f"generate's flash launches by route {routes}, not "
+              f"{cfg.n_layers} through {want}")
+        runs.append((toks, wall, counts["flash_attention"], routes))
+    (toks, gen_s, launches, routes), (toks2, gen2_s, _, _) = runs
     check(toks.shape == (SERVE_BATCH, SERVE_NEW), f"tokens {toks.shape}")
     check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
           "a token outside the vocabulary")
@@ -1224,8 +1256,71 @@ def _serve(dev):
         contract_rel_l2=rel, peak_memory_gb=peak_gb,
         flash_on_path=on_path,
         prefill_profile_ms=prof_prefill, decode_profile_ms=prof_decode)
+    numbers["flash_launches_by_route"] = routes
     print(f"lm serve numbers: {json.dumps(numbers)}")
     return launches, numbers
+
+
+def _flash_build_report() -> list:
+    """Registers, spills and shared memory of each flash kernel, from the
+    build's `-Xptxas -v` report; fails on a spill of the wgmma kernel or
+    on a `setmaxnreg` that ptxas ignored (C7508)."""
+    import re
+
+    from repro_torch.kernels import _build
+
+    log = _build.build_log()
+    check("C7508" not in log, "ptxas ignored setmaxnreg (C7508)")
+    rows, name, spill = [], None, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers(.*)", line)
+        k = name and re.search(r"(flash_attention_\w+?_kernel)ILi(\d+)E",
+                               name)
+        if m and k:
+            smem = re.search(r"(\d+) bytes smem", m.group(2))
+            rows.append(dict(kernel=f"{k.group(1)}<{k.group(2)}>",
+                             registers=int(m.group(1)),
+                             spill_stores=spill[0], spill_loads=spill[1],
+                             static_smem=int(smem.group(1)) if smem else 0))
+    for row in rows:
+        print(f"build {row['kernel']}: {row['registers']} registers, spill "
+              f"stores {row['spill_stores']} B, loads {row['spill_loads']} "
+              f"B, static smem {row['static_smem']} B")
+        if "wgmma" in row["kernel"]:
+            check(row["spill_stores"] == row["spill_loads"] == 0,
+                  f"{row['kernel']} spills registers")
+    check(sum("wgmma" in r["kernel"] for r in rows) == 3,
+          "the build report lists no wgmma kernel for d = 64, 96, 128")
+    return rows
+
+
+def _flash_sass() -> dict:
+    """HGMMA (wgmma) and UTMALDG (TMA load) instructions in the wgmma
+    kernels' SASS, from cuobjdump of the built library."""
+    from repro_torch.kernels import _build
+
+    tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(_build.build())],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    counts = {}
+    for fn in sass.split("Function : ")[1:]:
+        if "flash_attention_wgmma_kernel" in fn.splitlines()[0]:
+            for op in ("HGMMA", "UTMALDG"):
+                counts[op] = counts.get(op, 0) + fn.count(op)
+    print(f"cuobjdump -sass, wgmma kernels: {counts}")
+    check(counts.get("HGMMA", 0) > 0 and counts.get("UTMALDG", 0) > 0,
+          "the wgmma kernels' SASS holds no HGMMA or no UTMALDG")
+    return counts
 
 
 def phase_lm(dev):
@@ -1233,6 +1328,8 @@ def phase_lm(dev):
     Returns the flash_attention entry of the kernels line."""
     from repro_torch.kernels import ops
 
+    build_report = _flash_build_report()
+    sass = _flash_sass()
     errors = _check_flash(dev)
     timing = _time_flash(dev, "phi3 prefill bf16")
     timing32 = _time_flash(dev, "phi3 prefill fp32")
@@ -1244,7 +1341,12 @@ def phase_lm(dev):
     bf16_errs = [e for n, e in errors.items() if "fp32" not in n]
     return dict(
         name="flash_attention", route="cuda",
-        source="src/repro_torch/csrc/flash_attention.cu",
+        source="src/repro_torch/csrc/flash_attention_sm90.cu",
+        sources=["src/repro_torch/csrc/flash_attention_sm90.cu",
+                 "src/repro_torch/csrc/flash_attention.cu"],
+        prefill_cuda_kernel=timing["cuda_kernel"],
+        launches_by_route=numbers["flash_launches_by_route"],
+        build=build_report, sass=sass,
         replaces="src/repro/kernels/flash_attention.py:72",
         launches=launches, launches_per_graph={"prefill": launches},
         cuda_kernels_per_launch=1, max_abs_err=max(bf16_errs),

@@ -33,35 +33,39 @@
 // runs the loop again without skipping. The fp32 path uses plain fp32 FMAs
 // (no TF32); there are no atomics, so a run is deterministic.
 //
-// Two kernels compute it. bfloat16 (the serving path) runs on the tensor
-// cores: `flash_attention_mma_kernel`, four warps of 16 query rows, the
-// products as mma.sync m16n8k16 with fp32 accumulators, Q fragments in
-// registers, K and V tiles in shared memory read by ldmatrix, and P passed
-// from the score fragments to the P.V product in registers. float32 runs on the
-// CUDA cores in full fp32 (no TF32): `flash_attention_tile_kernel`, 16 x 16
-// threads over a 64 x 64 tile staged in shared memory.
+// Two kernels here compute it. bfloat16 runs on the tensor cores:
+// `flash_attention_mma_kernel`, four warps of 16 query rows, the products as
+// mma.sync m16n8k16 with fp32 accumulators, Q fragments in registers, K and
+// V tiles in shared memory read by ldmatrix, and P passed from the score
+// fragments to the P.V product in registers. It serves the head dims 16, 32
+// and 80; at 64, 96 and 128 the wgmma kernel of
+// csrc/flash_attention_sm90.cu serves bf16 (kernels/flash_attention.py,
+// `cuda_route`). float32 runs on the CUDA cores in full fp32 (no TF32):
+// `flash_attention_tile_kernel`, 16 x 16 threads over a 64 x 64 tile staged
+// in shared memory.
 //
-// What bounds it on the card: at the serving shape (B*H = 128, S = 2048,
-// d = 96, causal, bf16) the work is 1.03e11 FLOP of two matrix products
+// What bounds a bf16 kernel on the card: at phi3's prefill shape (B*H = 128,
+// S = 2048, d = 96, causal) the work is 1.03e11 FLOP of two matrix products
 // against 201 MB of q, k, v and out, so the tensor cores' 989 TFLOP/s bound
-// it (104 us) before the 3.35 TB/s of HBM (60 us). What the bf16 design does
-// about it: each q tile is read once into registers, and out written once;
-// K and V tiles move in 16-byte cp.async copies into a double buffer, the
-// next visible tile's copies running during the current tile's products
+// it (104 us) before the 3.35 TB/s of HBM (60 us). What the mma.sync design
+// does about it: each q tile is read once into registers, and out written
+// once; K and V tiles move in 16-byte cp.async copies into a double buffer,
+// the next visible tile's copies running during the current tile's products
 // (the skip decision is taken one tile ahead, from positions loaded during
 // the products); ldmatrix feeds the K and V fragments to mma.sync; the
 // invisible half of a causal product is skipped; the heaviest (last) query
-// tiles launch first. Still open: each warp owns 16 query rows, so it reads
-// the whole K and V tile from shared memory for 16 rows (32 rows per warp
-// spill registers at d = 96 with mma.sync's fragments); wgmma with a
-// warpgroup per 64 rows and B read from shared memory, and TMA copies, are
-// the next steps (PERF.md).
+// tiles launch first. Each warp owns 16 query rows, so it reads the whole K
+// and V tile from shared memory for 16 rows (32 rows per warp spill
+// registers at d = 96 with mma.sync's fragments): the wgmma kernel, a
+// warpgroup per 64 rows with B read from shared memory, removes that.
 
 #include <climits>
 #include <cmath>
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "smem_limit.cuh"
 
 namespace {
 
@@ -681,9 +685,11 @@ __global__ void __launch_bounds__(MMA_THREADS)
 template <int D>
 cudaError_t launch_f32(const Params& p, int bh, cudaStream_t s) {
   constexpr int bytes = smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_tile_kernel<D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  static bool raised[MAX_DEVICES] = {};
+  int dev;
+  cudaError_t err = raise_smem(
+      reinterpret_cast<const void*>(flash_attention_tile_kernel<D>), bytes,
+      raised, dev);
   if (err != cudaSuccess) return err;
   const dim3 grid(bh, (p.sq + BQ - 1) / BQ);
   flash_attention_tile_kernel<D><<<grid, THREADS, bytes, s>>>(p);
@@ -693,20 +699,24 @@ cudaError_t launch_f32(const Params& p, int bh, cudaStream_t s) {
 template <int D>
 cudaError_t launch_bf16(const Params& p, int bh, cudaStream_t s) {
   constexpr int bytes = mma_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_mma_kernel<D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  static bool raised[MAX_DEVICES] = {};
+  int dev;
+  cudaError_t err = raise_smem(
+      reinterpret_cast<const void*>(flash_attention_mma_kernel<D>), bytes,
+      raised, dev);
   if (err != cudaSuccess) return err;
   const dim3 grid(bh, (p.sq + MMA_BQ - 1) / MMA_BQ);
   flash_attention_mma_kernel<D><<<grid, MMA_THREADS, bytes, s>>>(p);
   return cudaGetLastError();
 }
 
-// dtype 0: float32 on the CUDA cores; 1: bfloat16 on the tensor cores
+// dtype 0: float32 on the CUDA cores; 1: bfloat16 on the tensor cores, at
+// the head dims that the wgmma kernel (flash_attention_sm90.cu) does not take
 template <int D>
 cudaError_t launch(const Params& p, int dtype, int bh, cudaStream_t s) {
   if (dtype == 0) return launch_f32<D>(p, bh, s);
-  if (dtype == 1) return launch_bf16<D>(p, bh, s);
+  if constexpr (D != 64 && D != 96 && D != 128)
+    if (dtype == 1) return launch_bf16<D>(p, bh, s);
   return cudaErrorInvalidValue;
 }
 
@@ -714,10 +724,11 @@ cudaError_t launch(const Params& p, int dtype, int bh, cudaStream_t s) {
 
 // q: (B, Sq, H, d), k and v: (B, Sk, Kv, d), each with unit stride on d and
 // the element strides given (batch, seq, head); qpos (Sq,), kpos (Sk,) int32,
-// -1 = padding; out: contiguous (B, Sq, H, d). dtype 0 = float32,
-// 1 = bfloat16 (q, k, v and out alike). d in {16, 32, 64, 80, 96, 128}.
-// window <= 0 means no window. Launches on `stream`; returns the CUDA error of
-// the launch (cudaErrorInvalidValue for a d or dtype it does not take).
+// -1 = padding; out: contiguous (B, Sq, H, d). dtype 0 = float32 with d in
+// {16, 32, 64, 80, 96, 128}, 1 = bfloat16 with d in {16, 32, 80} (q, k, v
+// and out alike). window <= 0 means no window. Launches on `stream`; returns
+// the CUDA error of the launch (cudaErrorInvalidValue for a d or dtype it
+// does not take).
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, const int* qpos,
     const int* kpos, void* out, int dtype, int b, int h, int kv, int sq,

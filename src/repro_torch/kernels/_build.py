@@ -5,7 +5,8 @@ for `sm_90a`, then linked into one shared library with a plain C
 interface that `ctypes` loads. Nothing here includes PyTorch's headers,
 so a build takes seconds. The library lands in `build/repro_torch/<hash>/`
 at the root of the checkout (listed in `.gitignore`); the hash covers the
-sources and the flags, so an edited source is rebuilt on its next use.
+sources, their headers and the flags, so an edited source is rebuilt on
+its next use.
 
 Nothing is built when the package is imported: the first kernel launch
 calls `library()`. A missing `nvcc` or a failed build raises; there is
@@ -25,7 +26,9 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("radix_hist.cu", "tree_dist.cu", "spmv.cu",
-           "bitmap_intersect.cu", "flash_attention.cu")
+           "bitmap_intersect.cu", "flash_attention.cu",
+           "flash_attention_sm90.cu")
+HEADERS = ("smem_limit.cuh",)  # included by the sources, hashed with them
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "librepro_torch_kernels.so"
@@ -45,6 +48,8 @@ SIGNATURES = {
     "bitmap_intersect_launch": (_P, _P, _LL, _I, _I, _P, _P),
     "flash_attention_launch": (_P,) * 6 + (_I,) * 7 + (_LL,) * 9
                               + (_I, _I, _F, _P),
+    "flash_attention_wgmma_launch": (_P,) * 6 + (_I,) * 6 + (_LL,) * 9
+                                    + (_I, _I, _F, _P),
 }
 # entry points that return something other than a C int
 RESTYPES = {"radix_scratch_bytes": _LL}
@@ -67,7 +72,7 @@ def nvcc_path() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]

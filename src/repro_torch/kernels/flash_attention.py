@@ -15,13 +15,16 @@ the Pallas kernel and its jnp oracle do.
 
 Two executions of the one function:
 
-  * `flash_attention_cuda` launches the hand-written Hopper kernels in
-    `csrc/flash_attention.cu` on the tensors as they lie: q, k and v are
-    read in the (B, S, H, d) layout through their strides (no transpose
-    and no GQA repeat is made), the output is a new contiguous
-    (B, Sq, H, d) tensor. bfloat16 runs on the tensor cores (mma.sync),
-    float32 on the CUDA cores in full fp32. It takes d in `HEAD_DIMS` and
-    any Sq, Sk. Its launches are counted in `launches`;
+  * `flash_attention_cuda` launches a hand-written Hopper kernel on the
+    tensors as they lie: q, k and v are read in the (B, S, H, d) layout
+    through their strides (no transpose and no GQA repeat is made), the
+    output is a new contiguous (B, Sq, H, d) tensor. `cuda_route` picks
+    the kernel from the dtype and d: bfloat16 at d in `WGMMA_HEAD_DIMS`
+    runs `csrc/flash_attention_sm90.cu` (wgmma, TMA, a warp-specialised
+    pipeline), bfloat16 at the other head dims `csrc/flash_attention.cu`'s
+    mma.sync kernel, float32 that file's kernel on the CUDA cores in full
+    fp32. It takes d in `HEAD_DIMS` and any Sq, Sk. Its launches are
+    counted by route in `launches`;
   * `flash_attention_plain` is the plain PyTorch version, the formula of
     `repro.kernels.ref.flash_attention_ref`: fp32 scores, −1e30, softmax,
     P·V in fp32. Above `CHUNK_THRESHOLD` queries it works in chunks of
@@ -39,7 +42,12 @@ import torch
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 80, 96, 128)
+WGMMA_HEAD_DIMS = (64, 96, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# route -> the CUDA kernel it launches (a template over d)
+ROUTES = {"wgmma": "flash_attention_wgmma_kernel",
+          "mma": "flash_attention_mma_kernel",
+          "fp32": "flash_attention_tile_kernel"}
 # query chunking of the plain version (repro.models.attention:94-95)
 CHUNK_THRESHOLD = 8192
 CHUNK = 1024
@@ -48,8 +56,18 @@ CHUNK = 1024
 BF16_ATOL, BF16_RTOL, BF16_REL_L2 = 2e-3, 1e-2, 1e-2
 BF16_MAX_ABS = 3e-2  # the reference's own bf16 tolerance, kept as a ceiling
 
-# CUDA launches of the kernel since the last reset (kernels/ops.py).
-launches = 0
+# CUDA launches since the last reset (kernels/ops.py), by route
+launches = dict.fromkeys(ROUTES, 0)
+
+
+def cuda_route(dtype: torch.dtype, d: int) -> str:
+    """Which CUDA kernel serves (dtype, head dim d): "wgmma", "mma" or
+    "fp32" (a key of ROUTES)."""
+    if dtype not in DTYPES or d not in HEAD_DIMS:
+        raise ValueError(f"no CUDA kernel for {dtype} at head_dim {d}")
+    if dtype == torch.float32:
+        return "fp32"
+    return "wgmma" if d in WGMMA_HEAD_DIMS else "mma"
 
 
 def visible_mask(qpos: torch.Tensor, kpos: torch.Tensor, causal: bool,
@@ -153,26 +171,38 @@ def check_kernel_args(q, k, v, qpos, kpos, window) -> None:
 
 def _readable(x: torch.Tensor) -> bool:
     """Whether the kernel reads x in place: a unit stride on d and, for
-    the bf16 kernel's 16-byte loads of 8 elements, a 16-byte aligned start
-    and strides in multiples of 8 elements."""
+    the bf16 kernels' 16-byte loads of 8 elements (and TMA's 16-byte
+    strides), a 16-byte aligned start and positive strides in multiples of
+    8 elements on the dims longer than 1."""
     if x.stride(-1) != 1:
         return False
     if x.dtype != torch.bfloat16:
         return True
-    return x.data_ptr() % 16 == 0 and all(st % 8 == 0
-                                          for st in x.stride()[:-1])
+    return x.data_ptr() % 16 == 0 and all(
+        n == 1 or (st > 0 and st % 8 == 0)
+        for st, n in zip(x.stride()[:-1], x.shape[:-1]))
+
+
+def _strides(x: torch.Tensor) -> tuple:
+    """x's (batch, seq, head) element strides, a dim of length 1 given the
+    stride of a packed tensor (its own stride is never used, and a tensor
+    map takes only positive multiples of 16 bytes)."""
+    (sb, ss, sh), (nb, ns, nh) = x.stride()[:3], x.shape[:3]
+    sh = sh if nh > 1 else x.shape[3]
+    ss = ss if ns > 1 else sh * nh
+    sb = sb if nb > 1 else ss * ns
+    return sb, ss, sh
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          qpos: torch.Tensor, kpos: torch.Tensor,
                          causal: bool = True,
                          window: Optional[int] = None) -> torch.Tensor:
-    """Launch `csrc/flash_attention.cu` on the current stream of q's
-    device. q (B, Sq, H, d), k/v (B, Sk, Kv, d), any strides with a unit
-    stride on d (a tensor the kernel cannot read in place is copied);
-    qpos (Sq,), kpos (Sk,) integer positions. Returns a contiguous
-    (B, Sq, H, d) tensor."""
-    global launches
+    """Launch the kernel that `cuda_route(q.dtype, d)` picks on the
+    current stream of q's device. q (B, Sq, H, d), k/v (B, Sk, Kv, d), any
+    strides with a unit stride on d (a tensor the kernel cannot read in
+    place is copied); qpos (Sq,), kpos (Sk,) integer positions. Returns a
+    contiguous (B, Sq, H, d) tensor."""
     dev = q.device
     for name, x in (("q", q), ("k", k), ("v", v), ("qpos", qpos),
                     ("kpos", kpos)):
@@ -180,6 +210,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"{name} must be on q's CUDA device, got "
                              f"{x.device}")
     check_kernel_args(q, k, v, qpos, kpos, window)
+    route = cuda_route(q.dtype, q.shape[3])
     q, k, v = (x if _readable(x) else x.clone(
         memory_format=torch.contiguous_format) for x in (q, k, v))
     qpos = qpos.to(torch.int32).contiguous()
@@ -192,14 +223,24 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     from repro_torch.kernels._build import library
 
     lib = library()
-    with torch.cuda.device(dev):
-        err = lib.flash_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), qpos.data_ptr(),
-            kpos.data_ptr(), out.data_ptr(), DTYPES[q.dtype], b, h, kvh, sq,
-            sk, d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            int(causal), 0 if window is None else int(window),
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), qpos.data_ptr(),
+            kpos.data_ptr(), out.data_ptr())
+    sizes = (b, h, kvh, sq, sk, d)
+    tail = (int(causal), 0 if window is None else int(window),
             float(d ** -0.5), torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):
+        if route == "wgmma":
+            err = lib.flash_attention_wgmma_launch(
+                *ptrs, *sizes, *_strides(q), *_strides(k), *_strides(v),
+                *tail)
+        else:
+            err = lib.flash_attention_launch(
+                *ptrs, DTYPES[q.dtype], *sizes, *q.stride()[:3],
+                *k.stride()[:3], *v.stride()[:3], *tail)
+    if err == -1:
+        raise RuntimeError("flash_attention: the driver refused a tensor "
+                           "map of q, k or v")
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
-    launches += 1
+    launches[route] += 1
     return out

@@ -15,7 +15,8 @@ from repro_torch.kernels import bitmap_intersect
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import radix_hist, spmv, tree_dist
 
-# counter name -> (module, attribute holding its CUDA launches)
+# counter name -> (module, attribute holding its CUDA launches: a count, or
+# a dict of counts by route that sum to the kernel's)
 _COUNTERS = {
     "radix_hist": (radix_hist, "launches"),
     "tree_dist": (tree_dist, "launches"),
@@ -121,12 +122,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return fa.flash_attention_plain(q, k, v, qpos, kpos, causal, window)
 
 
+def _total(count) -> int:
+    return sum(count.values()) if isinstance(count, dict) else count
+
+
 def launch_counts() -> dict:
     """CUDA launches of each kernel since the last reset."""
-    return {name: getattr(mod, attr)
+    return {name: _total(getattr(mod, attr))
             for name, (mod, attr) in _COUNTERS.items()}
 
 
 def reset_launch_counts() -> None:
     for mod, attr in _COUNTERS.values():
-        setattr(mod, attr, 0)
+        count = getattr(mod, attr)
+        setattr(mod, attr, dict.fromkeys(count, 0)
+                if isinstance(count, dict) else 0)

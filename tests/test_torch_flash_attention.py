@@ -15,11 +15,14 @@ which the Pallas kernel and the CUDA kernel do and the plain version does
 not), and the whole to a relative L2 error of 1e-2. Rows with no visible
 key must give the mean of v over all keys, as the reference does.
 
-The CUDA kernel cannot run here; `_emulate_kernel` replays its tile loop
-(64-query blocks, 64-key tiles, the skip rule from each tile's positions
-and the second pass for rows with no visible key) in PyTorch, so the
-design is checked here against the plain version. The `cuda` tests hold
-the kernel itself against the plain version on the card and skip here.
+The CUDA kernels cannot run here; `_emulate_kernel` replays their tile
+loops (`TILINGS`: the mma.sync kernel's 64-query blocks and 64-key tiles;
+the wgmma kernel's 128-query blocks as two 64-row halves, 128-key tiles
+and tiles that every row of a half sees taken without a mask), with the
+skip rule from each tile's positions and the second pass for rows with no
+visible key, in PyTorch, so each design is checked here against the plain
+version. The `cuda` tests hold the kernels themselves against the plain
+version on the card and skip here.
 """
 import types
 
@@ -223,57 +226,103 @@ def test_ref_layout_matches_jax_oracle(J):
     np.testing.assert_allclose(got, want, atol=F32_TOL, rtol=F32_TOL)
 
 
-# -- the kernel's tile loop, replayed on the CPU ---------------------------
+# -- the kernels' tile loops, replayed on the CPU ---------------------------
 
-def _emulate_kernel(q, k, v, qpos, kpos, causal, window, bq=64, bk=64):
-    """The loop of `csrc/flash_attention.cu` in PyTorch: per block of bq
-    query rows, key tiles of bk skipped from their position range, an
-    online softmax with p rounded to v's dtype, and a second pass without
-    skipping when the block has a row with no visible key."""
+# The CUDA kernels' tilings: query rows per block (`bq`), split into
+# `groups` that each keep their own softmax state (a warp group of 64 rows
+# in the wgmma kernel; the mma kernel's 4 warps decide together), keys per
+# tile (`bk`), whether a tile that every row of a group fully sees skips the
+# per-element mask (`unmasked`), and whether the scale is folded into exp2.
+TILINGS = {
+    "mma": dict(bq=64, bk=64, groups=1, unmasked=False, exp2=False),
+    "wgmma": dict(bq=128, bk=128, groups=2, unmasked=True, exp2=True),
+}
+
+
+def _emulate_kernel(q, k, v, qpos, kpos, causal, window, tiling="mma",
+                    stats=None):
+    """The tile loop of a CUDA kernel (`TILINGS`) in PyTorch: per block of
+    bq query rows, key tiles of bk skipped from their position range (for
+    the whole block), an online softmax per group of rows with p rounded
+    to v's dtype, tiles that a group fully sees taken without a mask, and,
+    when a tile was skipped and some row of the block has no visible key,
+    a second pass over every tile for the whole block. `stats`, a dict,
+    counts the tiles taken without a mask ("unmasked") and the second
+    passes ("second_passes")."""
+    cfg = TILINGS[tiling]
+    bq, bk, groups = cfg["bq"], cfg["bk"], cfg["groups"]
+    stats = {} if stats is None else stats
+    stats.setdefault("unmasked", 0)
+    stats.setdefault("second_passes", 0)
     b, sq, h, d = q.shape
     sk, g = k.shape[1], h // k.shape[2]
+    kh = k.float().repeat_interleave(g, dim=2).permute(0, 2, 1, 3)
+    vh = v.float().repeat_interleave(g, dim=2).permute(0, 2, 1, 3)
+    # the kernels' exp: e^x, or 2^(x log2 e) with the scale folded in
+    scale = d ** -0.5 * (1.4426950408889634 if cfg["exp2"] else 1.0)
+    exp = torch.exp2 if cfg["exp2"] else torch.exp
     out = torch.empty_like(q)
-    for q0 in range(0, sq, bq):
-        rows = slice(q0, min(q0 + bq, sq))
-        qp = qpos[rows].long()
-        qt = q[:, rows].float().permute(0, 2, 1, 3)           # (b, h, r, d)
-        kh = k.float().repeat_interleave(g, dim=2).permute(0, 2, 1, 3)
-        vh = v.float().repeat_interleave(g, dim=2).permute(0, 2, 1, 3)
 
-        def attend(allow_skip):
-            m = torch.full(qt.shape[:3], fa.NEG_INF)
-            l = torch.zeros(qt.shape[:3])
-            acc = torch.zeros(qt.shape)
-            skipped = False
-            for k0 in range(0, sk, bk):
-                kp = kpos[k0:k0 + bk].long()
-                valid = kp[kp >= 0]
-                if allow_skip and (
-                        valid.numel() == 0
-                        or (causal and int(valid.min()) > int(qp.max()))
-                        or (window is not None and int(valid.max())
-                            <= int(qp.min()) - window)):
-                    skipped = True
-                    continue
-                s = torch.einsum("bhrd,bhtd->bhrt", qt,
-                                 kh[:, :, k0:k0 + bk]) * (d ** -0.5)
+    def tiles(qp, allow_skip):
+        kept, skipped = [], False
+        for k0 in range(0, sk, bk):
+            kp = kpos[k0:k0 + bk].long()
+            valid = kp[kp >= 0]
+            if allow_skip and (
+                    valid.numel() == 0
+                    or (causal and int(valid.min()) > int(qp.max()))
+                    or (window is not None
+                        and int(valid.max()) <= int(qp.min()) - window)):
+                skipped = True
+                continue
+            kept.append((k0, kp, valid.numel() == bk))
+        return kept, skipped
+
+    def attend(qt, qp, kept):
+        m = torch.full(qt.shape[:3], fa.NEG_INF)
+        l = torch.zeros(qt.shape[:3])
+        acc = torch.zeros(qt.shape)
+        for k0, kp, all_valid in kept:
+            s = torch.einsum("bhrd,bhtd->bhrt", qt,
+                             kh[:, :, k0:k0 + bk]) * scale
+            if (cfg["unmasked"] and all_valid
+                    and (not causal or int(kp.max()) <= int(qp.min()))
+                    and (window is None
+                         or int(kp.min()) > int(qp.max()) - window)):
+                stats["unmasked"] += 1
+            else:
                 vis = fa.visible_mask(qp, kp, causal, window)
                 s = torch.where(vis, s, torch.tensor(fa.NEG_INF))
-                m_new = torch.maximum(m, s.amax(-1))
-                alpha = torch.exp(m - m_new)
-                p = torch.exp(s - m_new[..., None])
-                l = l * alpha + p.sum(-1)
-                p = p.to(v.dtype).float()
-                acc = acc * alpha[..., None] + torch.einsum(
-                    "bhrt,bhtd->bhrd", p, vh[:, :, k0:k0 + bk])
-                m = m_new
-            return m, l, acc, skipped
+            m_new = torch.maximum(m, s.amax(-1))
+            alpha = exp(m - m_new)
+            p = exp(s - m_new[..., None])
+            l = l * alpha + p.sum(-1)
+            p = p.to(v.dtype).float()
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bhrt,bhtd->bhrd", p, vh[:, :, k0:k0 + bk])
+            m = m_new
+        return m, l, acc
 
-        m, l, acc, skipped = attend(True)
-        if skipped and bool((m == fa.NEG_INF).any()):
-            m, l, acc, _ = attend(False)
-        o = acc / l.clamp_min(1e-30)[..., None]
-        out[:, rows] = o.permute(0, 2, 1, 3).to(q.dtype)
+    for q0 in range(0, sq, bq):
+        nrows = min(bq, sq - q0)
+        kept, skipped = tiles(qpos[q0:q0 + nrows].long(), True)
+        for allow_skip in (True, False):
+            if not allow_skip:
+                stats["second_passes"] += 1
+                kept, _ = tiles(None, False)
+            parts, empty = [], False
+            for r0 in range(0, nrows, bq // groups):
+                rows = slice(q0 + r0, q0 + min(r0 + bq // groups, nrows))
+                qp = qpos[rows].long()
+                qt = q[:, rows].float().permute(0, 2, 1, 3)  # (b, h, r, d)
+                m, l, acc = attend(qt, qp, kept)
+                empty = empty or bool((m == fa.NEG_INF).any())
+                parts.append((rows, l, acc))
+            if not (skipped and empty):
+                break
+        for rows, l, acc in parts:
+            o = acc / l.clamp_min(1e-30)[..., None]
+            out[:, rows] = o.permute(0, 2, 1, 3).to(q.dtype)
     return out
 
 
@@ -283,6 +332,7 @@ def _emulation_cases():
     return {
         # name: (b, sq, sk, h, kv, d, qpos, kpos, causal, window)
         "causal": (1, 200, 200, 2, 1, 16, None, None, True, None),
+        "causal 600": (1, 600, 600, 2, 1, 16, None, None, True, None),
         "bidirectional": (1, 130, 70, 2, 2, 16, None, None, False, None),
         "window": (1, 300, 300, 2, 2, 16, None, None, True, 70),
         "padding": (1, 200, 200, 2, 2, 16, pad_q, pad_k, True, None),
@@ -296,15 +346,48 @@ def _emulation_cases():
     }
 
 
-@pytest.mark.parametrize("case", sorted(_emulation_cases()))
-def test_kernel_tile_loop_emulation_matches_plain(case):
+def _emulation_inputs(case):
     b, sq, sk, h, kv, d, qpos, kpos, causal, window = _emulation_cases()[case]
     q, k, v = (_t(x) for x in _qkv(len(case), b, sq, sk, h, kv, d))
     qpos = _t(np.arange(sq) if qpos is None else qpos, torch.int32)
     kpos = _t(np.arange(sk) if kpos is None else kpos, torch.int32)
-    want = fa.flash_attention_plain(q, k, v, qpos, kpos, causal, window)
-    got = _emulate_kernel(q, k, v, qpos, kpos, causal, window)
+    return q, k, v, qpos, kpos, causal, window
+
+
+@pytest.mark.parametrize("tiling", sorted(TILINGS))
+@pytest.mark.parametrize("case", sorted(_emulation_cases()))
+def test_kernel_tile_loop_emulation_matches_plain(case, tiling):
+    args = _emulation_inputs(case)
+    want = fa.flash_attention_plain(*args)
+    got = _emulate_kernel(*args, tiling=tiling)
     torch.testing.assert_close(got, want, atol=F32_TOL, rtol=F32_TOL)
+
+
+@pytest.mark.parametrize("case,unmasked,second_passes", [
+    # 2 + 4 + 6 + 8 (group, tile) pairs of q blocks 1-4 see whole earlier
+    # tiles; the last tile (88 keys) is never whole
+    ("causal 600", 20, 0),
+    ("padding", 0, 1),         # rows 0-4 see no key; block 0 skips tile 1
+    ("reversed keys", 0, 0),   # positions only: the tiles' ranges overlap
+])
+def test_wgmma_tiling_takes_unmasked_tiles_and_the_second_pass(
+        case, unmasked, second_passes):
+    """The new tiling's two paths are taken where they should be, and only
+    there: tiles without a mask (decided from positions, never indices)
+    and the vote-driven second pass."""
+    stats = {}
+    args = _emulation_inputs(case)
+    got = _emulate_kernel(*args, tiling="wgmma", stats=stats)
+    torch.testing.assert_close(got, fa.flash_attention_plain(*args),
+                               atol=F32_TOL, rtol=F32_TOL)
+    assert stats == dict(unmasked=unmasked, second_passes=second_passes)
+
+
+def _full_cache_kpos():
+    """A 2,081-slot cache filled with positions 0..2048."""
+    kpos = np.full(2081, -1, np.int32)
+    kpos[:2049] = np.arange(2049)
+    return kpos
 
 
 def _full_cache_case(seed):
@@ -312,13 +395,13 @@ def _full_cache_case(seed):
     2048, phi3's heads and head dim, bf16."""
     q, k, v = (_t(x, torch.bfloat16)
                for x in _qkv(seed, 4, 1, 2081, 32, 32, 96))
-    kpos = torch.full((2081,), -1, dtype=torch.int32)
-    kpos[:2049] = torch.arange(2049, dtype=torch.int32)
-    return q, k, v, torch.tensor([2048], dtype=torch.int32), kpos
+    return (q, k, v, torch.tensor([2048], dtype=torch.int32),
+            _t(_full_cache_kpos(), torch.int32))
 
 
+@pytest.mark.parametrize("tiling", sorted(TILINGS))
 @pytest.mark.parametrize("case", ["causal 256 d64", "one query, full cache"])
-def test_bf16_agreement_takes_the_kernels_rounding(case):
+def test_bf16_agreement_takes_the_kernels_rounding(case, tiling):
     """The kernel's tile loop in bf16 (p rounded to bf16 before P·V) is
     within the bound that the card's checks hold the kernel to."""
     if case == "one query, full cache":
@@ -327,7 +410,7 @@ def test_bf16_agreement_takes_the_kernels_rounding(case):
         q, k, v = (_t(x, torch.bfloat16)
                    for x in _qkv(22, 2, 256, 256, 4, 4, 64))
         qpos = kpos = torch.arange(256, dtype=torch.int32)
-    got = _emulate_kernel(q, k, v, qpos, kpos, True, None)
+    got = _emulate_kernel(q, k, v, qpos, kpos, True, None, tiling=tiling)
     res = fa.bf16_agreement(got, q, k, v, qpos, kpos, True)
     assert res["ok"], res
 
@@ -352,6 +435,7 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
     want = fa.flash_attention_plain(q, k, v, torch.arange(8), torch.arange(8))
     assert torch.equal(got, want)
     assert ops.launch_counts()["flash_attention"] == 0
+    assert fa.launches == dict.fromkeys(fa.ROUTES, 0)
     with pytest.raises(ValueError):  # the CUDA entry refuses CPU tensors
         fa.flash_attention_cuda(q, k, v, torch.arange(8), torch.arange(8))
     with pytest.raises(ValueError):
@@ -381,7 +465,34 @@ def test_kernel_arg_checks_refuse_what_the_kernel_does_not_take():
             fa.check_kernel_args(x, x[:, :, :1], x[:, :, :1], pos, pos, 4)
 
 
-# -- the CUDA kernel against its plain version (card only) ------------------
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+def test_cuda_route_by_dtype_and_head_dim(d, dtype):
+    """float32 stays on the CUDA cores; bf16 takes the wgmma kernel at the
+    served head dims 64, 96 and 128, the mma.sync kernel at the others."""
+    dt = getattr(torch, dtype)
+    want = ("fp32" if dt == torch.float32
+            else "wgmma" if d in (64, 96, 128) else "mma")
+    assert fa.cuda_route(dt, d) == want
+    assert want in fa.ROUTES
+
+
+def test_cuda_route_and_strides_refuse_or_fill_what_they_must():
+    for dt, d in ((torch.bfloat16, 24), (torch.float16, 64)):
+        with pytest.raises(ValueError):
+            fa.cuda_route(dt, d)
+    # a dim of length 1 gets a packed stride: a tensor map takes only
+    # positive multiples of 16 bytes, and its own stride is never used
+    x = torch.zeros(1, 1, 1, 96, dtype=torch.bfloat16)
+    assert fa._strides(x) == (96, 96, 96)
+    x = torch.zeros(2, 5, 3, 64, dtype=torch.bfloat16).transpose(1, 2)
+    assert fa._strides(x.transpose(1, 2)) == (960, 192, 64)
+    assert fa._readable(x) and not fa._readable(x[..., 1:9])
+    assert not fa._readable(torch.zeros(1, 4, 1, 64).to(
+        torch.bfloat16).expand(2, 4, 3, 64))
+
+
+# -- the CUDA kernels against their plain version (card only) ---------------
 
 def _cuda_cases():
     pad_q, pad_k = _padded_positions(300, 300)
@@ -397,6 +508,15 @@ def _cuda_cases():
                                 np.arange(131), True, None),
         "d96 one query, ring": (2, 1, 150, 2, 2, 96, np.array([260]),
                                 _ring_positions(150, 260), True, 150),
+        "d96 one query, full cache": (2, 1, 2081, 4, 4, 96,
+                                      np.array([2048]), _full_cache_kpos(),
+                                      True, None),
+        "d64 window": (1, 300, 300, 2, 2, 64, None, None, True, 70),
+        "d128 padding": (1, 300, 300, 2, 2, 128, pad_q, pad_k, True, None),
+        # more work items than SMs: the persistent wgmma kernel's blocks
+        # walk several items, some with a second pass
+        "d96 padding, 512 items": (4, 512, 512, 32, 32, 96,
+                                   *_padded_positions(512, 512), True, None),
     }
 
 
@@ -439,3 +559,46 @@ def test_cuda_kernel_reads_strided_inputs(cuda_device, dtype):
     pos = torch.arange(100, device=cuda_device)
     _assert_agrees(ops.flash_attention(flat, flat, flat, causal=True), flat,
                    flat, flat, pos, pos, causal=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 96, 128])
+def test_cuda_wgmma_kernel_serves_bf16_at_its_head_dims(cuda_device, d):
+    """The wgmma kernel within the bf16 bound of the plain version and
+    deterministic on a causal GQA case with a ragged last tile, each launch
+    counted under its route; the mma.sync entry refuses bf16 at these d."""
+    from repro_torch.kernels._build import library
+
+    q, k, v = (_t(x, torch.bfloat16).to(cuda_device)
+               for x in _qkv(d, 2, 333, 333, 4, 2, d))
+    pos = torch.arange(333, dtype=torch.int32, device=cuda_device)
+    ops.reset_launch_counts()
+    got = fa.flash_attention_cuda(q, k, v, pos, pos, True, None)
+    _assert_agrees(got, q, k, v, pos, pos, causal=True)
+    assert torch.equal(got, fa.flash_attention_cuda(q, k, v, pos, pos, True,
+                                                    None))
+    assert fa.launches == dict(wgmma=2, mma=0, fp32=0)
+    assert ops.launch_counts()["flash_attention"] == 2
+    out = torch.empty_like(q)
+    err = library().flash_attention_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
+        pos.data_ptr(), out.data_ptr(), fa.DTYPES[torch.bfloat16], 2, 4, 2,
+        333, 333, d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], 1, 0,
+        float(d ** -0.5), torch.cuda.current_stream().cuda_stream)
+    assert err == 1  # cudaErrorInvalidValue
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 96, 128])
+def test_cuda_wgmma_reads_strided_and_transposed_inputs(cuda_device, d):
+    """The tensor maps take the caller's strides: views of a fused
+    (B, S, 3, H, d) projection and of a (B, H, S, d) tensor give the
+    output of contiguous copies, bit for bit."""
+    rng = np.random.default_rng(d)
+    qkv = _t(rng.standard_normal((2, 200, 3, 4, d)).astype(np.float32),
+             torch.bfloat16).to(cuda_device)
+    views = [qkv[:, :, i] for i in range(3)]
+    bhsd = [x.transpose(1, 2).contiguous().transpose(1, 2) for x in views]
+    want = ops.flash_attention(*(x.contiguous() for x in views), causal=True)
+    assert torch.equal(ops.flash_attention(*views, causal=True), want)
+    assert torch.equal(ops.flash_attention(*bhsd, causal=True), want)
