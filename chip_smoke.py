@@ -1,9 +1,10 @@
 """Drive the PyTorch/CUDA port of LGRASS on one GPU and check it.
 
     python3 chip_smoke.py                # the check: needs one CUDA device
-    python3 chip_smoke.py --profile DIR  # also profiles one case3 call and
-                                         # one estimator call at n = 160,000,
-                                         # and writes the tables to DIR
+    python3 chip_smoke.py --profile DIR  # also profiles one lgrass_sparsify
+                                         # call on case3 and at n = 160,000
+                                         # and one estimator call there, and
+                                         # writes the tables to DIR
 
 Phases, in order; any failed check exits non-zero:
 
@@ -13,30 +14,49 @@ Phases, in order; any failed check exits non-zero:
      and (hi, lo) pair, equal to torch.sort(stable=True) and to its plain
      version on a CPU copy at tile edges and the main path's sizes, with
      random, all-equal and 0xFFFFFFFF-mixed keys, called back to back and
-     at changing sizes; the radix rank entry and the tree-distance kernel
-     against their plain versions (outputs must be equal); then each
-     timed with CUDA events and torch.profiler beside its plain version,
-     the least time the card could take (bytes over 3.35 TB/s) and, for
-     the argsort at M = 36,036, 72,072 and 639,998,
+     at changing sizes; the radix rank entry and the standalone
+     tree-distance kernel against their plain versions (outputs must be
+     equal); then each timed with CUDA events and torch.profiler beside
+     its plain version, the least time the card could take (bytes over
+     3.35 TB/s) and, for the argsort at M = 36,036, 72,072 and 639,998,
      torch.sort(stable=True) on the same keys as a yardstick;
   3. pipeline: `repro_torch.core.lgrass_sparsify` on the CUDA device for
-     the three IPCC cases and the 4K feeder, masks equal to the numpy
-     baseline oracle (and to a CPU run of the port for case1), with the
-     launch counts of the main path read around it; then case1 and case3
-     with use_tree_kernel=True; steady-state wall time per case;
-  4. quality: the spmv kernels (`csrc/spmv.cu`: the Laplacian product
+     the three IPCC cases and the 4K feeder, with the default (Euler)
+     distance engine and with use_tree_kernel=True, masks equal to the
+     numpy baseline oracle, with the launch counts read around each call
+     (per call: mark 1, rec 1, tree_dist 0, radix_hist 5); the edge-case
+     graphs (`core.graph.edge_case_graphs`: a forest with isolated nodes,
+     multi-edges and self-loops, extreme weights, ties at k_cap = 2, a
+     budget above the candidates) against the port's CPU run and the
+     baseline; case1 against a CPU run of the port; steady-state wall time
+     per case and engine;
+  4. mark_rec: the MARK and REC kernels (`csrc/mark.cu`,
+     `csrc/recover.cu`) against their plain loops run on the same CUDA
+     tensors (phase-1 accept and group_overflow; accepted and n_accepted;
+     the plain loops' lifting distances by `tree_dist_pairs_plain`, so
+     that the climb the kernels inline is not on both sides) on case1-3
+     and feeder4k with both engines and on the n = 160,000 graph with the
+     Euler engine; then each timed at case3 (both engines) and
+     n = 160,000 beside its plain loop and the bytes bound, MARK also on
+     its largest group alone (that group's serial walk), and both with
+     the cover test's depth-difference skip on and off, with the SM
+     clock;
+  5. quality: the spmv kernels (`csrc/spmv.cu`: the Laplacian product
      and the arc sum behind the probe lift and the degree) equal to their
      plain versions run on a CPU copy of the inputs (160k-node graph,
      case3 at P = 64 and 1, an edgeless graph, zero-weight slots), and
      timed beside the plain version on the card, torch.sparse.mm and the
      bound; then the estimator `probe_edge_resistance` at n = 160,000
      (P = 16, k = 32 and the defaults P = 64, k = 64: finite, bit-equal
-     run to run, allclose to the CPU run), a Jacobi run on case3, the
-     calibration against the dense pinv at n = 768, and the user's path
+     run to run, allclose to a CPU result that two CPU runs repeat bit
+     for bit, `_cpu_reference`), a Jacobi run on case3, the
+     calibration against the dense pinv at n = 768, twenty more card
+     runs at P = 16, k = 32 against one CPU result (no miss at rtol
+     1e-5), and the user's path
      (lgrass_sparsify on case3, then trace_similarity of tree, sparsifier
      and full graph); last, `bitmap_intersect_any` through its entry
      against its plain version;
-  5. lm: the flash-attention kernels' registers and spills (`-Xptxas -v`)
+  6. lm: the flash-attention kernels' registers and spills (`-Xptxas -v`)
      and the wgmma kernels' HGMMA and UTMALDG instructions (cuobjdump);
      each flash kernel against its plain version on the card, through the
      route `flash_attention.cuda_route` picks (bf16 at d = 64, 96, 128:
@@ -56,14 +76,20 @@ Phases, in order; any failed check exits non-zero:
      32 flash launches per prefill, all through the wgmma kernel, the
      serving contract (prefill +
      decode against the full forward) and prefill, decode and profile
-     times.
+     times;
+  7. walls, last (a CPU+CUDA torch.profiler session disturbs the device
+     times of later sessions): the case3 wall and device busy share with
+     the MARK/REC kernels and with their plain loops on the card, in
+     turns; one graph of n = 160,000 against its numpy baseline, with its
+     wall and busy share.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. In the kernels line, `launches` counts the
 wrapper's calls over the whole run of its path (the four graphs of the
-default path for radix_hist; case1 and case3 under use_tree_kernel for
-tree_dist; the quality path for laplacian_spmv; the entry's five shapes
-for bitmap_intersect; one `generate` call of the serving run for
+default path for radix_hist, mark and rec; the four graphs of the
+use_tree_kernel path for tree_dist, 0 since MARK and REC run its climb
+inside themselves; the quality path for laplacian_spmv; the entry's five shapes for
+bitmap_intersect; one `generate` call of the serving run for
 flash_attention), `launches_per_graph` splits that count by graph
 (by estimator call, or by shape), and `cuda_kernels_per_launch` says how
 many CUDA kernels one wrapper call enqueues. Each phase prints its wall
@@ -72,6 +98,7 @@ time. Imports nothing of JAX or of `repro`.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import statistics
@@ -110,26 +137,25 @@ def time_cuda(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_profile(fn, kernel_prefix, iters: int = 20,
-                   required: bool = True) -> tuple:
-    """Device time of `iters` calls of fn, from a torch.profiler trace,
-    for the CUDA kernels (and memsets) whose names contain
-    `kernel_prefix` (a string, or a tuple of them): the card's own time,
-    without the host's launch overhead. Returns (busy ms per call: the
-    union of those kernels' intervals, so kernels that overlap count
-    once; {name from the prefix on: ms per call of that kernel's own
-    interval}). With required=False, (None, {}) when no such kernel ran."""
+PROFILE_TRIES = 3        # traces of one device_profile before CUDA events
+PROFILE_PAD_S = 0.005    # idle host time at each end of a traced window
+
+
+def _traced_kernels(fn, prefixes, iters: int) -> tuple:
+    """One torch.profiler trace of `iters` calls of fn: (busy us, {name:
+    ms per call}) of the CUDA kernels whose names contain a prefix. The
+    window is padded with idle host time at both ends, so that a kernel
+    whose device timestamps sit a little off the host's clock still lands
+    inside the trace's capture window."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    prefixes = (kernel_prefix,) if isinstance(kernel_prefix, str) \
-        else kernel_prefix
-    fn()
-    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
+        time.sleep(PROFILE_PAD_S)
     spans, by_kernel = [], {}
     for e in prof.events():
         hit = [p for p in prefixes if p in e.name]
@@ -143,10 +169,42 @@ def device_profile(fn, kernel_prefix, iters: int = 20,
     for t0, t1 in sorted(spans):
         busy_us += max(0.0, t1 - max(t0, end))
         end = max(end, t1)
-    if not required and busy_us == 0:
+    return busy_us, by_kernel
+
+
+def device_profile(fn, kernel_prefix, iters: int = 20,
+                   required: bool = True) -> tuple:
+    """Device time of `iters` calls of fn, from a torch.profiler trace,
+    for the CUDA kernels (and memsets) whose names contain
+    `kernel_prefix` (a string, or a tuple of them): the card's own time,
+    without the host's launch overhead. Returns (busy ms per call: the
+    union of those kernels' intervals, so kernels that overlap count
+    once; {name from the prefix on: ms per call of that kernel's own
+    interval}). With required=False, (None, {}) when no such kernel ran.
+
+    A trace can come back without the kernels that ran in it (CUPTI
+    delivered none of their records): a required one is traced again, up
+    to PROFILE_TRIES times, and after that the CUDA-event time of the
+    same calls is returned with {} and a line saying so. Whether the
+    kernel ran at all is the launch counters' and the output checks'
+    business, not this timer's."""
+    prefixes = (kernel_prefix,) if isinstance(kernel_prefix, str) \
+        else kernel_prefix
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(1, PROFILE_TRIES + 1 if required else 2):
+        busy_us, by_kernel = _traced_kernels(fn, prefixes, iters)
+        if busy_us > 0:
+            if attempt > 1:
+                print(f"device_profile {kernel_prefix}: traced on try "
+                      f"{attempt} of {PROFILE_TRIES}")
+            return busy_us / iters / 1e3, by_kernel
+    if not required:
         return None, {}
-    check(busy_us > 0, f"no device time traced for {kernel_prefix}")
-    return busy_us / iters / 1e3, by_kernel
+    ms = time_cuda(fn, iters=iters, warmup=1)
+    print(f"device_profile {kernel_prefix}: no device time in "
+          f"{PROFILE_TRIES} traces; CUDA-event time {ms:.4f} ms used")
+    return ms, {}
 
 
 def device_ms(fn, kernel_prefix, iters: int = 20) -> float:
@@ -160,6 +218,39 @@ def bound_ms(n_bytes: float, n_ops: float,
     by_ops = n_ops / ops_per_s * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
                                                            "operations")
+
+
+def sm_clock() -> str:
+    """The card's SM clock, its maximum and its power draw now
+    (nvidia-smi), to print beside a time."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,"
+                          "power.draw", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    return out.stdout.strip().splitlines()[0] if out.returncode == 0 \
+        else "clock not read"
+
+
+def busy_profile(fn) -> tuple:
+    """(wall ms, device busy ms, launches) of one call of fn under
+    torch.profiler: the kernels' own device time (operators carry their
+    kernels' time again, and user spans appear as device-side
+    annotations, so both are left out)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    busy_ms = sum(e.self_device_time_total for e in events
+                  if e.device_type == DeviceType.CUDA
+                  and not e.is_user_annotation) / 1e3
+    launches = sum(e.count for e in events if e.key == "cudaLaunchKernel")
+    return wall_ms, busy_ms, launches, events
 
 
 def phase_build():
@@ -396,7 +487,7 @@ def phase_kernels(dev, lifting):
                                  "rank": 2, "memsets_per_launch": 1},
         argsort=timings, host_us_at_72072=host, rank_entry=rank_entry)
 
-    # -- tree_dist: the cover tables under use_tree_kernel ---------------
+    # -- tree_dist: the lifting climb, standalone ------------------------
     up = torch.as_tensor(lifting[0], device=dev)
     depth = torch.as_tensor(lifting[1].astype(np.int32), device=dev)
     log, n = up.shape
@@ -427,51 +518,134 @@ def phase_kernels(dev, lifting):
             lambda: tree_dist.tree_dist_pairs_plain(up, depth, a, b),
             iters=5),
         bound_ms=b_ms, bound_by=b_by, library_ms=None, at_m=m,
-        cuda_kernels_per_launch=1)
+        cuda_kernels_per_launch=1, sm_clock=sm_clock())
     ops.reset_launch_counts()  # the checks above are not the main path
     return report
 
 
-def phase_pipeline(dev, graphs, oracles):
+# per lgrass_sparsify call, on both engines: one MARK and one REC launch
+# with the distances inside them (no tree_dist launch), one radix call per
+# argsort
+PER_CALL = {"radix_hist": ARGSORTS_PER_CALL, "mark": 1, "rec": 1,
+            "tree_dist": 0}
+ENGINES = (("euler", False), ("lifting", True))  # use_tree_kernel
+
+
+def _diff(before, after) -> dict:
+    return {k: after[k] - before[k] for k in after}
+
+
+@contextlib.contextmanager
+def plain_distances():
+    """The plain loops' lifting distances through `tree_dist_pairs_plain`
+    on the CUDA tensors, not the tree_dist kernel: MARK and REC inline its
+    climb (csrc/tree_dist.cuh), so a comparison with the kernel on the
+    plain side would hold the climb against itself."""
+    from repro_torch.kernels import ops, tree_dist
+
+    saved = ops.tree_dist_pairs
+    ops.tree_dist_pairs = tree_dist.tree_dist_pairs_plain
+    try:
+        yield
+    finally:
+        ops.tree_dist_pairs = saved
+
+
+@contextlib.contextmanager
+def plain_loops():
+    """MARK and REC through their plain loops on the CUDA tensors, with
+    plain distances (a comparison only: the package has no such
+    switch)."""
+    from repro_torch.kernels import ops, phase1
+
+    saved = ops.mark, ops.recover
+    ops.mark, ops.recover = phase1.mark_plain, phase1.recover_plain
+    try:
+        with plain_distances():
+            yield
+    finally:
+        ops.mark, ops.recover = saved
+
+
+def _walls(fn, calls: int = TIMED_CALLS) -> list:
+    ts = []
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return ts
+
+
+def _case3_kernels_vs_plain(dev, g, want):
+    """The case3 wall and busy share with the MARK/REC kernels and with
+    the plain loops on the card, in turns, in this one process."""
     from repro_torch.core import lgrass_sparsify
+
+    call = lambda: lgrass_sparsify(g, device=dev)  # noqa: E731
+    out = {}
+    for label in ("kernels", "plain", "plain", "kernels"):
+        ctx = plain_loops() if label == "plain" else contextlib.nullcontext()
+        with ctx:
+            check(np.array_equal(call().edge_mask, want),
+                  f"case3 with the {label}: mask differs from the baseline")
+            ts = _walls(call)
+            wall, busy, launches, _ = busy_profile(call)
+        clock = sm_clock()
+        out.setdefault(label, []).append(dict(
+            walls_ms=ts, profiled_wall_ms=wall, busy_ms=busy,
+            busy_share=busy / wall, launches=launches, sm_clock=clock))
+        print(f"case3 wall with the {label}: median "
+              f"{statistics.median(ts):.1f} ms of {[round(t, 1) for t in ts]}"
+              f"; profiled {wall:.1f} ms, device busy {busy:.2f} ms "
+              f"({100 * busy / wall:.1f} %), {launches} launches "
+              f"[clock {clock}]")
+    return out
+
+
+def phase_pipeline(dev, graphs, oracles):
+    from repro_torch.core import baseline_sparsify, lgrass_sparsify
+    from repro_torch.core.graph import edge_case_graphs
     from repro_torch.core.sparsify import phase1_device
     from repro_torch.kernels import ops
 
-    # the main path: default engines, counts read around its run
-    ops.reset_launch_counts()
-    per_call = {}
-    for name, g in graphs.items():
-        before = ops.launch_counts()["radix_hist"]
-        r = lgrass_sparsify(g, device=dev)
-        per_call[name] = ops.launch_counts()["radix_hist"] - before
-        check(np.array_equal(r.edge_mask, oracles[name]),
-              f"{name}: CUDA mask differs from the numpy baseline")
-        check(per_call[name] == ARGSORTS_PER_CALL,
-              f"{name}: {per_call[name]} radix_hist launches, not "
-              f"{ARGSORTS_PER_CALL} (one per argsort)")
-        print(f"pipeline {name}: n={g.n} L={g.m} mask == baseline, "
-              f"accepted {r.n_accepted}, radix launches/call "
-              f"{per_call[name]}")
-    main_counts = ops.launch_counts()
-    check(main_counts["tree_dist"] == 0, "tree_dist ran on the default path")
+    # the path on each engine: the four graphs, counts read around each call
+    counts, per_call = {}, {}
+    for engine, utk in ENGINES:
+        ops.reset_launch_counts()
+        for name, g in graphs.items():
+            before = ops.launch_counts()
+            r = lgrass_sparsify(g, device=dev, use_tree_kernel=utk)
+            got = _diff(before, ops.launch_counts())
+            per_call.setdefault(engine, {})[name] = got
+            check(np.array_equal(r.edge_mask, oracles[name]),
+                  f"{name} {engine}: CUDA mask differs from the numpy "
+                  f"baseline")
+            for k, want in PER_CALL.items():
+                check(got[k] == want, f"{name} {engine}: {got[k]} {k} "
+                                      f"launches per call, not {want}")
+            print(f"pipeline {name} {engine}: n={g.n} L={g.m} mask == "
+                  f"baseline, accepted {r.n_accepted}, launches/call {got}")
+        counts[engine] = ops.launch_counts()
+        print(f"launches: {engine} path {counts[engine]}")
 
-    # the use_tree_kernel path, counts read around its run
-    ops.reset_launch_counts()
-    tree_per_call = {}
-    for name in ("case1", "case3"):
-        before = ops.launch_counts()
-        r = lgrass_sparsify(graphs[name], device=dev, use_tree_kernel=True)
-        after = ops.launch_counts()
-        tree_per_call[name] = after["tree_dist"] - before["tree_dist"]
-        check(np.array_equal(r.edge_mask, oracles[name]),
-              f"{name}: use_tree_kernel mask differs from the baseline")
-        print(f"pipeline {name} use_tree_kernel: mask == baseline, "
-              f"launches/call " + str({k: after[k] - before[k]
-                                        for k in after}))
-    tree_counts = ops.launch_counts()
-    check(tree_counts["tree_dist"] > 0, "no tree_dist launch")
-    print(f"launches: main path {main_counts}, "
-          f"use_tree_kernel path {tree_counts}")
+    # the edge cases: the card against the port's CPU run, and against the
+    # baseline where its mask is the answer
+    for name, (g, kw, baseline) in edge_case_graphs().items():
+        r = lgrass_sparsify(g, device=dev, **kw)
+        r_cpu = lgrass_sparsify(g, device="cpu", **kw)
+        ok = np.array_equal(r.edge_mask, r_cpu.edge_mask) and all(
+            getattr(r, k) == getattr(r_cpu, k) for k in
+            ("n_accepted", "n_groups", "n_overflow_groups", "n_dirty"))
+        if baseline:
+            ok = ok and np.array_equal(
+                r.edge_mask, baseline_sparsify(g, budget=kw["budget"])
+                .edge_mask)
+        print(f"edge case {name} {kw}: CUDA == CPU run"
+              f"{' == baseline' if baseline else ''}: {ok} "
+              f"(accepted {r.n_accepted})")
+        check(ok, f"edge case {name}: the CUDA run differs")
 
     # the port on the CPU gives the same bits as on the card
     g = graphs["case1"]
@@ -489,18 +663,221 @@ def phase_pipeline(dev, graphs, oracles):
         check(torch.equal(a, b), f"case1 phase-1 {key}: CPU != CUDA")
     print("case1: CPU run == CUDA run (masks; phase-1 outputs bit-equal)")
 
-    for name, g in graphs.items():
-        ts = []
-        for _ in range(TIMED_CALLS):
+    walls = {}
+    for engine, utk in ENGINES:
+        for name, g in graphs.items():
+            ts = _walls(lambda: lgrass_sparsify(g, device=dev,
+                                                use_tree_kernel=utk))
+            walls[f"{name} {engine}"] = statistics.median(ts)
+            print(f"wall {name} {engine}: median "
+                  f"{statistics.median(ts):.1f} ms over {TIMED_CALLS} calls "
+                  f"{[round(t, 1) for t in ts]} [clock {sm_clock()}]")
+    return counts, per_call, walls
+
+
+def phase_walls(dev, case3, case3_oracle, big, big_oracle):
+    """The walls under torch.profiler, last: a CPU+CUDA session disturbs
+    the device times of later sessions. case3 with the kernels and with
+    the plain loops, in turns; then one graph of n = 160,000 against its
+    numpy baseline."""
+    from repro_torch.core import lgrass_sparsify
+
+    case3_runs = _case3_kernels_vs_plain(dev, case3, case3_oracle)
+    r = lgrass_sparsify(big, device=dev)
+    check(np.array_equal(r.edge_mask, big_oracle),
+          f"n={big.n}: CUDA mask differs from the numpy baseline")
+    ts = _walls(lambda: lgrass_sparsify(big, device=dev))
+    wall, busy, launches, _ = busy_profile(
+        lambda: lgrass_sparsify(big, device=dev))
+    big_run = dict(walls_ms=ts, profiled_wall_ms=wall, busy_ms=busy,
+                   busy_share=busy / wall, launches=launches,
+                   n_accepted=r.n_accepted, sm_clock=sm_clock())
+    print(f"pipeline n={big.n} L={big.m}: mask == baseline, accepted "
+          f"{r.n_accepted}; wall median {statistics.median(ts):.1f} ms of "
+          f"{[round(t, 1) for t in ts]}; profiled {wall:.1f} ms, busy "
+          f"{busy:.2f} ms ({100 * busy / wall:.1f} %) "
+          f"[clock {big_run['sm_clock']}]")
+    return dict(case3=case3_runs, n160000=big_run)
+
+
+# -- MARK and REC: the greedy loops as kernels ----------------------------
+
+MARK_REC_SOURCES = {"mark": "mark.cu", "rec": "recover.cu"}
+
+
+def _mark_rec_inputs(g, dev, use_tree_kernel, k_cap=32):
+    """MARK's and REC's inputs from the port's phase 1 on the card, as the
+    pipeline hands them over."""
+    import types
+
+    from repro_torch.core.baseline import default_budget
+    from repro_torch.core.sparsify import (_bucket_b_cap, _phase1_program,
+                                           _rec_inputs)
+
+    u, v, w = (x.to(dev) for x in _edges(g))
+    d, euler, layout = _phase1_program(u, v, w, g.n, k_cap,
+                                       use_tree_kernel=use_tree_kernel)
+    rec, budget = _rec_inputs(d, u, v), default_budget(g.n)
+    return types.SimpleNamespace(
+        t=rec[0], euler=euler, layout=layout, su=u[layout.perm],
+        sv=v[layout.perm], sbeta=d["beta"][layout.perm], k_cap=k_cap,
+        rec=rec, budget=budget, b_cap=_bucket_b_cap([budget]))
+
+
+def _mark_rec_bounds(x, accepted) -> dict:
+    """Bytes at 3.35 TB/s: each input the function needs read once, each
+    output written once. MARK reads the slots (u, v, radius, group start:
+    16 B, the active flag: 1 B) and writes accept and group_overflow
+    (2 B); REC reads the edges its walk reaches (order, u, v, radius,
+    group: 20 B; crossing, phase-1 accept, dirty0: 3 B) and writes the
+    (L,) mask. Both need the tree, counted as its parent and depth (8 B
+    a node): the Euler table and the lifting table are structures built
+    to speed the distances up, not inputs of the function. Also the
+    largest group (MARK's longest serial walk: one block walks a group)
+    and REC's walked edges (one block walks them all)."""
+    from repro_torch.kernels.phase1 import walk_order
+
+    m, n = x.su.shape[0], x.t.depth.shape[0]
+    sizes = torch.bincount(x.layout.gidx[x.layout.active], minlength=1)
+    walk, n_walk = walk_order(x.rec[4], x.rec[6])
+    hit = torch.nonzero(accepted[walk[:int(n_walk)].long()])
+    walked = int(hit[-1]) + 1 if len(hit) and int(
+        accepted.sum()) >= min(x.budget, x.b_cap) else int(n_walk)
+    mark_b, _ = bound_ms(17 * m + 2 * m + 8 * n, 0)
+    rec_b, _ = bound_ms(23 * walked + m + 8 * n, 0)
+    return dict(
+        mark=dict(bound_ms=mark_b, bound_by="bytes",
+                  largest_group=int(sizes.max()),
+                  largest_group_id=int(sizes.argmax())),
+        rec=dict(bound_ms=rec_b, bound_by="bytes", walked_edges=walked,
+                 walked_chunks=-(-walked // 32)))
+
+
+def _largest_group_alone(x, gid):
+    """MARK's inputs cut to the one group `gid`: its slot range, its
+    slots and a one-group layout (the tables stay). The kernel's time on
+    it is the serial walk of that group with the card otherwise idle."""
+    import types
+
+    lay = x.layout
+    s0 = int(lay.group_start[gid])
+    s1 = int(lay.group_start[gid + 1]) if gid + 1 < lay.group_start.shape[0] \
+        else x.su.shape[0]
+    m = s1 - s0
+    start = torch.full((m,), m, dtype=lay.group_start.dtype,
+                       device=lay.group_start.device)
+    start[0] = 0
+    one = types.SimpleNamespace(
+        group_start=start, active=lay.active[s0:s1],
+        gidx=torch.zeros_like(lay.gidx[s0:s1]),
+        n_groups=torch.ones((), dtype=torch.int64, device=start.device))
+    return (s0, s1), (x.su[s0:s1], x.sv[s0:s1], x.sbeta[s0:s1], one)
+
+
+def _depth_skip_ab(mark_call, rec_call, plain) -> dict:
+    """Each kernel's device ms with the depth-difference skip of
+    csrc/ball_pair.cuh on and off, in the order on, off, off, on (outputs
+    equal either way)."""
+    out = {}
+    for kname, call in (("mark", mark_call), ("rec", rec_call)):
+        got = call(False)
+        want = plain[kname]
+        ok = all(torch.equal(a, b) if torch.is_tensor(a) else a == b
+                 for a, b in zip(got, want))
+        check(ok, f"{kname} without the depth skip differs from its plain "
+                  f"loop")
+        runs = {True: [], False: []}
+        for skip in (True, False, False, True):
+            runs[skip].append(device_profile(lambda: call(skip),
+                                             f"{kname}_kernel", iters=5)[0])
+        out[kname] = dict(device_ms_skip_on=runs[True],
+                          device_ms_skip_off=runs[False],
+                          sm_clock=sm_clock())
+    return out
+
+
+def phase_mark_rec(dev, graphs, big):
+    """Each kernel against its plain loop run on the same CUDA tensors
+    (with plain lifting distances, `plain_distances`), on case1-3 and
+    feeder4k with both engines and on the n = 160,000 graph with the
+    default engine, every output equal; then timed at case3 (both
+    engines) and n = 160,000 beside the plain loop and the bound, MARK
+    also on its largest group alone, and both with the depth skip on and
+    off."""
+    from repro_torch.core.pow2 import auto_chunk
+    from repro_torch.kernels import ops, phase1
+
+    cases = [(name, g, engine, utk) for name, g in graphs.items()
+             for engine, utk in ENGINES]
+    cases.append((f"n={big.n}", big, "euler", False))
+    err, timings = 0, {}
+    for name, g, engine, utk in cases:
+        x = _mark_rec_inputs(g, dev, utk)
+
+        def mark_call(skip=True):
+            return phase1.mark_cuda(x.t, x.su, x.sv, x.sbeta, x.layout,
+                                    x.k_cap, x.euler, depth_skip=skip)
+
+        def rec_call(skip=True):
+            return phase1.recover_cuda(*x.rec, x.budget, x.b_cap, x.euler,
+                                       depth_skip=skip)
+
+        acc, ovf = mark_call()
+        got, n_got = rec_call()
+        with plain_distances():
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            lgrass_sparsify(g, device=dev)
+            p_acc, p_ovf = phase1.mark_plain(
+                x.t, x.su, x.sv, x.sbeta, x.layout, x.k_cap,
+                auto_chunk(x.su.shape[0]), x.euler)
             torch.cuda.synchronize()
-            ts.append((time.perf_counter() - t0) * 1e3)
-        print(f"wall {name}: median {statistics.median(ts):.1f} ms over "
-              f"{TIMED_CALLS} calls {[round(t, 1) for t in ts]}, radix "
-              f"launches/call {per_call[name]}")
-    return main_counts, tree_counts, per_call, tree_per_call
+            t1 = time.perf_counter()
+            want, n_want = phase1.recover_plain(*x.rec, x.budget, x.b_cap,
+                                                32, x.euler)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+        ok_m = torch.equal(acc, p_acc) and torch.equal(ovf, p_ovf)
+        ok_r = torch.equal(got, want) and n_got == n_want
+        err = max(err, int((acc != p_acc).any()), int((ovf != p_ovf).any()),
+                  int((got != want).any()), abs(n_got - n_want))
+        print(f"mark/rec {name} {engine}: mark == plain (accept, "
+              f"group_overflow): {ok_m}; rec == plain (accepted, "
+              f"n_accepted {n_got}): {ok_r}; plain loops on the card "
+              f"{(t1 - t0) * 1e3:.1f} / {(t2 - t1) * 1e3:.1f} ms")
+        check(ok_m, f"{name} {engine}: the MARK kernel differs from "
+                    f"phase1_chunked")
+        check(ok_r, f"{name} {engine}: the REC kernel differs from "
+                    f"_recover_scan")
+        if name not in ("case3", f"n={big.n}"):
+            continue
+        bounds = _mark_rec_bounds(x, got)
+        for kname, fn, plain_s in (("mark", mark_call, t1 - t0),
+                                   ("rec", rec_call, t2 - t1)):
+            ms = time_cuda(fn, iters=10, warmup=2)
+            dev_ms, _ = device_profile(fn, f"{kname}_kernel", iters=10)
+            row = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_s * 1e3,
+                       sm_clock=sm_clock(), **bounds[kname])
+            timings[f"{kname} {name} {engine}"] = row
+            print(f"{kname} timings {name} {engine}: {row}")
+        # MARK on its largest group alone: is that group's walk the pace?
+        gid = timings[f"mark {name} {engine}"]["largest_group_id"]
+        (s0, s1), cut = _largest_group_alone(x, gid)
+        cut_call = lambda: phase1.mark_cuda(  # noqa: E731
+            x.t, *cut, x.k_cap, x.euler)
+        check(torch.equal(cut_call()[0], acc[s0:s1]),
+              f"{name} {engine}: MARK on its largest group alone differs")
+        alone = device_profile(cut_call, "mark_kernel", iters=10)[0]
+        timings[f"mark {name} {engine}"]["largest_group_alone_device_ms"] \
+            = alone
+        ab = _depth_skip_ab(mark_call, rec_call,
+                            {"mark": (p_acc, p_ovf), "rec": (want, n_want)})
+        for kname in ab:
+            timings[f"{kname} {name} {engine}"]["depth_skip_ab"] = ab[kname]
+        print(f"mark {name} {engine}: largest group "
+              f"({timings[f'mark {name} {engine}']['largest_group']} slots)"
+              f" alone {alone:.4f} ms; depth skip A/B {ab}")
+    ops.reset_launch_counts()  # the checks above are not the main path
+    return err, timings
 
 
 def _laplacian_csr(u, v, w, n):
@@ -684,29 +1061,134 @@ def _drive_estimator(dev, big, case3):
               f"{[round(t, 1) for t in ts]}, launches/call {per_call[tag]}")
         if p == 16:
             t0 = time.perf_counter()
-            r_cpu = SP.probe_edge_resistance(big.u, big.v, big.w, big.n,
-                                             n_probes=p, n_iters=k, seed=102,
-                                             device="cpu")
-            cpu_s = time.perf_counter() - t0
+            r_cpu, n_cpu = _cpu_reference(
+                lambda: SP.probe_edge_resistance(
+                    big.u, big.v, big.w, big.n, n_probes=p, n_iters=k,
+                    seed=102, device="cpu"), tag,
+                lambda first: _estimator_diagnosis(dev, big, p, k,
+                                                   first))
+            cpu_s = (time.perf_counter() - t0) / n_cpu
             rel = float(((r1.cpu() - r_cpu).abs()
                          / r_cpu.abs().clamp_min(1e-30)).max())
+            if not torch.allclose(r1.cpu(), r_cpu, rtol=1e-5, atol=0):
+                _estimator_diagnosis(dev, big, p, k, r_cpu)
             check(torch.allclose(r1.cpu(), r_cpu, rtol=1e-5, atol=0),
                   f"{tag}: CUDA R̂ not allclose (rtol 1e-5) to the CPU run, "
                   f"max rel diff {rel:.3e}")
             print(f"estimator {tag}: allclose to the CPU run (rtol 1e-5), "
-                  f"max rel diff {rel:.3e}; CPU run {cpu_s:.2f} s")
+                  f"max rel diff {rel:.3e}; CPU reference from {n_cpu} runs, "
+                  f"{cpu_s:.2f} s each")
+            _probe_estimator(dev, big, p, k, r_cpu)
 
     r_j = SP.probe_edge_resistance(case3.u, case3.v, case3.w, case3.n,
                                    n_probes=16, n_iters=32, method="jacobi",
                                    seed=3, device=dev)
-    r_j_cpu = SP.probe_edge_resistance(case3.u, case3.v, case3.w, case3.n,
-                                       n_probes=16, n_iters=32,
-                                       method="jacobi", seed=3, device="cpu")
+    r_j_cpu, _ = _cpu_reference(
+        lambda: SP.probe_edge_resistance(
+            case3.u, case3.v, case3.w, case3.n, n_probes=16, n_iters=32,
+            method="jacobi", seed=3, device="cpu"), "case3 jacobi")
     check(torch.allclose(r_j.cpu(), r_j_cpu, rtol=1e-5, atol=0),
           "case3 jacobi: CUDA R̂ not allclose to the CPU run")
     print("estimator case3 jacobi P=16 k=32: allclose to the CPU run "
           "(rtol 1e-5)")
     return per_call, walls
+
+
+ESTIMATOR_PROBE_RUNS = 20
+CPU_REFERENCE_RUNS = 3
+
+
+def _cpu_reference(run, tag, on_disagreement=None):
+    """The CPU result the card is held against: one that two CPU runs give
+    bit for bit, from at most CPU_REFERENCE_RUNS runs. The port's CPU
+    estimator is deterministic in a fresh process, but late in this
+    script's process a first CPU run has three times not been repeated by
+    the next (ROADMAP Queue 3 item 1), so a reference is taken only once a
+    second run repeats it. A run that disagrees is printed (and
+    on_disagreement called with the first run); no two runs agreeing
+    fails. Returns (the
+    result, the number of runs made)."""
+    runs = []
+    while len(runs) < CPU_REFERENCE_RUNS:
+        r = run()
+        if any(torch.equal(r, q) for q in runs):
+            if len(runs) > 1:
+                print(f"estimator {tag}: CPU runs disagreed; the reference "
+                      f"is the one that two of {len(runs) + 1} runs gave")
+            return r, len(runs) + 1
+        if runs:
+            rel = float(((r - runs[0]).abs()
+                         / runs[0].abs().clamp_min(1e-30)).max())
+            print(f"estimator {tag}: CPU run {len(runs) + 1} differs from "
+                  f"run 1, max rel diff {rel:.3e}")
+            if on_disagreement is not None:
+                on_disagreement(runs[0])
+        runs.append(r)
+    check(False, f"{tag}: no two of {CPU_REFERENCE_RUNS} CPU runs agree")
+
+
+def _probe_estimator(dev, big, p, k, r_cpu):
+    """The estimator run ESTIMATOR_PROBE_RUNS times on the card against one
+    fixed CPU result (a probe for the one miss ever seen, ROADMAP Queue 3
+    item 1): the largest relative difference and the misses at rtol 1e-5;
+    a miss fails."""
+    from repro_torch.core import spectral_probe as SP
+
+    worst, misses = 0.0, 0
+    for _ in range(ESTIMATOR_PROBE_RUNS):
+        r = SP.probe_edge_resistance(big.u, big.v, big.w, big.n,
+                                     n_probes=p, n_iters=k, seed=102,
+                                     device=dev).cpu()
+        worst = max(worst, float(((r - r_cpu).abs()
+                                  / r_cpu.abs().clamp_min(1e-30)).max()))
+        misses += not torch.allclose(r, r_cpu, rtol=1e-5, atol=0)
+    print(f"estimator probe n={big.n} P={p} k={k}: {ESTIMATOR_PROBE_RUNS} "
+          f"card runs against one CPU result: max rel diff {worst:.3e}, "
+          f"misses at rtol 1e-5: {misses}")
+    if misses:
+        _estimator_diagnosis(dev, big, p, k, r_cpu)
+    check(misses == 0, f"estimator probe: {misses} of "
+                       f"{ESTIMATOR_PROBE_RUNS} runs not allclose to the "
+                       f"CPU result (max rel diff {worst:.3e})")
+
+
+def _estimator_diagnosis(dev, big, p, k, r_cpu):
+    """Where a card run of the estimator leaves its CPU run, printed
+    before the failed check: a second CPU run, the arc CSR's order against
+    a stable sort on the CPU, the lift, the degree, one product on a fixed
+    block, and the solve, each card against CPU; also the sqrt of the
+    weights, the port's rounded one and torch's own."""
+    from repro_torch.core import spectral_probe as SP
+
+    again = SP.probe_edge_resistance(big.u, big.v, big.w, big.n,
+                                     n_probes=p, n_iters=k, seed=102,
+                                     device="cpu")
+    print(f"diagnosis: a second CPU run equals the first: "
+          f"{torch.equal(again, r_cpu)}")
+    xi = SP._rademacher(big.m, p, 102)
+    x0 = torch.as_tensor(np.random.default_rng(5).standard_normal(
+        (big.n, p)).astype(np.float32))
+    out = {}
+    for d in (dev, "cpu"):
+        u, v, w = (t.to(d) for t in _edges(big))
+        op = SP.laplacian_operator(u, v, w, big.n)
+        y = op.lift(SP._sqrt_rn(w)[:, None] * xi.to(d))
+        deg = op.degree()
+        dinv = torch.where(deg > 0.0, 1.0 / deg, torch.zeros_like(deg))
+        out[str(d)] = dict(
+            sqrt=SP._sqrt_rn(w).cpu(), torch_sqrt=torch.sqrt(w).cpu(),
+            lift=y.cpu(), degree=deg.cpu(), product=op(x0.to(d)).cpu(),
+            solve=SP._solve_cheby(op, dinv, y, k, SP.auto_lam_min(k)).cpu())
+        if op.csr is not None:
+            tail = torch.cat([u, v]).cpu()
+            want = torch.sort(tail, stable=True).indices
+            print(f"diagnosis: card arc CSR order == stable CPU sort: "
+                  f"{torch.equal(op.csr.arc.cpu().long(), want)}")
+    card, cpu = out[str(dev)], out["cpu"]
+    for key in card:
+        diff = float((card[key] - cpu[key]).abs().max())
+        print(f"diagnosis: {key} card == CPU: "
+              f"{torch.equal(card[key], cpu[key])}, max abs diff {diff:.3e}")
 
 
 def _drive_calibration_and_user_path(dev, case3):
@@ -853,7 +1335,7 @@ def phase_quality(dev, graphs):
     return spmv_entry, bit_entry, path_counts["radix_hist"]
 
 
-# -- phase 5: the LM serving path -----------------------------------------
+# -- phase 6: the LM serving path -----------------------------------------
 
 LM_ARCH = "phi3-mini-3.8b"
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 2048, 32
@@ -1356,45 +1838,37 @@ def phase_lm(dev):
         parity_depth2_launches=parity_launches, serve=numbers)
 
 
-def phase_profile(dev, g, out_dir):
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+def phase_profile(dev, graphs, out_dir):
+    """One profiled lgrass_sparsify call per graph (name -> graph): the
+    busy share and each stage's host and device time; the table goes to
+    DIR/profile_<name>.txt."""
     from repro_torch.core import lgrass_sparsify
 
     os.makedirs(out_dir, exist_ok=True)
-
-    lgrass_sparsify(g, device=dev)  # warm
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        lgrass_sparsify(g, device=dev)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    events = prof.key_averages()
-    with open(os.path.join(out_dir, "profile_case3.txt"), "w") as f:
-        f.write(events.table(sort_by="cpu_time_total", row_limit=40))
-    # kernels only: operators carry their kernels' time again, and the
-    # stage spans appear as device-side annotations over their duration
-    busy_ms = sum(e.self_device_time_total for e in events
-                  if e.device_type == DeviceType.CUDA
-                  and not e.is_user_annotation) / 1e3
-    launches = sum(e.count for e in events if e.key == "cudaLaunchKernel")
-    print(f"profile case3: wall {wall_ms:.1f} ms under the profiler, "
-          f"device busy {busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f} %), "
-          f"{launches} kernel launches")
-    stages = [e for e in events if e.key.isupper() and e.cpu_time_total > 0]
-    for e in sorted(stages, key=lambda e: -e.cpu_time_total):
-        print(f"profile case3 {e.key}: host {e.cpu_time_total / 1e3:.1f} ms,"
-              f" device {e.device_time_total / 1e3:.1f} ms")
+    for name, g in graphs.items():
+        lgrass_sparsify(g, device=dev)  # warm
+        wall_ms, busy_ms, launches, events = busy_profile(
+            lambda: lgrass_sparsify(g, device=dev))
+        with open(os.path.join(out_dir, f"profile_{name}.txt"), "w") as f:
+            f.write(events.table(sort_by="cpu_time_total", row_limit=40))
+        print(f"profile {name}: wall {wall_ms:.1f} ms under the profiler, "
+              f"device busy {busy_ms:.1f} ms "
+              f"({100 * busy_ms / wall_ms:.1f} %), {launches} kernel "
+              f"launches [clock {sm_clock()}]")
+        stages = [e for e in events
+                  if e.key.isupper() and e.cpu_time_total > 0]
+        for e in sorted(stages, key=lambda e: -e.cpu_time_total):
+            print(f"profile {name} {e.key}: host "
+                  f"{e.cpu_time_total / 1e3:.1f} ms, device "
+                  f"{e.device_time_total / 1e3:.1f} ms")
 
 
 def main(argv) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", metavar="DIR",
-                        help="profile one case3 call and one estimator call "
-                             "at n = 160,000; write the tables to DIR")
+                        help="profile one lgrass_sparsify call on case3 and "
+                             "at n = 160,000 and one estimator call there; "
+                             "write the tables to DIR")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1418,6 +1892,11 @@ def main(argv) -> int:
     t0 = time.perf_counter()
     base = {name: baseline_sparsify(g) for name, g in graphs.items()}
     print(f"numpy baseline oracle: {time.perf_counter() - t0:.2f} s")
+    big = _big_graph()
+    t0 = time.perf_counter()
+    big_oracle = baseline_sparsify(big).edge_mask
+    print(f"numpy baseline oracle n={big.n}: "
+          f"{time.perf_counter() - t0:.2f} s")
     b3 = base["case3"]
     lifting = (H.build_lifting_np(b3.parent_tree, b3.depth_tree,
                                   graphs["case3"].n), b3.depth_tree)
@@ -1426,13 +1905,41 @@ def main(argv) -> int:
     report = phase_kernels(dev, lifting)
     print(f"phase kernels: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    main_counts, tree_counts, radix_per, tree_per = phase_pipeline(
+    counts, per_call, walls = phase_pipeline(
         dev, graphs, {k: b.edge_mask for k, b in base.items()})
     print(f"phase pipeline: {time.perf_counter() - t0:.1f} s")
-    report["radix_hist"]["launches"] = main_counts["radix_hist"]
-    report["radix_hist"]["launches_per_graph"] = radix_per
-    report["tree_dist"]["launches"] = tree_counts["tree_dist"]
-    report["tree_dist"]["launches_per_graph"] = tree_per
+    t0 = time.perf_counter()
+    mr_err, mr_t = phase_mark_rec(dev, graphs, big)
+    print(f"phase mark_rec: {time.perf_counter() - t0:.1f} s")
+    main = counts["euler"]
+    # tree_dist's path is use_tree_kernel, where MARK and REC now run its
+    # climb inside themselves: its launches there, and on the default path
+    report["tree_dist"].update(
+        launches=counts["lifting"]["tree_dist"],
+        launches_per_graph={e: {k: c["tree_dist"] for k, c in per_call[e]
+                                .items()} for e in per_call})
+    report["radix_hist"]["launches"] = main["radix_hist"]
+    report["radix_hist"]["launches_per_graph"] = {
+        k: c["radix_hist"] for k, c in per_call["euler"].items()}
+    for kname, loop in (("mark", "src/repro/core/marking.py:508"),
+                        ("rec", "src/repro/core/recovery.py:264")):
+        at = mr_t[f"{kname} case3 euler"]
+        report[kname] = dict(
+            name=kname, route="cuda",
+            source=f"src/repro_torch/csrc/{MARK_REC_SOURCES[kname]}",
+            sources=["src/repro_torch/csrc/ball_pair.cuh",
+                     "src/repro_torch/csrc/euler_lca.cuh",
+                     "src/repro_torch/csrc/tree_dist.cuh"],
+            replaces="src/repro/kernels/tree_dist.py:66",
+            replaces_loop=loop, launches=main[kname],
+            launches_per_graph={e: {k: c[kname] for k, c in per_call[e]
+                                    .items()} for e in per_call},
+            cuda_kernels_per_launch=1, max_abs_err=mr_err, ms=at["ms"],
+            device_ms=at["device_ms"], plain_ms=at["plain_ms"],
+            bound_ms=at["bound_ms"], bound_by=at["bound_by"],
+            library_ms=None, at="case3, Euler engine",
+            timings={k.split(" ", 1)[1]: v for k, v in mr_t.items()
+                     if k.startswith(kname + " ")})
     t0 = time.perf_counter()
     spmv_entry, bit_entry, radix_quality = phase_quality(dev, graphs)
     print(f"phase quality: {time.perf_counter() - t0:.1f} s")
@@ -1440,13 +1947,20 @@ def main(argv) -> int:
     t0 = time.perf_counter()
     flash_entry = phase_lm(dev)
     print(f"phase lm: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    profiled = phase_walls(dev, graphs["case3"], base["case3"].edge_mask,
+                           big, big_oracle)
+    print(f"phase walls: {time.perf_counter() - t0:.1f} s")
     if args.profile:
-        phase_profile(dev, graphs["case3"], args.profile)
+        phase_profile(dev, {"case3": graphs["case3"], f"n{big.n}": big},
+                      args.profile)
         profile_estimator(dev, _big_graph(), args.profile)
+    print(f"pipeline numbers: {json.dumps(dict(walls_ms=walls, **profiled))}")
 
     print(f"card: {card}")
     print(json.dumps({"kernels": [report["radix_hist"], report["tree_dist"],
-                                  spmv_entry, bit_entry, flash_entry]}))
+                                  report["mark"], report["rec"], spmv_entry,
+                                  bit_entry, flash_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -207,6 +207,55 @@ def official_case(name: str) -> Graph:
     return powergrid_like_graph(**OFFICIAL_CASE_SHAPES[name])
 
 
+def edge_case_graphs() -> dict:
+    """Small graphs off the generators' path, each with the
+    `lgrass_sparsify` arguments it is checked at: name -> (graph,
+    arguments, whether the numpy baseline's mask is the answer).
+
+    A two-tree forest with four isolated nodes (every node off the root's
+    component is unreachable); multi-edges and self-loops; zero, 1e-30
+    and 1e30 weights; tied weights at k_cap = 2; a budget above the
+    number of candidates. Each case with the default distance engine and,
+    where it matters, with use_tree_kernel. Past the root's component the
+    reference's int32 distances decide (they wrap on two unreachable
+    depths) where the baseline's BFS balls decide otherwise: there the
+    reference's mask is the answer, not the baseline's.
+    """
+    a = random_connected_graph(20, 20, seed=1)
+    b = random_connected_graph(15, 15, seed=2)
+    forest = Graph(n=44, u=np.concatenate([a.u, b.u + 20]).astype(np.int32),
+                   v=np.concatenate([a.v, b.v + 20]).astype(np.int32),
+                   w=np.concatenate([a.w, b.w]).astype(np.float32))
+    g = random_connected_graph(30, 40, seed=5)
+    multi = Graph(n=30,
+                  u=np.concatenate([g.u, g.u[:10], np.arange(5)]).astype(
+                      np.int32),
+                  v=np.concatenate([g.v, g.v[:10], np.arange(5)]).astype(
+                      np.int32),
+                  w=np.concatenate([g.w, g.w[:10] * 0.5, np.ones(5)]).astype(
+                      np.float32))
+    g = random_connected_graph(30, 40, seed=6)
+    w = g.w.copy()
+    w[::5], w[1::7], w[2::9] = 0.0, 1e-30, 1e30
+    weights = Graph(n=30, u=g.u, v=g.v, w=w.astype(np.float32))
+    ties = random_connected_graph(40, 80, seed=4, weight="ties")
+    tree = dict(use_tree_kernel=True)
+    past = dict(budget=12, b_cap=16)
+    return {
+        "forest_isolated": (forest, dict(budget=6), True),
+        "forest_isolated_tree_kernel": (forest, dict(budget=6, **tree), True),
+        "forest_past_the_component": (forest, past, False),
+        "forest_past_the_component_tree_kernel": (forest, dict(past, **tree),
+                                                  False),
+        "multi_edges_self_loops": (multi, dict(budget=5), True),
+        "zero_tiny_huge_weights": (weights, dict(budget=5), True),
+        "ties_k_cap_2": (ties, dict(budget=8, k_cap=2), True),
+        "ties_k_cap_2_tree_kernel": (ties, dict(budget=8, k_cap=2, **tree),
+                                     True),
+        "budget_above_candidates": (ties, dict(budget=200), True),
+    }
+
+
 def from_reference(g) -> Graph:
     """The port's `Graph` from any object with `.n` and `.u/.v/.w` numpy
     arrays (for example `repro.core.graph.Graph`). The graph is the

@@ -8,7 +8,8 @@ definition of the table layout.
 
 The lifting table `up` and `depth` are int32, as in the reference: they
 are the inputs of the tree-distance kernel. Query ids may be int32 or
-int64; results are int64 unless stated.
+int64; results are int64 unless stated (the tree distances are int32,
+as in the reference).
 """
 from __future__ import annotations
 
@@ -142,5 +143,8 @@ def lca_euler(e: EulerLCA, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def tree_distance_euler(e: EulerLCA, a: torch.Tensor,
                         b: torch.Tensor) -> torch.Tensor:
+    """int32, wrapped as the reference's int32 sum wraps: a node off the
+    root's component has depth INF, and a sum over two of them overflows
+    (the lifting climb's `tree_dist_pairs` wraps the same way)."""
     w = lca_euler(e, a, b)
-    return e.depth[a] + e.depth[b] - 2 * e.depth[w]
+    return (e.depth[a] + e.depth[b] - 2 * e.depth[w]).to(torch.int32)

@@ -19,6 +19,11 @@ block is final. The iteration stops when nothing changes (one sync per
 step) and never runs more steps than the block's longest group run,
 which is read once for all blocks. All table updates land in one
 batched scatter per block.
+
+That loop is the plain version of MARK: `run_phase1` goes through
+`kernels.ops.mark`, which on a CUDA device launches the MARK kernel
+(`kernels/phase1.py`, `csrc/mark.cu`), one launch with no host sync that
+makes the same decisions.
 """
 from __future__ import annotations
 
@@ -240,14 +245,14 @@ def run_phase1(t: LiftingTables, su, sv, sbeta, layout: GroupLayout,
                chunk: Optional[int] = None,
                use_tree_kernel: bool = False,
                euler: Optional[EulerLCA] = None) -> Phase1Result:
-    """Schedule dispatcher: "chunked" with an automatic pow2 block size
-    (`pow2.auto_chunk`, ~sqrt(L)) unless `chunk` pins one. The "scan"
-    engines are not ported yet."""
+    """Schedule dispatcher: "chunked" through `ops.mark`, the MARK kernel
+    on a CUDA device and `phase1_chunked` on the CPU, with an automatic
+    pow2 block size for the plain loop (`pow2.auto_chunk`, ~sqrt(L))
+    unless `chunk` pins one. The "scan" engines are not ported yet."""
     if schedule == "chunked":
         c = auto_chunk(int(su.shape[0])) if chunk is None else int(chunk)
-        return phase1_chunked(t, su, sv, sbeta, layout, k_cap=k_cap,
-                              chunk=c, use_tree_kernel=use_tree_kernel,
-                              euler=euler)
+        return Phase1Result(*ops.mark(t, su, sv, sbeta, layout, k_cap, c,
+                                      None if use_tree_kernel else euler))
     if schedule == "scan":
         raise NotImplementedError(
             "schedule='scan' is not ported yet; use 'chunked'")

@@ -21,6 +21,11 @@ vectorised step `dec <- F(dec)`: after r applications the first r slots
 are final, and the iteration stops as soon as nothing changes (one sync
 per application). The host loop over blocks stops once the budget is
 filled, where the reference's while_loop stops.
+
+That loop is the plain version of REC: the pipeline goes through
+`kernels.ops.recover`, which on a CUDA device launches the REC kernel
+(`kernels/phase1.py`, `csrc/recover.cu`), one launch that makes the same
+decisions and whose accepted count is the one value read back.
 """
 from __future__ import annotations
 

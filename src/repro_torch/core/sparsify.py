@@ -5,8 +5,8 @@
     MST  -> Borůvka maximum spanning tree                   (mst.py)
     LCA  -> Euler-tour rooting, binary lifting, O(1) LCA    (bfs.py, lca.py)
     RES  -> root-path resistance sums -> criticality        (resistance.py)
-    MARK -> per-group chunked greedy (phase 1)              (marking.py)
-    REC  -> greedy replay of non-crossing edges             (recovery.py)
+    MARK -> per-group greedy (phase 1): one kernel launch   (marking.py)
+    REC  -> greedy replay in criticality order: one launch  (recovery.py)
 
 The port of `repro.core.sparsify`'s single-graph device path:
 `lgrass_sparsify(g)` runs `lgrass_device`, phase 1 followed by the
@@ -41,10 +41,10 @@ from repro_torch.core.marking import (build_group_layout, group_keys,
                                       phase1_edge_views, run_phase1)
 from repro_torch.core.mst import boruvka_mst
 from repro_torch.core.pow2 import next_pow2
-from repro_torch.core.recovery import _recover_scan
 from repro_torch.core.resistance import (criticality, node_parent_inv_w,
                                          root_path_sums)
 from repro_torch.core.sort import sort_f32_desc_stable
+from repro_torch.kernels import ops
 
 # Device recovery holds accepted edges in a (b_cap,) buffer.
 B_CAP_FLOOR = 8
@@ -81,12 +81,14 @@ def _phase1_program(u, v, w, n: int, k_cap: int,
                     schedule: str = "chunked", p1_chunk=None,
                     use_tree_kernel: bool = False,
                     bfs_engine: str = "doubling"):
-    """EFF→SORT→MST→LCA→RES→SORT→MARK (phase 1); returns (outputs, euler).
+    """EFF→SORT→MST→LCA→RES→SORT→MARK (phase 1); returns (outputs,
+    euler, layout): the outputs as a dict, the Euler tables (None under
+    use_tree_kernel) and MARK's group layout.
 
     The Euler-tour O(1)-LCA tables are built once, from the tour
-    `root_tree_euler` already ranks, and back the cover tables;
-    use_tree_kernel routes the cover tables through the tree-distance
-    kernel instead (and skips the Euler build).
+    `root_tree_euler` already ranks, and back the cover tests of MARK
+    and REC; use_tree_kernel makes them climb the lifting table instead
+    (the tree-distance kernel's climb) and skips the Euler build.
     """
     with record_function("EFF"):
         root = select_root(u, v, n)
@@ -138,7 +140,7 @@ def _phase1_program(u, v, w, n: int, k_cap: int,
         group_overflow=p1.group_overflow,
         n_groups=layout.n_groups,
     )
-    return d, euler
+    return d, euler, layout
 
 
 def phase1_device(u, v, w, n: int, k_cap: int = 32,
@@ -147,9 +149,24 @@ def phase1_device(u, v, w, n: int, k_cap: int = 32,
                   bfs_engine: str = "doubling") -> dict:
     """Phase 1 on the tensors' device: everything the recovery tail
     needs, as a dict of tensors."""
-    d, _ = _phase1_program(u, v, w, n, k_cap, schedule,
-                           p1_chunk, use_tree_kernel, bfs_engine)
+    d, _, _ = _phase1_program(u, v, w, n, k_cap, schedule,
+                              p1_chunk, use_tree_kernel, bfs_engine)
     return d
+
+
+def _rec_inputs(d: dict, u, v) -> tuple:
+    """REC's arguments before the budget, from phase 1's outputs: the
+    lifting tables, the edges, phase 1's views by edge id and the
+    (crit desc, id asc) order with tree edges trailing."""
+    offtree = ~d["tree_mask"]
+    accept_by_edge, group_of_edge, dirty0 = phase1_edge_views(
+        d["perm"], d["gidx"], d["accept_sorted"], d["group_overflow"],
+        d["crossing"])
+    keys = torch.where(offtree, d["crit"],
+                       torch.full_like(d["crit"], -torch.inf))
+    return (LiftingTables(up=d["up"], depth=d["depth_t"]), u, v, d["beta"],
+            offtree, d["crossing"], sort_f32_desc_stable(keys),
+            accept_by_edge, group_of_edge, dirty0)
 
 
 def _lgrass_program(u, v, w, budget: int, n: int, k_cap: int, b_cap: int,
@@ -157,32 +174,21 @@ def _lgrass_program(u, v, w, budget: int, n: int, k_cap: int, b_cap: int,
                     chunk: int = 32, schedule: str = "chunked",
                     p1_chunk=None, bfs_engine: str = "doubling") -> dict:
     """Phase 1 + the recovery replay on one device (Fig. 1b end to end)."""
-    d, euler = _phase1_program(u, v, w, n, k_cap, schedule,
-                               p1_chunk, use_tree_kernel, bfs_engine)
-    t = LiftingTables(up=d["up"], depth=d["depth_t"])
-    tree_mask = d["tree_mask"]
-    crossing = d["crossing"]
-    offtree = ~tree_mask
+    d, euler, _ = _phase1_program(u, v, w, n, k_cap, schedule,
+                                  p1_chunk, use_tree_kernel, bfs_engine)
     with record_function("REC_ORDER"):
-        accept_by_edge, group_of_edge, dirty0 = phase1_edge_views(
-            d["perm"], d["gidx"], d["accept_sorted"], d["group_overflow"],
-            crossing)
-        keys = torch.where(offtree, d["crit"],
-                           torch.full_like(d["crit"], -torch.inf))
-        order = sort_f32_desc_stable(keys)
+        rec = _rec_inputs(d, u, v)
     with record_function("REC"):
-        accepted, n_accepted = _recover_scan(
-            t, u, v, d["beta"], offtree, crossing, order, accept_by_edge,
-            group_of_edge, dirty0, budget, b_cap, use_tree_kernel, chunk,
-            euler)
+        accepted, n_accepted = ops.recover(*rec, budget, b_cap, chunk,
+                                           euler)
     depth_fin = finite_depth(d["depth_t"])
     return dict(
-        tree_mask=tree_mask,
+        tree_mask=d["tree_mask"],
         accepted=accepted,
         n_accepted=n_accepted,
         n_groups=d["n_groups"],
         n_overflow_groups=d["group_overflow"].sum(),
-        n_dirty=dirty0.sum(),
+        n_dirty=rec[-1].sum(),
         tree_depth_max=depth_fin.max(),
     )
 

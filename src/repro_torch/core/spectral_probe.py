@@ -18,7 +18,8 @@ Truncation only underestimates R; the probes add relative noise
 On a CUDA device every scatter of the estimator (the lift, the degree,
 each spmv) is a kernel of `csrc/spmv.cu` on a CSR of arcs built once
 per call (`build_arc_csr`, `laplacian_operator`): an ordered sum, so a run is
-deterministic and its scatters equal the CPU's bit for bit. R̂ itself is
+deterministic and its scatters equal the CPU's bit for bit. The probes'
+W^{1/2} is rounded to nearest on both (`_sqrt_rn`), so R̂ itself is
 equal across devices up to the order of the final sum over P.
 
 Differences of form from the reference:
@@ -71,6 +72,25 @@ def _div(t: torch.Tensor, s) -> torch.Tensor:
     device (CUDA divides by a host scalar as a product with its
     reciprocal, which rounds differently)."""
     return t / torch.tensor(np.float32(s), device=t.device)
+
+
+def _sqrt_rn(w: torch.Tensor) -> torch.Tensor:
+    """float32 sqrt rounded to nearest, on every device. A CPU build of
+    torch may take a large tensor through a vector library whose sqrt is
+    an ulp off for some elements (for example some of the weights of
+    `random_connected_graph(160000, 160000, seed=102)`), so the CPU's
+    lift Bᵀ W^{1/2} ξ, and R̂ after it, would differ from the card's,
+    whose sqrt is rounded to nearest. The library's s is within an ulp;
+    the midpoints between s and its neighbours have 25 significant bits,
+    so their squares are exact in float64 and decide the rounding."""
+    s = torch.sqrt(w)
+    up = torch.nextafter(s, torch.full_like(s, float("inf")))
+    down = torch.nextafter(s, torch.zeros_like(s))
+    wd, sd = w.to(torch.float64), s.to(torch.float64)
+    hi = (sd + up.to(torch.float64)) / 2
+    lo = (sd + down.to(torch.float64)) / 2
+    s = torch.where(wd > hi * hi, up, s)
+    return torch.where(wd < lo * lo, down, s)
 
 
 def build_arc_csr(u: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
@@ -168,7 +188,7 @@ def _probe_er(u, v, wm, qu, qv, xi, omega, lam_min, n: int, n_iters: int,
               method: str) -> torch.Tensor:
     """The device program: lift → k spmv rounds → R̂ gathers."""
     op = laplacian_operator(u, v, wm, n)
-    y = op.lift(torch.sqrt(wm)[:, None] * xi)          # Bᵀ W^{1/2} ξ
+    y = op.lift(_sqrt_rn(wm)[:, None] * xi)            # Bᵀ W^{1/2} ξ
     deg = op.degree()
     dinv = torch.where(deg > 0.0, 1.0 / deg, torch.zeros_like(deg))
     if method == "jacobi":

@@ -16,9 +16,12 @@
 // the a, b reads and the out write (~0.5 us at M = 135,168). The design
 // relies on many pairs in flight per SM (256-thread blocks, M/256 blocks) to
 // hide that latency; no shared-memory copy of the table is made, since a
-// per-block copy would cost more than the whole climb at these M.
+// per-block copy would cost more than the whole climb at these M. The climb
+// is `tree_dist_climb` (tree_dist.cuh), which MARK and REC also run.
 
 #include <cuda_runtime.h>
+
+#include "tree_dist.cuh"
 
 namespace {
 
@@ -33,28 +36,8 @@ __global__ void tree_dist_kernel(const int* __restrict__ up,
   if (i >= m) return;
   const int x = __ldg(a + i);
   const int y = __ldg(b + i);
-  const int dx = __ldg(depth + x);
-  const int dy = __ldg(depth + y);
-  const int ka = max(dx - dy, 0);
-  const int kb = max(dy - dx, 0);
-  int ca = x;
-  int cb = y;
-  for (int k = 0; k < log; ++k) {
-    const int* row = up + (long long)k * n;
-    if ((ka >> k) & 1) ca = __ldg(row + ca);
-    if ((kb >> k) & 1) cb = __ldg(row + cb);
-  }
-  for (int k = log - 1; k >= 0; --k) {
-    const int* row = up + (long long)k * n;
-    const int ua = __ldg(row + ca);
-    const int ub = __ldg(row + cb);
-    if (ca != cb && ua != ub) {
-      ca = ua;
-      cb = ub;
-    }
-  }
-  const int w = (ca == cb) ? ca : __ldg(up + ca);
-  out[i] = dx + dy - 2 * __ldg(depth + w);
+  out[i] = tree_dist_climb(up, depth, log, n, x, __ldg(depth + x), y,
+                           __ldg(depth + y));
 }
 
 }  // namespace

@@ -27,8 +27,10 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("radix_hist.cu", "tree_dist.cu", "spmv.cu",
            "bitmap_intersect.cu", "flash_attention.cu",
-           "flash_attention_sm90.cu")
-HEADERS = ("smem_limit.cuh",)  # included by the sources, hashed with them
+           "flash_attention_sm90.cu", "mark.cu", "recover.cu")
+# included by the sources, hashed with them
+HEADERS = ("smem_limit.cuh", "tree_dist.cuh", "euler_lca.cuh",
+           "ball_pair.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "librepro_torch_kernels.so"
@@ -50,9 +52,16 @@ SIGNATURES = {
                               + (_I, _I, _F, _P),
     "flash_attention_wgmma_launch": (_P,) * 6 + (_I,) * 6 + (_LL,) * 9
                                     + (_I, _I, _F, _P),
+    "mark_scratch_bytes": (_I, _I, _I),
+    "mark_launch": (_I,) + (_P,) * 5 + (_I, _I) + (_P,) * 7 + (_I,) * 3
+                   + (_P,) * 5,
+    "rec_scratch_bytes": (_I, _I),
+    "rec_launch": (_I,) + (_P,) * 5 + (_I, _I) + (_P,) * 11 + (_I,) * 4
+                  + (_P,) * 5,
 }
 # entry points that return something other than a C int
-RESTYPES = {"radix_scratch_bytes": _LL}
+RESTYPES = {"radix_scratch_bytes": _LL, "mark_scratch_bytes": _LL,
+            "rec_scratch_bytes": _LL}
 
 _lib = None
 

@@ -13,13 +13,15 @@ import torch
 
 from repro_torch.kernels import bitmap_intersect
 from repro_torch.kernels import flash_attention as fa
-from repro_torch.kernels import radix_hist, spmv, tree_dist
+from repro_torch.kernels import phase1, radix_hist, spmv, tree_dist
 
 # counter name -> (module, attribute holding its CUDA launches: a count, or
 # a dict of counts by route that sum to the kernel's)
 _COUNTERS = {
     "radix_hist": (radix_hist, "launches"),
     "tree_dist": (tree_dist, "launches"),
+    "mark": (phase1, "mark_launches"),
+    "rec": (phase1, "rec_launches"),
     "laplacian_spmv": (spmv, "launches"),
     "arc_sum": (spmv, "arc_sum_launches"),
     "bitmap_intersect": (bitmap_intersect, "launches"),
@@ -70,6 +72,34 @@ def tree_dist_pairs(up: torch.Tensor, depth: torch.Tensor, a: torch.Tensor,
             up.contiguous(), depth.to(torch.int32).contiguous(),
             a.to(torch.int32).contiguous(), b.to(torch.int32).contiguous())
     return tree_dist.tree_dist_pairs_plain(up, depth, a, b)
+
+
+def mark(t, su, sv, sbeta, layout, k_cap: int, chunk: int, euler=None):
+    """Phase 1 (MARK) over the sorted slots: t the LiftingTables, su, sv,
+    sbeta (L,) the sorted endpoints and radii, layout the GroupLayout;
+    distances by the Euler tables `euler`, or by the lifting climb when
+    it is None. Returns (accept (L,) bool per sorted slot,
+    group_overflow (L,) bool per dense group). `chunk` is the plain
+    loop's block size; the kernel's decisions do not depend on it."""
+    if _route(su) == "cuda":
+        return phase1.mark_cuda(t, su, sv, sbeta, layout, k_cap, euler)
+    return phase1.mark_plain(t, su, sv, sbeta, layout, k_cap, chunk, euler)
+
+
+def recover(t, u, v, beta, offtree, crossing, order, phase1_accept,
+            group_of_edge, dirty0, budget: int, b_cap: int, chunk: int = 32,
+            euler=None):
+    """The recovery replay (REC) over all edges in `order`; arguments as
+    `core.recovery._recover_scan`'s, with the engine as for `mark`.
+    Returns (accepted (L,) bool, n_accepted int). `chunk` is the plain
+    loop's block size."""
+    if _route(u) == "cuda":
+        return phase1.recover_cuda(t, u, v, beta, offtree, crossing, order,
+                                   phase1_accept, group_of_edge, dirty0,
+                                   budget, b_cap, euler)
+    return phase1.recover_plain(t, u, v, beta, offtree, crossing, order,
+                                phase1_accept, group_of_edge, dirty0, budget,
+                                b_cap, chunk, euler)
 
 
 def laplacian_operator(u: torch.Tensor, v: torch.Tensor, w: torch.Tensor,

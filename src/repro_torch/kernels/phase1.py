@@ -1,0 +1,207 @@
+"""MARK and REC as kernels: the phase-1 greedy and the recovery replay.
+
+The two greedy loops of the pipeline, each one launch per
+`lgrass_sparsify` call with no host sync inside. They compute the tree
+distances of their cover tests themselves, with the engine of the call:
+the Euler tour's O(1) LCA by default (`csrc/euler_lca.cuh`), or the
+binary-lifting climb of the TPU kernel `tree_dist_pairs`
+(`csrc/tree_dist.cuh`) under `use_tree_kernel=True`, where no Euler
+table is built. So the (4, C, K) distance batches of the plain loops, and
+their launches of the tree-distance kernel, are gone from the path.
+
+  * `mark_cuda` launches `csrc/mark.cu` (a block per group at a time,
+    32-slot chunks resolved by one warp on bitmasks) and counts its
+    launches in `mark_launches`; `mark_plain` is the plain version,
+    `core.marking.phase1_chunked`;
+  * `recover_cuda` launches `csrc/recover.cu` (one block walks the
+    criticality order in 32-edge chunks) and counts its launches in
+    `rec_launches`; it reads the accepted count back once, after the
+    launch. `recover_plain` is the plain version,
+    `core.recovery._recover_scan`.
+
+`kernels/ops.py` picks between them by the tensor's device. Both kernels
+make the plain versions' decisions exactly: every test is an integer
+comparison of the same distances.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.bfs import INF
+
+# CUDA launches of each kernel since the last reset (kernels/ops.py).
+mark_launches = 0
+rec_launches = 0
+
+EULER, LIFTING = 0, 1  # the C entry points' engine ids
+
+
+def mark_plain(t, su, sv, sbeta, layout, k_cap, chunk, euler):
+    """Plain version: `phase1_chunked`, (accept, group_overflow); euler
+    None for the lifting climb."""
+    from repro_torch.core.marking import phase1_chunked
+
+    return tuple(phase1_chunked(t, su, sv, sbeta, layout, k_cap=k_cap,
+                                chunk=chunk, use_tree_kernel=euler is None,
+                                euler=euler))
+
+
+def recover_plain(t, u, v, beta, offtree, crossing, order, phase1_accept,
+                  group_of_edge, dirty0, budget, b_cap, chunk, euler):
+    """Plain version: `_recover_scan`, (accepted, n_accepted); euler None
+    for the lifting climb."""
+    from repro_torch.core.recovery import _recover_scan
+
+    return _recover_scan(t, u, v, beta, offtree, crossing, order,
+                         phase1_accept, group_of_edge, dirty0, budget, b_cap,
+                         euler is None, chunk, euler)
+
+
+def _i32(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.int32).contiguous()
+
+
+def _engine(t, euler) -> tuple:
+    """(engine id, (t0..t4), tlog, tn) for the C entry points: the Euler
+    tables narrowed to int32 (first, table, dseq, tour, depth), or the
+    lifting table and depth when `euler` is None."""
+    if euler is None:
+        up = _i32(t.up)
+        return LIFTING, (up, _i32(t.depth), None, None, None), *up.shape
+    logp, p = euler.table.shape
+    return EULER, tuple(_i32(x) for x in (euler.first, euler.table,
+                                          euler.dseq, euler.tour,
+                                          euler.depth)), logp, p
+
+
+def _ptr(x):
+    return None if x is None else x.data_ptr()
+
+
+def _check_cuda(dev, **tensors) -> None:
+    for name, x in tensors.items():
+        if x.device != dev or dev.type != "cuda":
+            raise ValueError(f"{name} must be on the CUDA device {dev}")
+
+
+def _scratch(nbytes: int, dev):
+    return torch.empty((nbytes,), dtype=torch.uint8, device=dev) \
+        if nbytes else None
+
+
+def mark_cuda(t, su, sv, sbeta, layout, k_cap: int, euler=None,
+              depth_skip: bool = True):
+    """Launch `csrc/mark.cu` on the current stream of the tensors' device.
+    t: LiftingTables; su, sv, sbeta: (L,) sorted slots; layout: the
+    GroupLayout; euler: the EulerLCA tables, or None for the lifting
+    climb; depth_skip False turns off the cover test's depth-difference
+    skip (`csrc/ball_pair.cuh`), which changes no decision. Returns
+    (accept (L,) bool per sorted slot, group_overflow (L,) bool per dense
+    group)."""
+    global mark_launches
+    dev = su.device
+    _check_cuda(dev, su=su, sv=sv, sbeta=sbeta, up=t.up,
+                group_start=layout.group_start, active=layout.active,
+                n_groups=layout.n_groups)
+    if k_cap < 1:
+        raise ValueError(f"k_cap must be >= 1, got {k_cap}")
+    m = su.shape[0]
+    if m >= 2 ** 31 - 1:
+        raise ValueError(f"{m} slots do not fit int32 indices")
+    accept = torch.empty((m,), dtype=torch.bool, device=dev)
+    overflow = torch.empty((m,), dtype=torch.bool, device=dev)
+    if m == 0:
+        return accept, overflow
+    from repro_torch.kernels._build import library
+
+    lib = library()
+    engine, tabs, tlog, tn = _engine(t, euler)
+    su, sv, sb = _i32(su), _i32(sv), _i32(sbeta)
+    gstart = _i32(layout.group_start)
+    active = layout.active.contiguous()
+    n_groups = layout.n_groups.to(torch.int64).contiguous()
+    connected = (t.depth != INF).all()
+    work = torch.empty((1,), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        scratch = _scratch(lib.mark_scratch_bytes(engine, m, k_cap), dev)
+        err = lib.mark_launch(
+            engine, *map(_ptr, tabs), tlog, tn, su.data_ptr(), sv.data_ptr(),
+            sb.data_ptr(), gstart.data_ptr(), active.data_ptr(),
+            n_groups.data_ptr(), connected.data_ptr(), m, k_cap,
+            int(depth_skip), accept.data_ptr(),
+            overflow.data_ptr(), work.data_ptr(), _ptr(scratch),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"mark launch failed: CUDA error {err}")
+    mark_launches += 1
+    return accept, overflow
+
+
+def walk_order(offtree: torch.Tensor, order: torch.Tensor):
+    """The off-tree edges of `order`, in its sequence, as an (L + 1,)
+    int32 tensor whose first n_walk entries are meaningful, and n_walk as
+    a 0-d int64 tensor: a stable compaction without a host sync."""
+    m = order.shape[0]
+    keep = offtree[order]
+    dest = torch.where(keep, torch.cumsum(keep, 0) - 1, m)
+    walk = torch.zeros((m + 1,), dtype=torch.int32, device=order.device)
+    walk.scatter_(0, dest, order.to(torch.int32))
+    return walk, keep.sum()
+
+
+def group_offsets(crossing: torch.Tensor, group_of_edge: torch.Tensor):
+    """(L,) int32: where each phase-1 group's list starts in REC's (L,)
+    list scratch, the exclusive sum of the groups' crossing-edge counts
+    (a group never accepts more edges than it has); without a sync."""
+    m = crossing.shape[0]
+    sizes = torch.zeros((m + 1,), dtype=torch.int32, device=crossing.device)
+    sizes.scatter_add_(0, torch.where(crossing, group_of_edge, m),
+                       torch.ones((m,), dtype=torch.int32,
+                                  device=crossing.device))
+    return (torch.cumsum(sizes[:m], 0, dtype=torch.int32) - sizes[:m])
+
+
+def recover_cuda(t, u, v, beta, offtree, crossing, order, phase1_accept,
+                 group_of_edge, dirty0, budget: int, b_cap: int,
+                 euler=None, depth_skip: bool = True):
+    """Launch `csrc/recover.cu` on the current stream of the tensors'
+    device; arguments as `_recover_scan`'s, euler None for the lifting
+    climb, depth_skip as for `mark_cuda`. Returns (accepted (L,) bool, n_accepted int): the count is
+    read back after the launch, the one sync of REC."""
+    global rec_launches
+    dev = u.device
+    _check_cuda(dev, u=u, v=v, beta=beta, offtree=offtree,
+                crossing=crossing, order=order, phase1_accept=phase1_accept,
+                group_of_edge=group_of_edge, dirty0=dirty0, up=t.up)
+    m = u.shape[0]
+    if m >= 2 ** 31 - 1:
+        raise ValueError(f"{m} edges do not fit int32 indices")
+    if m == 0:
+        return torch.zeros((0,), dtype=torch.bool, device=dev), 0
+    from repro_torch.kernels._build import library
+
+    lib = library()
+    budget = max(min(int(budget), int(b_cap)), 0)
+    engine, tabs, tlog, tn = _engine(t, euler)
+    walk, n_walk = walk_order(offtree, order)
+    connected = (t.depth != INF).all()
+    offsets = group_offsets(crossing, group_of_edge)
+    ui, vi, bi, gi = _i32(u), _i32(v), _i32(beta), _i32(group_of_edge)
+    flags = [x.contiguous() for x in (crossing, phase1_accept, dirty0)]
+    out = torch.empty((m,), dtype=torch.bool, device=dev)
+    gflag = torch.empty((m,), dtype=torch.uint8, device=dev)
+    n_acc = torch.empty((1,), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        scratch = _scratch(lib.rec_scratch_bytes(m, int(b_cap)), dev)
+        err = lib.rec_launch(
+            engine, *map(_ptr, tabs), tlog, tn, walk.data_ptr(),
+            n_walk.data_ptr(), ui.data_ptr(), vi.data_ptr(), bi.data_ptr(),
+            gi.data_ptr(), *(x.data_ptr() for x in flags),
+            connected.data_ptr(), offsets.data_ptr(), m, budget, int(b_cap),
+            int(depth_skip), gflag.data_ptr(),
+            out.data_ptr(), n_acc.data_ptr(), _ptr(scratch),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"rec launch failed: CUDA error {err}")
+    rec_launches += 1
+    return out, int(n_acc.item())

@@ -123,14 +123,19 @@ def gqa_decode(params: Dict, cfg: ArchConfig, x: torch.Tensor, pos: int,
                ) -> Tuple[torch.Tensor, Dict]:
     """One token per sequence. x: (B, 1, d); pos: its absolute position.
     Writes the token's K/V into the cache in place, then attends over
-    every slot with the mask (slot filled) ∧ (pos' <= pos) [∧ window]."""
+    every slot with the mask (slot filled) ∧ (pos' <= pos) [∧ window].
+    Without a window, a position past the cache's end raises ValueError
+    (the reference clamps the write and overwrites the last slot)."""
+    slots = cache["k"].shape[1]
+    if not window and not 0 <= pos < slots:
+        raise ValueError(f"decode at position {pos} is past the end of a "
+                         f"cache of max_len {slots}")
     hd = cfg.resolved_head_dim
     q, k, v = _qkv(params, x)
     posb = torch.full((x.shape[0], 1), pos, dtype=torch.int32,
                       device=x.device)
     q = apply_rope(q, posb, cfg.rope_theta)
     k = apply_rope(k, posb, cfg.rope_theta)
-    slots = cache["k"].shape[1]
     slot = pos % slots if window else pos
     cache["k"][:, slot] = k[:, 0]
     cache["v"][:, slot] = v[:, 0]

@@ -18,9 +18,12 @@ import torch
 
 from repro_torch.core import _host as H
 from repro_torch.core import sort as tsort
+from repro_torch.core import lgrass_sparsify
 from repro_torch.core.graph import random_connected_graph
-from repro_torch.kernels import (bitmap_intersect, ops, radix_hist, ref,
-                                 tree_dist)
+from repro_torch.core.lca import LiftingTables
+from repro_torch.core.marking import GroupLayout
+from repro_torch.kernels import (bitmap_intersect, ops, phase1, radix_hist,
+                                 ref, tree_dist)
 
 torch.set_num_threads(1)
 
@@ -87,9 +90,12 @@ def test_ops_route_by_device_and_never_count_cpu_calls():
     assert ops.radix_argsort_u64pair(keys, keys).tolist() == [1, 2, 0]
     ops.bitmap_intersect_any(torch.ones((3, 2), dtype=torch.int32),
                              torch.ones((3, 2), dtype=torch.int32))
+    lgrass_sparsify(random_connected_graph(12, 10, seed=0), budget=3,
+                    device="cpu")  # MARK and REC, plain
     assert ops.launch_counts() == {
-        "radix_hist": 0, "tree_dist": 0, "laplacian_spmv": 0, "arc_sum": 0,
-        "bitmap_intersect": 0, "flash_attention": 0}
+        "radix_hist": 0, "tree_dist": 0, "mark": 0, "rec": 0,
+        "laplacian_spmv": 0, "arc_sum": 0, "bitmap_intersect": 0,
+        "flash_attention": 0}
     with pytest.raises(ValueError):
         ops.bucket_rank_hist(torch.zeros(10, dtype=torch.int32,
                                          device="meta"))
@@ -107,6 +113,12 @@ def test_ops_route_by_device_and_never_count_cpu_calls():
         tree_dist.tree_dist_pairs_cuda(up, up[0], up[0], up[0])
     with pytest.raises(ValueError):
         bitmap_intersect.bitmap_intersect_any_cuda(up, up)
+    lift = LiftingTables(up=up, depth=up[0])
+    with pytest.raises(ValueError):
+        phase1.mark_cuda(lift, up[0], up[0], up[0], GroupLayout(
+            up[0], up[0], up[0], up[0].bool(), up[0, 0]), 2)
+    with pytest.raises(ValueError):
+        phase1.recover_cuda(lift, *[up[0]] * 9, budget=2, b_cap=8)
 
 
 def test_build_signatures_name_every_c_entry_point():

@@ -297,6 +297,21 @@ def test_prefill_plus_decode_equals_full_forward(J, name):
     assert float((got - want).abs().max()) < SERVE_TOL
 
 
+def test_decode_past_the_cache_end_raises():
+    """The reduced phi3 with a cache of max_len 8: decode at position 7
+    fills the last slot; at position 8 there is none, and the port raises
+    where the reference clamps the write onto slot 7."""
+    cfg = dataclasses.replace(tconfigs.get_arch("phi3-mini-3.8b").reduced(),
+                              dtype="float32")
+    model = LM(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    toks = torch.from_numpy(_tokens(cfg.vocab_size, 2, 9))
+    _, caches = model.prefill(toks[:, :7], model.init_caches(2, 8))
+    logits, caches = model.decode_step(toks[:, 7:8], 7, caches)
+    assert bool(torch.isfinite(logits).all())
+    with pytest.raises(ValueError, match=r"position 8 .*max_len 8"):
+        model.decode_step(toks[:, 8:9], 8, caches)
+
+
 # -- the carry-across and the port's own init --------------------------------
 
 def test_convert_unstacks_scan_and_takes_unroll_lists(J):

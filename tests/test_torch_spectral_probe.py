@@ -3,6 +3,7 @@
 `repro_torch.core.spectral_probe` runs the plain versions of its kernels
 here. Tolerances, each with its reason:
 
+  * the sqrt of the weights is rounded to nearest: equal to numpy's;
   * the plain spmv, the weighted degree and the probe lift are equal
     (`np.array_equal`) to the reference's default scatter path: the same
     float32 terms added in the same order;
@@ -185,6 +186,19 @@ def test_spmv_degenerate_edges_give_exact_zeros():
     u, v = torch.tensor([0, 1, 3]), torch.tensor([1, 2, 0])
     y = ops.laplacian_spmv_edges(u, v, torch.zeros(3), _t(x))
     assert np.array_equal(y.numpy(), np.zeros_like(x))
+
+
+def test_weight_sqrt_is_rounded_to_nearest():
+    """The probes' W^{1/2} is float32 sqrt rounded to nearest, as on the
+    card: equal to numpy's float64 sqrt rounded to float32 (exact, since
+    53 >= 2 * 24 + 2 bits) on the n = 160,000 graph's weights, where a CPU
+    build's vector sqrt may be an ulp off, and on the edge values."""
+    w = random_connected_graph(160000, 160000, seed=102).w
+    edge = np.array([0.0, 1e-45, 1e-38, 1e-30, 0.25, 2.0, 3.0, 1e30,
+                     3.4e38, np.inf], np.float32)
+    for x in (w.astype(np.float32), edge):
+        want = np.sqrt(x.astype(np.float64)).astype(np.float32)
+        assert np.array_equal(T._sqrt_rn(torch.from_numpy(x)).numpy(), want)
 
 
 # -- the estimator against the reference ----------------------------------
