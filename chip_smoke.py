@@ -30,17 +30,21 @@ Phases, in order; any failed check exits non-zero:
      budget above the candidates) against the port's CPU run and the
      baseline; case1 against a CPU run of the port; steady-state wall time
      per case and engine;
-  4. mark_rec: the MARK and REC kernels (`csrc/mark.cu`,
-     `csrc/recover.cu`) against their plain loops run on the same CUDA
-     tensors (phase-1 accept and group_overflow; accepted and n_accepted;
-     the plain loops' lifting distances by `tree_dist_pairs_plain`, so
-     that the climb the kernels inline is not on both sides) on case1-3
-     and feeder4k with both engines and on the n = 160,000 graph with the
-     Euler engine; then each timed at case3 (both engines) and
-     n = 160,000 beside its plain loop and the bytes bound, MARK also on
-     its largest group alone (that group's serial walk), and both with
-     the cover test's depth-difference skip on and off, with the SM
-     clock;
+  4. mark_rec: the MARK and REC kernels (`csrc/mark.cu`: a chain
+     launch and a card-wide tail launch; `csrc/recover.cu`: one
+     thread-block cluster, whose size is printed) against their plain
+     loops run on the same CUDA tensors (phase-1 accept and
+     group_overflow; accepted and n_accepted; the plain loops' lifting
+     distances by `tree_dist_pairs_plain`, so that the climb the kernels
+     inline is not on both sides) on case1-3 and feeder4k with both
+     engines and on the n = 160,000 graph with the Euler engine; then
+     each timed at case3 (both engines) and n = 160,000 beside its plain
+     loop and the bytes bound: MARK's chain and tail launches apart, with
+     the tail's blocks and the largest group's chain and tail slots, and
+     MARK on its largest group alone; REC's chunk time split by its phase
+     clocks (staging, classification, tests, the exchange with its
+     cluster barrier, resolution); both with the cover test's
+     depth-difference skip on and off, with the SM clock;
   5. quality: the spmv kernels (`csrc/spmv.cu`: the Laplacian product
      and the arc sum behind the probe lift and the degree) equal to their
      plain versions run on a CPU copy of the inputs (160k-node graph,
@@ -523,9 +527,9 @@ def phase_kernels(dev, lifting):
     return report
 
 
-# per lgrass_sparsify call, on both engines: one MARK and one REC launch
-# with the distances inside them (no tree_dist launch), one radix call per
-# argsort
+# per lgrass_sparsify call, on both engines: one MARK call (its chain and
+# tail kernels) and one REC launch with the distances inside them (no
+# tree_dist launch), one radix call per argsort
 PER_CALL = {"radix_hist": ARGSORTS_PER_CALL, "mark": 1, "rec": 1,
             "tree_dist": 0}
 ENGINES = (("euler", False), ("lifting", True))  # use_tree_kernel
@@ -703,6 +707,11 @@ def phase_walls(dev, case3, case3_oracle, big, big_oracle):
 # -- MARK and REC: the greedy loops as kernels ----------------------------
 
 MARK_REC_SOURCES = {"mark": "mark.cu", "rec": "recover.cu"}
+# the CUDA kernels of each wrapper call, as torch.profiler names them
+MARK_REC_KERNELS = {"mark": ("mark_chain_kernel", "mark_tail_kernel"),
+                    "rec": ("rec_kernel",)}
+MARK_CHAIN = 32   # slots per chunk of MARK's chain
+REC_PHASES = ("staging", "classify", "tests", "exchange", "resolution")
 
 
 def _mark_rec_inputs(g, dev, use_tree_kernel, k_cap=32):
@@ -733,8 +742,9 @@ def _mark_rec_bounds(x, accepted) -> dict:
     (L,) mask. Both need the tree, counted as its parent and depth (8 B
     a node): the Euler table and the lifting table are structures built
     to speed the distances up, not inputs of the function. Also the
-    largest group (MARK's longest serial walk: one block walks a group)
-    and REC's walked edges (one block walks them all)."""
+    largest group (one block walks its chain; its tail goes to the tail
+    launch over the whole card) and REC's walked edges (one cluster
+    walks them all, chunk by chunk)."""
     from repro_torch.kernels.phase1 import walk_order
 
     m, n = x.su.shape[0], x.t.depth.shape[0]
@@ -774,6 +784,50 @@ def _largest_group_alone(x, gid):
     return (s0, s1), (x.su[s0:s1], x.sv[s0:s1], x.sbeta[s0:s1], one)
 
 
+def _chain_and_tail(accept, layout, gid, k_cap) -> dict:
+    """The slots of group `gid` that MARK's chain walks (up to the end of
+    the 32-slot chunk in which its k_cap-th entry is stored) and those
+    its tail launch decides, from the kernel's accept mask."""
+    s0 = int(layout.group_start[gid])
+    n = int((layout.gidx[s0:] == gid).sum())
+    hits = torch.nonzero(accept[s0:s0 + n]).flatten()
+    chain = n if len(hits) < k_cap else min(
+        n, -(-(int(hits[k_cap - 1]) + 1) // MARK_CHAIN) * MARK_CHAIN)
+    return dict(slots=n, chain_slots=chain, tail_slots=n - chain)
+
+
+def _sm_mhz() -> float:
+    """The SM clock now, in MHz (nvidia-smi)."""
+    try:
+        return float(sm_clock().split()[0])
+    except ValueError:
+        return float("nan")
+
+
+def _rec_phase_split(x, reps: int = 3) -> dict:
+    """REC's chunk time split by the kernel's own phase clocks (block 0's
+    thread 0, SM cycles over the SM clock read after the runs): µs per
+    chunk of staging, classification, tests, the exchange of cover bits
+    with its cluster barrier, and resolution; with the chunks, the pairs
+    per chunk and the whole run's µs."""
+    from repro_torch.kernels import phase1
+
+    clocks = torch.zeros((phase1.rec_clock_count(),), dtype=torch.int64,
+                         device=x.t.depth.device)
+    for _ in range(reps):
+        phase1.recover_cuda(*x.rec, x.budget, x.b_cap, x.euler,
+                            clocks=clocks)
+    torch.cuda.synchronize()
+    mhz = _sm_mhz()
+    c = [v / reps for v in clocks.cpu().tolist()]
+    chunks = max(c[len(REC_PHASES)], 1)
+    return dict(per_chunk_us={k: c[i] / chunks / mhz
+                              for i, k in enumerate(REC_PHASES)},
+                chunks=c[len(REC_PHASES)],
+                pairs_per_chunk=c[len(REC_PHASES) + 1] / chunks,
+                kernel_us=c[len(REC_PHASES) + 2] / mhz, sm_mhz=mhz)
+
+
 def _depth_skip_ab(mark_call, rec_call, plain) -> dict:
     """Each kernel's device ms with the depth-difference skip of
     csrc/ball_pair.cuh on and off, in the order on, off, off, on (outputs
@@ -789,7 +843,8 @@ def _depth_skip_ab(mark_call, rec_call, plain) -> dict:
         runs = {True: [], False: []}
         for skip in (True, False, False, True):
             runs[skip].append(device_profile(lambda: call(skip),
-                                             f"{kname}_kernel", iters=5)[0])
+                                             MARK_REC_KERNELS[kname],
+                                             iters=5)[0])
         out[kname] = dict(device_ms_skip_on=runs[True],
                           device_ms_skip_off=runs[False],
                           sm_clock=sm_clock())
@@ -801,8 +856,9 @@ def phase_mark_rec(dev, graphs, big):
     (with plain lifting distances, `plain_distances`), on case1-3 and
     feeder4k with both engines and on the n = 160,000 graph with the
     default engine, every output equal; then timed at case3 (both
-    engines) and n = 160,000 beside the plain loop and the bound, MARK
-    also on its largest group alone, and both with the depth skip on and
+    engines) and n = 160,000 beside the plain loop and the bound, MARK's
+    chain and tail apart and on its largest group alone, REC's chunk
+    split by its phase clocks, and both with the depth skip on and
     off."""
     from repro_torch.core.pow2 import auto_chunk
     from repro_torch.kernels import ops, phase1
@@ -811,6 +867,9 @@ def phase_mark_rec(dev, graphs, big):
              for engine, utk in ENGINES]
     cases.append((f"n={big.n}", big, "euler", False))
     err, timings = 0, {}
+    cluster = {engine: phase1.rec_cluster_size(utk) for engine, utk in ENGINES}
+    check(min(cluster.values()) >= 2, f"REC cluster sizes {cluster}")
+    print(f"rec cluster size (blocks of 1024 threads, one per SM): {cluster}")
     for name, g, engine, utk in cases:
         x = _mark_rec_inputs(g, dev, utk)
 
@@ -854,19 +913,52 @@ def phase_mark_rec(dev, graphs, big):
         for kname, fn, plain_s in (("mark", mark_call, t1 - t0),
                                    ("rec", rec_call, t2 - t1)):
             ms = time_cuda(fn, iters=10, warmup=2)
-            dev_ms, _ = device_profile(fn, f"{kname}_kernel", iters=10)
+            dev_ms, by_kernel = device_profile(fn, MARK_REC_KERNELS[kname],
+                                               iters=10)
             row = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_s * 1e3,
-                       sm_clock=sm_clock(), **bounds[kname])
+                       device_ms_by_kernel=by_kernel, sm_clock=sm_clock(),
+                       **bounds[kname])
             timings[f"{kname} {name} {engine}"] = row
             print(f"{kname} timings {name} {engine}: {row}")
-        # MARK on its largest group alone: is that group's walk the pace?
-        gid = timings[f"mark {name} {engine}"]["largest_group_id"]
+        mrow = timings[f"mark {name} {engine}"]
+        gid = mrow["largest_group_id"]
+        mrow["largest_group_split"] = _chain_and_tail(acc, x.layout, gid,
+                                                      x.k_cap)
+        by_kernel = mrow["device_ms_by_kernel"]
+        for part in MARK_REC_KERNELS["mark"]:
+            # None where device_profile fell back to CUDA-event time
+            mrow[part.split("_")[1] + "_device_ms"] = sum(
+                v for k, v in by_kernel.items()
+                if k.startswith(part)) if by_kernel else None
+        tail_threads = phase1.MARK_TAIL_THREADS
+        mrow["tail_blocks"] = -(-x.su.shape[0] // tail_threads)
+        # the largest group's tail blocks, and the SMs they need at least
+        # (2,048 threads a SM)
+        blocks = -(-mrow["largest_group_split"]["tail_slots"] // tail_threads)
+        mrow["largest_group_tail_blocks"] = blocks
+        mrow["largest_group_tail_min_sms"] = -(-blocks
+                                               // (2048 // tail_threads))
+        split_ms = ("not traced (CUDA-event time only)" if not by_kernel
+                    else f"chain {mrow['chain_device_ms']:.4f} ms, tail "
+                         f"{mrow['tail_device_ms']:.4f} ms (device)")
+        print(f"mark {name} {engine}: {split_ms}; the tail launch ran on "
+              f"{mrow['tail_blocks']} blocks of {tail_threads} threads; "
+              f"the largest group {mrow['largest_group_split']}, its tail "
+              f"over {blocks} of them, so on >= "
+              f"{mrow['largest_group_tail_min_sms']} SMs")
+        split = _rec_phase_split(x)
+        timings[f"rec {name} {engine}"].update(
+            phase_split=split, cluster_blocks=cluster[engine])
+        print(f"rec {name} {engine}: cluster of {cluster[engine]} blocks; "
+              f"chunk split {split}")
+        # MARK on its largest group alone: how much of the launch is it?
         (s0, s1), cut = _largest_group_alone(x, gid)
         cut_call = lambda: phase1.mark_cuda(  # noqa: E731
             x.t, *cut, x.k_cap, x.euler)
         check(torch.equal(cut_call()[0], acc[s0:s1]),
               f"{name} {engine}: MARK on its largest group alone differs")
-        alone = device_profile(cut_call, "mark_kernel", iters=10)[0]
+        alone = device_profile(cut_call, MARK_REC_KERNELS["mark"],
+                               iters=10)[0]
         timings[f"mark {name} {engine}"]["largest_group_alone_device_ms"] \
             = alone
         ab = _depth_skip_ab(mark_call, rec_call,
@@ -1120,7 +1212,8 @@ def _cpu_reference(run, tag, on_disagreement=None):
             rel = float(((r - runs[0]).abs()
                          / runs[0].abs().clamp_min(1e-30)).max())
             print(f"estimator {tag}: CPU run {len(runs) + 1} differs from "
-                  f"run 1, max rel diff {rel:.3e}")
+                  f"run 1, max rel diff {rel:.3e} (CPU threads "
+                  f"{torch.get_num_threads()}, torch {torch.__version__})")
             if on_disagreement is not None:
                 on_disagreement(runs[0])
         runs.append(r)
@@ -1934,7 +2027,9 @@ def main(argv) -> int:
             replaces_loop=loop, launches=main[kname],
             launches_per_graph={e: {k: c[kname] for k, c in per_call[e]
                                     .items()} for e in per_call},
-            cuda_kernels_per_launch=1, max_abs_err=mr_err, ms=at["ms"],
+            cuda_kernels_per_launch=len(MARK_REC_KERNELS[kname]),
+            cuda_kernels=list(MARK_REC_KERNELS[kname]),
+            max_abs_err=mr_err, ms=at["ms"],
             device_ms=at["device_ms"], plain_ms=at["plain_ms"],
             bound_ms=at["bound_ms"], bound_by=at["bound_by"],
             library_ms=None, at="case3, Euler engine",

@@ -22,8 +22,9 @@ batched scatter per block.
 
 That loop is the plain version of MARK: `run_phase1` goes through
 `kernels.ops.mark`, which on a CUDA device launches the MARK kernel
-(`kernels/phase1.py`, `csrc/mark.cu`), one launch with no host sync that
-makes the same decisions.
+(`kernels/phase1.py`, `csrc/mark.cu`), a chain launch and a card-wide
+tail launch with no host sync between them that make the same
+decisions.
 """
 from __future__ import annotations
 

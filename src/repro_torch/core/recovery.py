@@ -24,8 +24,9 @@ filled, where the reference's while_loop stops.
 
 That loop is the plain version of REC: the pipeline goes through
 `kernels.ops.recover`, which on a CUDA device launches the REC kernel
-(`kernels/phase1.py`, `csrc/recover.cu`), one launch that makes the same
-decisions and whose accepted count is the one value read back.
+(`kernels/phase1.py`, `csrc/recover.cu`), one thread-block cluster that
+makes the same decisions and whose accepted count is the one value read
+back.
 """
 from __future__ import annotations
 

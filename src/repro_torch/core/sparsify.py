@@ -5,8 +5,8 @@
     MST  -> Borůvka maximum spanning tree                   (mst.py)
     LCA  -> Euler-tour rooting, binary lifting, O(1) LCA    (bfs.py, lca.py)
     RES  -> root-path resistance sums -> criticality        (resistance.py)
-    MARK -> per-group greedy (phase 1): one kernel launch   (marking.py)
-    REC  -> greedy replay in criticality order: one launch  (recovery.py)
+    MARK -> per-group greedy (phase 1): chain + tail launch (marking.py)
+    REC  -> greedy replay in criticality order: one cluster (recovery.py)
 
 The port of `repro.core.sparsify`'s single-graph device path:
 `lgrass_sparsify(g)` runs `lgrass_device`, phase 1 followed by the

@@ -52,12 +52,14 @@ SIGNATURES = {
                               + (_I, _I, _F, _P),
     "flash_attention_wgmma_launch": (_P,) * 6 + (_I,) * 6 + (_LL,) * 9
                                     + (_I, _I, _F, _P),
-    "mark_scratch_bytes": (_I, _I, _I),
-    "mark_launch": (_I,) + (_P,) * 5 + (_I, _I) + (_P,) * 7 + (_I,) * 3
+    "mark_scratch_bytes": (_I,),
+    "mark_launch": (_I,) + (_P,) * 5 + (_I, _I) + (_P,) * 8 + (_I,) * 3
                    + (_P,) * 5,
     "rec_scratch_bytes": (_I, _I),
+    "rec_cluster_size": (_I,),
+    "rec_clock_count": (),
     "rec_launch": (_I,) + (_P,) * 5 + (_I, _I) + (_P,) * 11 + (_I,) * 4
-                  + (_P,) * 5,
+                  + (_P,) * 6,
 }
 # entry points that return something other than a C int
 RESTYPES = {"radix_scratch_bytes": _LL, "mark_scratch_bytes": _LL,

@@ -1,23 +1,26 @@
 """MARK and REC as kernels: the phase-1 greedy and the recovery replay.
 
-The two greedy loops of the pipeline, each one launch per
-`lgrass_sparsify` call with no host sync inside. They compute the tree
-distances of their cover tests themselves, with the engine of the call:
+The two greedy loops of the pipeline, each one wrapper call per
+`lgrass_sparsify` call with no host sync inside (MARK enqueues two CUDA
+kernels, REC one cluster). They compute the tree distances of their
+cover tests themselves, with the engine of the call:
 the Euler tour's O(1) LCA by default (`csrc/euler_lca.cuh`), or the
 binary-lifting climb of the TPU kernel `tree_dist_pairs`
 (`csrc/tree_dist.cuh`) under `use_tree_kernel=True`, where no Euler
 table is built. So the (4, C, K) distance batches of the plain loops, and
 their launches of the tree-distance kernel, are gone from the path.
 
-  * `mark_cuda` launches `csrc/mark.cu` (a block per group at a time,
-    32-slot chunks resolved by one warp on bitmasks) and counts its
-    launches in `mark_launches`; `mark_plain` is the plain version,
+  * `mark_cuda` launches `csrc/mark.cu` (two CUDA kernels: the chain, a
+    block per group at a time with 32-slot chunks resolved by one warp
+    on bitmasks until the group has stored k_cap entries; then the tail,
+    one thread per slot over the whole card) and counts its calls in
+    `mark_launches`; `mark_plain` is the plain version,
     `core.marking.phase1_chunked`;
-  * `recover_cuda` launches `csrc/recover.cu` (one block walks the
-    criticality order in 32-edge chunks) and counts its launches in
-    `rec_launches`; it reads the accepted count back once, after the
-    launch. `recover_plain` is the plain version,
-    `core.recovery._recover_scan`.
+  * `recover_cuda` launches `csrc/recover.cu` (one thread-block cluster,
+    `rec_cluster_size`, walks the criticality order in 32-edge chunks)
+    and counts its launches in `rec_launches`; it reads the accepted
+    count back once, after the launch. `recover_plain` is the plain
+    version, `core.recovery._recover_scan`.
 
 `kernels/ops.py` picks between them by the tensor's device. Both kernels
 make the plain versions' decisions exactly: every test is an integer
@@ -34,6 +37,7 @@ mark_launches = 0
 rec_launches = 0
 
 EULER, LIFTING = 0, 1  # the C entry points' engine ids
+MARK_TAIL_THREADS = 256  # a block of MARK's tail launch (csrc/mark.cu)
 
 
 def mark_plain(t, su, sv, sbeta, layout, k_cap, chunk, euler):
@@ -119,17 +123,18 @@ def mark_cuda(t, su, sv, sbeta, layout, k_cap: int, euler=None,
     su, sv, sb = _i32(su), _i32(sv), _i32(sbeta)
     gstart = _i32(layout.group_start)
     active = layout.active.contiguous()
+    gidx = _i32(layout.gidx)
     n_groups = layout.n_groups.to(torch.int64).contiguous()
     connected = (t.depth != INF).all()
     work = torch.empty((1,), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        scratch = _scratch(lib.mark_scratch_bytes(engine, m, k_cap), dev)
+        scratch = _scratch(lib.mark_scratch_bytes(m), dev)
         err = lib.mark_launch(
             engine, *map(_ptr, tabs), tlog, tn, su.data_ptr(), sv.data_ptr(),
-            sb.data_ptr(), gstart.data_ptr(), active.data_ptr(),
-            n_groups.data_ptr(), connected.data_ptr(), m, k_cap,
-            int(depth_skip), accept.data_ptr(),
-            overflow.data_ptr(), work.data_ptr(), _ptr(scratch),
+            sb.data_ptr(), gstart.data_ptr(), gidx.data_ptr(),
+            active.data_ptr(), n_groups.data_ptr(), connected.data_ptr(), m,
+            k_cap, int(depth_skip), accept.data_ptr(), overflow.data_ptr(),
+            work.data_ptr(), _ptr(scratch),
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"mark launch failed: CUDA error {err}")
@@ -161,13 +166,40 @@ def group_offsets(crossing: torch.Tensor, group_of_edge: torch.Tensor):
     return (torch.cumsum(sizes[:m], 0, dtype=torch.int32) - sizes[:m])
 
 
+def rec_cluster_size(lifting: bool = False) -> int:
+    """The blocks of the one cluster REC launches as on the current CUDA
+    device (16, else 8), for the lifting or the Euler engine. Raises when
+    the card cannot place a cluster of at least 2."""
+    from repro_torch.kernels._build import library
+
+    size = library().rec_cluster_size(LIFTING if lifting else EULER)
+    if size < 0:
+        raise RuntimeError(f"rec cluster query failed: CUDA error {-size}")
+    if size < 2:
+        raise RuntimeError("the card cannot place REC's thread-block "
+                           "cluster (8 or 16 blocks of 1024 threads)")
+    return size
+
+
+def rec_clock_count() -> int:
+    """The length of the `clocks` sums `recover_cuda` can fill."""
+    from repro_torch.kernels._build import library
+
+    return library().rec_clock_count()
+
+
 def recover_cuda(t, u, v, beta, offtree, crossing, order, phase1_accept,
                  group_of_edge, dirty0, budget: int, b_cap: int,
-                 euler=None, depth_skip: bool = True):
+                 euler=None, depth_skip: bool = True, clocks=None):
     """Launch `csrc/recover.cu` on the current stream of the tensors'
     device; arguments as `_recover_scan`'s, euler None for the lifting
-    climb, depth_skip as for `mark_cuda`. Returns (accepted (L,) bool, n_accepted int): the count is
-    read back after the launch, the one sync of REC."""
+    climb, depth_skip as for `mark_cuda`. clocks: None, or an int64 CUDA
+    tensor of `rec_clock_count()` sums to which the launch adds block 0's
+    SM cycles per phase (staging, classification, tests, exchange and
+    cluster barrier, resolution), its chunks, its pairs and its whole
+    run. Returns (accepted (L,) bool, n_accepted int): the count is read
+    back after the launch, the one sync of REC. Raises when the launch
+    fails, as it does on a card that cannot place a cluster of 2."""
     global rec_launches
     dev = u.device
     _check_cuda(dev, u=u, v=v, beta=beta, offtree=offtree,
@@ -183,6 +215,11 @@ def recover_cuda(t, u, v, beta, offtree, crossing, order, phase1_accept,
     lib = library()
     budget = max(min(int(budget), int(b_cap)), 0)
     engine, tabs, tlog, tn = _engine(t, euler)
+    if clocks is not None:
+        _check_cuda(dev, clocks=clocks)
+        if clocks.dtype != torch.int64 or \
+                clocks.numel() != lib.rec_clock_count():
+            raise ValueError("clocks must be rec_clock_count() int64 sums")
     walk, n_walk = walk_order(offtree, order)
     connected = (t.depth != INF).all()
     offsets = group_offsets(crossing, group_of_edge)
@@ -198,8 +235,8 @@ def recover_cuda(t, u, v, beta, offtree, crossing, order, phase1_accept,
             n_walk.data_ptr(), ui.data_ptr(), vi.data_ptr(), bi.data_ptr(),
             gi.data_ptr(), *(x.data_ptr() for x in flags),
             connected.data_ptr(), offsets.data_ptr(), m, budget, int(b_cap),
-            int(depth_skip), gflag.data_ptr(),
-            out.data_ptr(), n_acc.data_ptr(), _ptr(scratch),
+            int(depth_skip), gflag.data_ptr(), out.data_ptr(),
+            n_acc.data_ptr(), _ptr(clocks), _ptr(scratch),
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"rec launch failed: CUDA error {err}")

@@ -288,9 +288,10 @@ def test_cuda_masks_equal_cpu_and_count_launches():
 # kernels' design against the plain loops: a wrong class, filter or mask in
 # the design shows here as a decision that differs.
 
-MARK_CHAIN, MARK_THREADS = 32, 256
-REC_WIN, REC_CHUNK = 512, 32
+MARK_CHAIN = 32
+REC_WIN, REC_CHUNK, REC_THREADS, REC_CLUSTER = 512, 32, 1024, 16
 FULL, SAFE, MAYBE = 0, 1, 2
+ALL_LIST, NC_LIST, GROUP_LIST = 0, 1, 2
 
 
 def _engine_fns(t, euler):
@@ -329,106 +330,206 @@ def _covers(dist, depth, eu, ev, eb, x, y):
 
 
 def _emulate_mark(dist, depth, su, sv, sb, layout, k_cap):
-    """csrc/mark.cu: per group, 32-slot chunks resolved on bitmasks while
-    the group can store, then 256-slot chunks of independent slots."""
+    """csrc/mark.cu's two launches. The chain: per group, 32-slot chunks
+    resolved on bitmasks while the group has stored fewer than k_cap
+    entries; a group left with slots publishes its entries at its first
+    slot, and every group records where its tail starts. The tail: every
+    slot at or past its group's tail start, all groups at once, alone
+    against the published entries."""
     L = len(su)
     accept, overflow = np.zeros(L, bool), np.zeros(L, bool)
     gs, active = layout.group_start.numpy(), layout.active.numpy()
+    gidx = layout.gidx.numpy()
+    pub = np.full(L, -1, np.int64)  # the published entries (slot ids)
+    tail_start = np.full(L, -1, np.int64)
     for g in range(int(layout.n_groups)):
         s0, s1 = gs[g], (gs[g + 1] if g + 1 < L else L)
         if not active[s0]:
             continue
         ent = []  # stored slots, in order
         base = s0
-        while base < s1:
-            chain = len(ent) < k_cap
-            c = min(MARK_CHAIN if chain else MARK_THREADS, s1 - base)
+        while base < s1 and len(ent) < k_cap:
+            c = min(MARK_CHAIN, s1 - base)
             sl = np.arange(base, base + c)
             ii, jj = np.meshgrid(sl, np.array(ent, np.int64), indexing="ij")
             ii, jj = ii.ravel(), jj.ravel()
             cov = _covers(dist, depth, su[jj], sv[jj], sb[jj], su[ii],
                           sv[ii]).reshape(c, len(ent)).any(axis=1)
-            if chain:
-                i, j = np.tril_indices(c, -1)
-                cm = np.zeros((c, c), bool)
-                cm[i, j] = _covers(dist, depth, su[sl[j]], sv[sl[j]], sb[sl[j]],
-                                   su[sl[i]], sv[sl[i]])
-                stored = np.zeros(c, bool)
-                for i in np.flatnonzero(~cov):
-                    if (cm[i] & stored).any():
-                        continue
-                    accept[base + i] = True
-                    if len(ent) + stored.sum() < k_cap:
-                        stored[i] = True
-                    else:
-                        overflow[g] = True
-                ent += list(sl[stored])
-            else:
-                accept[sl] = ~cov
-                overflow[g] |= (~cov).any()
-            base += c
+            i, j = np.tril_indices(c, -1)
+            cm = np.zeros((c, c), bool)
+            cm[i, j] = _covers(dist, depth, su[sl[j]], sv[sl[j]], sb[sl[j]],
+                               su[sl[i]], sv[sl[i]])
+            stored = np.zeros(c, bool)
+            for i in np.flatnonzero(~cov):
+                if (cm[i] & stored).any():
+                    continue
+                accept[base + i] = True
+                if len(ent) + stored.sum() < k_cap:
+                    stored[i] = True
+                else:
+                    overflow[g] = True
+            ent += list(sl[stored])
+            base += MARK_CHAIN
+        if base < s1:
+            assert len(ent) == k_cap
+            pub[s0:s0 + k_cap] = ent
+        tail_start[g] = base
+    # the tail launch: one thread per slot over all L slots
+    s = np.flatnonzero(active)
+    s = s[s >= tail_start[gidx[s]]]
+    g = gidx[s]
+    ent = pub[gs[g][:, None] + np.arange(k_cap)[None, :]].ravel()
+    assert (ent >= 0).all()
+    xs = np.repeat(s, k_cap)
+    cov = _covers(dist, depth, su[ent], sv[ent], sb[ent], su[xs],
+                  sv[xs]).reshape(len(s), k_cap).any(axis=1)
+    accept[s[~cov]] = True
+    overflow[g[~cov]] = True
     return accept, overflow
 
 
 def _emulate_rec(dist, depth, u, v, beta, offtree, crossing, order, p1a,
                  group, dirty0, budget, b_cap):
-    """csrc/recover.cu: the off-tree edges in order, 32-edge chunks with
-    FULL / SAFE / MAYBE classes, the lemma's skips when every node is
-    reachable (`depth` given), and warp 0's resolution on bitmasks."""
+    """csrc/recover.cu: the off-tree edges in order, staged 512 at a time,
+    32-edge chunks with FULL / SAFE / MAYBE classes, the lemma's lists
+    when every node is reachable (`depth` given); the flat pair range cut
+    over the cluster's ranks, each rank's cover bits ORed into the
+    cluster's, and the resolution on bitmasks that every block repeats
+    (the edges no earlier edge of the chunk can change decided at once,
+    the rest in order, then the budget's cut), with the list slots and
+    lengths it writes."""
     connected = depth is not None
     L = len(u)
     budget = max(min(budget, b_cap), 0)
     walk = order[offtree[order]]
     out, gflag = np.zeros(L, bool), np.zeros(L, bool)
-    ent = []  # accepted edge ids, in order
     g_of = np.where(crossing, group, -1)
-    for cb in range(0, len(walk), REC_CHUNK):
-        if len(ent) >= budget:
+    sizes = np.bincount(g_of[g_of >= 0], minlength=L)
+    group_off = np.cumsum(sizes) - sizes
+    buf, nc_list = [], []                  # entry edge ids
+    lists = np.full(L, -1, np.int64)       # the groups' lists
+    list_len = np.zeros(L, np.int64)
+    cnt = 0
+    cthreads = REC_CLUSTER * REC_THREADS
+    for pos in range(0, len(walk), REC_WIN):
+        if cnt >= budget:
             break
-        ids = walk[cb:cb + REC_CHUNK]
-        c = len(ids)
-        gi, cr = g_of[ids], crossing[ids]
-        same = [[j for j in range(i) if gi[j] >= 0 and gi[j] == gi[i]]
-                for i in range(c)]
-        clean = [cr[i] and not dirty0[ids[i]] and not gflag[gi[i]]
-                 for i in range(c)]
-        cls = [(MAYBE if same[i] else SAFE) if clean[i] else FULL
-               for i in range(c)]
-        e = np.array(ent, np.int64)
-        eg = g_of[e]
-        cov_any, cov_nc = np.zeros(c, bool), np.zeros(c, bool)
-        for i in range(c):
-            test = eg < 0  # SAFE: the non-crossing entries only
-            if cls[i] != SAFE:  # all others, less the lemma's skips
-                test |= (eg == gi[i]) | (not (connected and gi[i] >= 0))
-            hit = _covers(dist, depth, u[e[test]], v[e[test]], beta[e[test]],
-                          np.full(test.sum(), u[ids[i]]),
-                          np.full(test.sum(), v[ids[i]]))
-            cov_any[i] = hit.any()
-            cov_nc[i] = hit[eg[test] < 0].any()
-        i, j = np.tril_indices(c, -1)
-        cm = np.zeros((c, c), bool)
-        cm[i, j] = _covers(dist, depth, u[ids[j]], v[ids[j]], beta[ids[j]],
-                           u[ids[i]], v[ids[i]])
-        acc, flip, nc = (np.zeros(c, bool) for _ in range(3))
-        for i in range(c):
-            if len(ent) >= budget:
+        win = walk[pos:pos + REC_WIN]
+        for cb in range(0, len(win), REC_CHUNK):
+            if cnt >= budget:
                 break
-            covered = cov_any[i] or (cm[i] & acc).any()
-            if cls[i] == FULL:
-                dec = not covered
-            else:
-                dirty = (flip[same[i]].any() or cov_nc[i]
-                         or (cm[i] & acc & nc).any())
-                dec = (not covered) if dirty else bool(p1a[ids[i]])
-            if cr[i] and dec != p1a[ids[i]]:
-                flip[i] = True
-                gflag[gi[i]] = True
-            if dec:
-                acc[i], nc[i] = True, not cr[i]
-                out[ids[i]] = True
-                ent.append(ids[i])
-    return out, len(ent)
+            ids = win[cb:cb + REC_CHUNK]
+            c = len(ids)
+            gi, cr = g_of[ids], crossing[ids]
+            same = [sum(1 << j for j in range(i) if gi[j] >= 0
+                        and gi[j] == gi[i]) for i in range(c)]
+            later = [sum(1 << j for j in range(i + 1, c) if gi[j] >= 0
+                         and gi[j] == gi[i]) for i in range(c)]
+            glen = [list_len[gi[i]] if gi[i] >= 0 else 0 for i in range(c)]
+            cls, kind, length = [], [], []
+            for i in range(c):
+                k = FULL
+                if cr[i] and not dirty0[ids[i]] and not gflag[gi[i]]:
+                    k = MAYBE if same[i] else SAFE
+                if k == SAFE:
+                    lk, n = NC_LIST, len(nc_list)
+                elif connected and gi[i] >= 0:
+                    lk, n = GROUP_LIST, len(nc_list) + glen[i]
+                else:
+                    lk, n = ALL_LIST, cnt
+                cls.append(k)
+                kind.append(lk)
+                length.append(n)
+            start = np.concatenate([[0], np.cumsum(length)])
+            # the flat pair range, pair p on rank (p mod threads) // 1024
+            p = np.arange(start[-1])
+            i = np.searchsorted(start, p, side="right") - 1
+            j = p - start[i]
+            lk = np.array(kind, np.int64)[i]
+            ent = np.where(lk == ALL_LIST,
+                           np.array(buf + [0], np.int64)[np.minimum(
+                               j, len(buf))], 0)
+            nc = np.where(lk == ALL_LIST, g_of[ent] < 0, j < len(nc_list))
+            in_nc = (lk != ALL_LIST) & nc
+            ent = np.where(in_nc, np.array(nc_list + [0], np.int64)[
+                np.minimum(j, len(nc_list))], ent)
+            in_g = (lk != ALL_LIST) & ~nc
+            gl = np.where(in_g, group_off[np.maximum(gi[i], 0)]
+                          + j - len(nc_list), 0)
+            ent = np.where(in_g, lists[gl], ent)
+            assert (ent >= 0).all()
+            hit = _covers(dist, depth, u[ent], v[ent], beta[ent],
+                          u[ids[i]], v[ids[i]])
+            rank = (p % cthreads) // REC_THREADS
+            part_any = np.zeros((REC_CLUSTER, c), bool)
+            part_nc = np.zeros((REC_CLUSTER, c), bool)
+            np.logical_or.at(part_any, (rank, i), hit)
+            np.logical_or.at(part_nc, (rank, i), hit & nc)
+            cov_any, cov_nc = part_any.any(axis=0), part_nc.any(axis=0)
+            ii, jj = np.tril_indices(c, -1)
+            cm = np.zeros((c, c), bool)
+            cm[ii, jj] = _covers(dist, depth, u[ids[jj]], v[ids[jj]],
+                                 beta[ids[jj]], u[ids[ii]], v[ids[ii]])
+            cmask = [sum(1 << int(j) for j in np.flatnonzero(cm[r]))
+                     for r in range(c)]
+            # the edges no earlier edge of the chunk can change, decided
+            # at once; then the others in order; then the budget's cut
+            acc = flip = ncm = dep = 0
+            for r in range(c):
+                p1 = bool(p1a[ids[r]])
+                if cls[r] == FULL:
+                    ind, dec = cov_any[r] or not cmask[r], not cov_any[r]
+                else:
+                    ind = cov_nc[r] or (cls[r] == SAFE and not cmask[r])
+                    dec = False if cov_nc[r] else p1
+                if not ind:
+                    dep |= 1 << r
+                    continue
+                flip |= (1 << r) if cr[r] and dec != p1 else 0
+                acc |= (1 << r) if dec else 0
+                ncm |= (1 << r) if dec and not cr[r] else 0
+            for r in (r for r in range(c) if (dep >> r) & 1):
+                covered = cov_any[r] or (cmask[r] & acc)
+                if cls[r] == FULL:
+                    dec = not covered
+                else:
+                    dirty = ((flip & same[r]) or cov_nc[r]
+                             or (cmask[r] & acc & ncm))
+                    dec = (not covered) if dirty else bool(p1a[ids[r]])
+                if cr[r] and dec != p1a[ids[r]]:
+                    flip |= 1 << r
+                if dec:
+                    acc |= 1 << r
+                    if not cr[r]:
+                        ncm |= 1 << r
+            room = budget - cnt
+            if bin(acc).count("1") > room:  # keep up to the room-th accept
+                pos = [r for r in range(c) if (acc >> r) & 1][room - 1]
+                keep = (2 << pos) - 1
+                acc, flip, ncm = acc & keep, flip & keep, ncm & keep
+            n = cnt + bin(acc).count("1")
+            nnc = len(nc_list)
+            for r in range(c):
+                if not (acc >> r) & 1:
+                    continue
+                below = (1 << r) - 1
+                out[ids[r]] = True
+                assert len(buf) == cnt + bin(acc & below).count("1")
+                buf.append(ids[r])
+                if gi[r] >= 0:
+                    at = glen[r] + bin(acc & same[r]).count("1")
+                    lists[group_off[gi[r]] + at] = ids[r]
+                    if not acc & later[r]:
+                        list_len[gi[r]] = at + 1
+                else:
+                    assert len(nc_list) == nnc + bin(
+                        acc & ncm & below).count("1")
+                    nc_list.append(ids[r])
+            for r in range(c):
+                if (flip >> r) & 1:
+                    gflag[gi[r]] = True
+            cnt = n
+    return out, cnt
 
 
 def _mark_rec_inputs(g, k_cap=32, use_tree_kernel=False, device="cpu",
@@ -448,18 +549,57 @@ def _mark_rec_inputs(g, k_cap=32, use_tree_kernel=False, device="cpu",
         rec=rec, budget=budget, b_cap=_bucket_b_cap([budget]))
 
 
+def _long_tail():
+    """A graph whose largest group (299 slots) stores k_cap = 4 entries in
+    its first chunk and leaves a long tail decided alone, and whose REC
+    walk (1,024 off-tree edges) spans two 512-edge windows."""
+    return tgraph.random_connected_graph(256, 1024, seed=3)
+
+
+MARK_REC_GRAPHS = {"forest": _forest, "long_tail": _long_tail,
+                   **{k: (lambda k=k: FAMILIES[k](tgraph)) for k in FAMILIES}}
+# (k_cap, budget, b_cap); b_cap None: the pipeline's bucket for the budget
+MARK_REC_CASES = ((1, 12, None), (2, 8, None), (32, 64, None))
+LONG_TAIL_CASES = ((4, 1024, None),)
+
+
+def _one_group(x, m, seed):
+    """MARK's inputs cut to one synthetic group of m slots on x's tables:
+    random node pairs with radii 0-3, so that the group stores k_cap
+    entries early and leaves a long tail of slots decided alone, most of
+    them accepted."""
+    rng = np.random.default_rng(seed)
+    n, dev = x.t.depth.shape[0], x.su.device
+    su, sv = (torch.from_numpy(rng.integers(0, n, m)).to(dev, x.su.dtype)
+              for _ in range(2))
+    sb = torch.from_numpy(rng.integers(0, 4, m)).to(dev, x.sbeta.dtype)
+    lay = x.layout
+    start = torch.full((m,), m, dtype=lay.group_start.dtype, device=dev)
+    start[0] = 0
+    one = type(lay)(perm=torch.arange(m, device=dev).to(lay.perm.dtype),
+                    gidx=torch.zeros((m,), dtype=lay.gidx.dtype, device=dev),
+                    group_start=start,
+                    active=torch.ones((m,), dtype=torch.bool, device=dev),
+                    n_groups=torch.ones((), dtype=lay.n_groups.dtype,
+                                        device=dev))
+    return su, sv, sb, one
+
+
 @pytest.mark.parametrize("engine", ["euler", "lifting"])
-@pytest.mark.parametrize("graph", sorted(FAMILIES) + ["forest"])
+@pytest.mark.parametrize("graph", sorted(MARK_REC_GRAPHS))
 def test_mark_rec_kernel_schedules_emulated_match_plain(graph, engine):
     """The kernels' schedules (`_emulate_mark`, `_emulate_rec`) make the
     plain loops' decisions: k_cap 1 (every group past its first store is
-    in the independent-slot phase), 2 and 32; budgets that stop the walk
-    and one that runs it dry."""
+    in the tail), 2 and 32; budgets that stop the walk and one that runs it
+    dry; on `long_tail`, a 299-slot group whose tail starts after its
+    first chunk and a walk of two windows."""
     from repro_torch.core.bfs import INF
     from repro_torch.core.recovery import _recover_scan
 
-    g = _forest() if graph == "forest" else FAMILIES[graph](tgraph)
-    for k_cap, budget in ((1, 12), (2, 8), (32, 64)):
+    g = MARK_REC_GRAPHS[graph]()
+    cases = MARK_REC_CASES + (LONG_TAIL_CASES if graph == "long_tail"
+                              else ())
+    for k_cap, budget, _ in cases:
         x = _mark_rec_inputs(g, k_cap, engine == "lifting", budget=budget)
         dist = _engine_fns(x.t, x.euler)
         connected = bool((x.t.depth != INF).all())
@@ -475,19 +615,47 @@ def test_mark_rec_kernel_schedules_emulated_match_plain(graph, engine):
                                   *[y.numpy() for y in x.rec[1:]],
                                   x.budget, x.b_cap)
         assert np.array_equal(got, want.numpy()) and n_got == n_want
+    if graph == "long_tail":
+        walk = x.rec[6][x.rec[4][x.rec[6]]]
+        assert len(walk) > REC_WIN and n_want < budget  # two windows, dry
+        sizes = torch.bincount(x.layout.gidx[x.layout.active])
+        assert int(sizes.max()) == 299
+
+
+@pytest.mark.parametrize("engine", ["euler", "lifting"])
+def test_mark_tail_of_one_large_group_emulated_match_plain(engine):
+    """One synthetic group of 1,000 slots at k_cap 300 (entries past the
+    kernel's shared memory, in the published array): the chain stores 300
+    entries, and the tail's 700-odd slots, each alone against them, make
+    the plain loop's decisions."""
+    from repro_torch.core.marking import phase1_chunked
+
+    x = _mark_rec_inputs(_long_tail(), 300, engine == "lifting")
+    su, sv, sb, one = _one_group(x, 1000, seed=9)
+    want = phase1_chunked(x.t, su, sv, sb, one, k_cap=300, chunk=32,
+                          use_tree_kernel=engine == "lifting", euler=x.euler)
+    depth = x.t.depth.numpy().astype(np.int64)
+    acc, ovf = _emulate_mark(_engine_fns(x.t, x.euler), depth, su.numpy(),
+                             sv.numpy(), sb.numpy(), one, 300)
+    assert np.array_equal(acc, want.accept.numpy())
+    assert np.array_equal(ovf, want.group_overflow.numpy())
+    assert bool(ovf[0]) and 300 < int(acc.sum()) < 1000
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("engine", ["euler", "lifting"])
-@pytest.mark.parametrize("graph", sorted(FAMILIES) + ["forest"])
+@pytest.mark.parametrize("graph", sorted(MARK_REC_GRAPHS))
 def test_cuda_mark_rec_kernels_equal_plain_loops(graph, engine,
                                                  monkeypatch):
     """On the card: the MARK and REC kernels against the plain loops run
     on the same CUDA tensors, every output equal; k_cap 300 and b_cap
-    16,384 take the kernels' global-memory buffers. The plain loops'
-    lifting distances come from `tree_dist_pairs_plain`, so the climb the
-    kernels inline (`csrc/tree_dist.cuh`) is on one side only; and the
-    kernels run with and without their depth-difference skip."""
+    16,384 take the kernels' global-memory buffers, on `long_tail` with a
+    walk of two windows and hundreds of accepted entries, and one
+    synthetic group of 1,000 slots stores 300 entries and leaves its tail
+    to the tail launch. The plain loops' lifting distances come from
+    `tree_dist_pairs_plain`, so the climb the kernels inline
+    (`csrc/tree_dist.cuh`) is on one side only; and the kernels run with
+    and without their depth-difference skip."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run chip_smoke.py on the card)")
     from repro_torch.kernels import ops, phase1, tree_dist
@@ -495,10 +663,13 @@ def test_cuda_mark_rec_kernels_equal_plain_loops(graph, engine,
     monkeypatch.setattr(ops, "tree_dist_pairs",
                         tree_dist.tree_dist_pairs_plain)
 
-    g = _forest() if graph == "forest" else FAMILIES[graph](tgraph)
+    g = MARK_REC_GRAPHS[graph]()
     lifting = engine == "lifting"
-    for k_cap, budget, b_cap in ((1, 12, 16), (2, 8, 8), (32, 64, 64),
-                                 (300, 8, 16384)):
+    cases = ((1, 12, 16), (2, 8, 8), (32, 64, 64), (300, 8, 16384))
+    if graph == "long_tail":
+        cases += ((4, 1024, 1024), (4, 1024, 16384))
+    assert phase1.rec_cluster_size(lifting) >= 2
+    for k_cap, budget, b_cap in cases:
         x = _mark_rec_inputs(g, k_cap, lifting, device="cuda",
                              budget=budget)
         p_acc, p_ovf = phase1.mark_plain(x.t, x.su, x.sv, x.sbeta, x.layout,
@@ -514,3 +685,18 @@ def test_cuda_mark_rec_kernels_equal_plain_loops(graph, engine,
                                              depth_skip=skip)
             assert torch.equal(got, want) and n_got == n_want, \
                 (k_cap, b_cap, skip)
+    if graph == "long_tail":
+        x = _mark_rec_inputs(g, 300, lifting, device="cuda")
+        one = _one_group(x, 1000, seed=9)
+        want = phase1.mark_plain(x.t, *one, 300, 32, x.euler)
+        got = phase1.mark_cuda(x.t, *one, 300, x.euler)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        # the phase clocks count the walk's 32 chunks (1,024 edges, dry)
+        x = _mark_rec_inputs(g, 4, lifting, device="cuda", budget=1024)
+        clocks = torch.zeros((phase1.rec_clock_count(),), dtype=torch.int64,
+                             device="cuda")
+        want = phase1.recover_plain(*x.rec, 1024, 1024, 32, x.euler)
+        got = phase1.recover_cuda(*x.rec, 1024, 1024, x.euler, clocks=clocks)
+        assert torch.equal(got[0], want[0]) and got[1] == want[1]
+        c = clocks.cpu().tolist()
+        assert c[5] == 32 and c[6] > 0 and all(v > 0 for v in c[:5] + c[7:])
