@@ -47,10 +47,19 @@ Phases, in order; any failed check exits non-zero:
      depth-difference skip on and off, with the SM clock;
   5. quality: the spmv kernels (`csrc/spmv.cu`: the Laplacian product
      and the arc sum behind the probe lift and the degree) equal to their
-     plain versions run on a CPU copy of the inputs (160k-node graph,
-     case3 at P = 64 and 1, an edgeless graph, zero-weight slots), and
-     timed beside the plain version on the card, torch.sparse.mm and the
-     bound; then the estimator `probe_edge_resistance` at n = 160,000
+     plain versions run on a CPU copy of the inputs (the 160k-node graph
+     at P = 16 and 64; case3 and a star of 5,000 leaves at P = 1, 3, 4,
+     8, 16 and 64; an edgeless graph, isolated nodes, zero-weight slots;
+     every block with P % 4 == 0 also 4 bytes off a 16-byte boundary, the
+     scalar variant), then the spmv timed at every (graph, P) of
+     SPMV_SHAPES (the 160k-node graph at P = 1, 4, 16, 64, case3 and a
+     400 x 400 grid at P = 16, 64) beside the plain version on the card,
+     torch.sparse.mm, the bound, its share of the bound and the SM clock,
+     and the arc sum as the lift (P = 16, 64) and the degree (P = 1) with
+     theirs (torch.sparse.mm on the incidence matrix); each timed call
+     finds L2 cold (`flush_l2`), as the HBM bytes of the bound assume,
+     and the device time of back-to-back calls, inputs warm in L2 as in
+     the estimator's loop, is printed beside it; then the estimator `probe_edge_resistance` at n = 160,000
      (P = 16, k = 32 and the defaults P = 64, k = 64: finite, bit-equal
      run to run, allclose to a CPU result that two CPU runs repeat bit
      for bit, `_cpu_reference`), a Jacobi run on case3, the
@@ -141,6 +150,48 @@ def time_cuda(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+L2_FLUSH_FLOATS = 64 << 20  # 256 MB: five times the H100's 50 MB L2
+_L2_FLUSH = []
+
+
+def flush_l2() -> None:
+    """Read a 256 MB buffer on the card, so that what a call timed next
+    finds in L2 is clean lines of this buffer and none of its inputs
+    (reads, not writes: no dirty line is written back inside the timed
+    call)."""
+    if not _L2_FLUSH:
+        _L2_FLUSH.append(torch.ones(L2_FLUSH_FLOATS, device="cuda"))
+    _L2_FLUSH[0].sum()
+
+
+def cold(fn):
+    """fn run after flush_l2: for a device time of fn's kernels alone
+    that starts from a cold L2 (the flush's own kernel is not theirs)."""
+    def run():
+        flush_l2()
+        return fn()
+    run.after_flush = fn
+    return run
+
+
+def time_cold(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean ms per call over `iters` calls, each after flush_l2, CUDA
+    events around each call alone."""
+    for _ in range(warmup):
+        fn()
+    events = []
+    for _ in range(iters):
+        flush_l2()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in events) / iters
+
+
 PROFILE_TRIES = 3        # traces of one device_profile before CUDA events
 PROFILE_PAD_S = 0.005    # idle host time at each end of a traced window
 
@@ -205,7 +256,9 @@ def device_profile(fn, kernel_prefix, iters: int = 20,
             return busy_us / iters / 1e3, by_kernel
     if not required:
         return None, {}
-    ms = time_cuda(fn, iters=iters, warmup=1)
+    ms = (time_cold(fn.after_flush, iters=iters, warmup=1)
+          if hasattr(fn, "after_flush") else time_cuda(fn, iters=iters,
+                                                       warmup=1))
     print(f"device_profile {kernel_prefix}: no device time in "
           f"{PROFILE_TRIES} traces; CUDA-event time {ms:.4f} ms used")
     return ms, {}
@@ -972,6 +1025,26 @@ def phase_mark_rec(dev, graphs, big):
     return err, timings
 
 
+# the P values of the spmv and arc-sum checks against the CPU, as in the
+# tests; a star of STAR_LEAVES leaves: one lane walks the hub's 5,000 arcs
+SPMV_CHECK_PS = (1, 3, 4, 8, 16, 64)
+STAR_LEAVES = 5000
+
+
+def _star_edges(leaves):
+    """A star: node 0 joined to nodes 1..leaves, lognormal weights."""
+    w = np.random.default_rng(leaves).lognormal(0.0, 0.5, leaves)
+    return (torch.zeros(leaves, dtype=torch.int64),
+            torch.arange(1, leaves + 1, dtype=torch.int64),
+            torch.as_tensor(w.astype(np.float32)))
+
+
+# the spmv's timed shapes: (graph, P values); the degree is P = 1 and the
+# estimator's probe blocks P = 16 and 64
+SPMV_SHAPES = (("n=160000", (1, 4, 16, 64)), ("case3", (16, 64)),
+               ("grid400", (16, 64)))
+
+
 def _laplacian_csr(u, v, w, n):
     """L = D - W as a torch.sparse_csr_tensor on u's device: the input
     of the torch.sparse.mm yardstick (built once, untimed)."""
@@ -984,32 +1057,72 @@ def _laplacian_csr(u, v, w, n):
     return coo.coalesce().to_sparse_csr()
 
 
-def _spmv_timings(dev, u, v, w, n, p, rng):
-    """The spmv kernel at one shape: CUDA-event and device time beside
-    the plain version on the card, torch.sparse.mm and the bound."""
+def _spmv_timings(dev, u, v, w, n, p, rng, lap=None):
+    """The spmv kernel at one shape: CUDA-event and device time from a
+    cold L2 (flush_l2 before each call: the bound's bytes come from HBM)
+    beside the plain version on the card and torch.sparse.mm (on `lap`,
+    built here if not given), timed the same way; the bound and the
+    kernel's share of it; the device time of back-to-back calls, whose
+    inputs stay in L2 as in the estimator's loop (warm_device_ms, no
+    share: L2 serves it faster than the HBM bound allows); the SM
+    clock."""
     from repro_torch.core.spectral_probe import build_arc_csr
     from repro_torch.kernels import spmv
 
     x = torch.as_tensor(rng.standard_normal((n, p)).astype(np.float32),
                         device=dev)
     csr = build_arc_csr(u, v, w, n)
-    lap = _laplacian_csr(u, v, w, n)
+    lap = _laplacian_csr(u, v, w, n) if lap is None else lap
     arcs = 2 * u.shape[0]
     b_ms, b_by = bound_ms(4 * (n + 1) + 8 * arcs + 2 * 4 * n * p,
                           3 * arcs * p)
     got = spmv.spmv_csr_cuda(csr, x)
     lib = torch.sparse.mm(lap, x)
     torch.cuda.synchronize()
+    def run():
+        return spmv.spmv_csr_cuda(csr, x)
+
+    dev_ms = device_ms(cold(run), "spmv_csr_kernel")
     return dict(
-        ms=time_cuda(lambda: spmv.spmv_csr_cuda(csr, x)),
-        device_ms=device_ms(lambda: spmv.spmv_csr_cuda(csr, x),
-                            "spmv_csr_kernel"),
-        plain_ms=time_cuda(lambda: spmv.laplacian_spmv_plain(u, v, w, x)),
-        library_ms=time_cuda(lambda: torch.sparse.mm(lap, x)),
+        ms=time_cold(run), device_ms=dev_ms,
+        warm_device_ms=device_ms(run, "spmv_csr_kernel"),
+        plain_ms=time_cold(lambda: spmv.laplacian_spmv_plain(u, v, w, x)),
+        library_ms=time_cold(lambda: torch.sparse.mm(lap, x)),
         library_max_abs_diff=float((lib - got).abs().max()),
         csr_build_ms=time_cuda(lambda: build_arc_csr(u, v, w, n),
                                iters=5),
-        bound_ms=b_ms, bound_by=b_by, at_n=n, at_L=int(u.shape[0]), at_p=p)
+        bound_ms=b_ms, bound_by=b_by, share_of_bound=b_ms / dev_ms,
+        sm_clock=sm_clock(), at_n=n, at_L=int(u.shape[0]), at_p=p)
+
+
+def _spmv_sweep(dev, graphs, rng):
+    """The spmv kernel timed at every (graph, P) of SPMV_SHAPES (graphs:
+    name -> Graph), one line each. Returns {"<name> P=<p>": timings}."""
+    out = {}
+    for name, ps in SPMV_SHAPES:
+        g = graphs[name]
+        u, v, w = (t.to(dev) for t in _edges(g))
+        lap = _laplacian_csr(u, v, w, g.n)
+        for p in ps:
+            t = _spmv_timings(dev, u, v, w, g.n, p, rng, lap)
+            out[f"{name} P={p}"] = t
+            print(f"laplacian_spmv {name} P={p}: L2 cold: device "
+                  f"{t['device_ms']:.5f} ms, event {t['ms']:.5f} ms, bound "
+                  f"{t['bound_ms']:.5f} ms ({t['bound_by']}), "
+                  f"{100 * t['share_of_bound']:.1f} % of the bound; "
+                  f"torch.sparse.mm {t['library_ms']:.5f} ms, plain "
+                  f"{t['plain_ms']:.5f} ms; L2 warm: device "
+                  f"{t['warm_device_ms']:.5f} ms [clock {t['sm_clock']}]")
+    return out
+
+
+def _spmv_graphs(graphs):
+    """The graphs of SPMV_SHAPES: the n = 160,000 random graph, case3 and
+    a 400 x 400 grid (n = 160,000, no chords)."""
+    from repro_torch.core.graph import powergrid_like_graph
+
+    return {"n=160000": _big_graph(), "case3": graphs["case3"],
+            "grid400": powergrid_like_graph(400, chord_frac=0.0, seed=400)}
 
 
 def profile_estimator(dev, g, out_dir, p=16, k=32):
@@ -1045,6 +1158,15 @@ def profile_estimator(dev, g, out_dir, p=16, k=32):
           f"({100 * busy_ms / wall_ms:.1f} %)")
 
 
+def _unaligned(t, dev):
+    """A contiguous copy of t on dev whose data starts 4 bytes past a
+    16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
 def _check_spmv_kernels(dev, cases, rng):
     """The spmv and arc-sum kernels against their plain versions run on
     a CPU copy of the same inputs (equal), and the spmv's distance from
@@ -1069,6 +1191,11 @@ def _check_spmv_kernels(dev, cases, rng):
                                             x.to(dev)).cpu()
         ok = torch.equal(y, want)
         ok_arc = torch.equal(lift, want_lift) and torch.equal(deg, want_deg)
+        if n and p % 4 == 0:
+            # a block 4 bytes off a 16-byte boundary: the scalar variant
+            ok = ok and torch.equal(op(_unaligned(x, dev)).cpu(), want)
+            ok_arc = ok_arc and torch.equal(
+                op.lift(_unaligned(s, dev)).cpu(), want_lift)
         d_atomics = float((y - atomics).abs().max())
         err = max(err, float((y - want).abs().max()))
         err_arc = max(err_arc, float((lift - want_lift).abs().max()),
@@ -1082,23 +1209,54 @@ def _check_spmv_kernels(dev, cases, rng):
     return err, err_arc, err_atomics
 
 
-def _time_arc_sum(dev, u, v, w, n, p, rng):
-    """The arc-sum kernel (the probe lift) at one shape."""
+def _incidence_csr(u, v, n, signed):
+    """Bᵀ as an (n, m) torch.sparse_csr_tensor on u's device: 1 at (u_e,
+    e), -1 (signed) or 1 at (v_e, e). Bᵀ s is the lift and |B|ᵀ w the
+    degree: the torch.sparse.mm yardstick of the arc sum (built once,
+    untimed)."""
+    m = u.shape[0]
+    e = torch.arange(m, device=u.device)
+    ones = torch.ones(m, device=u.device)
+    coo = torch.sparse_coo_tensor(
+        torch.stack([torch.cat([u, v]), torch.cat([e, e])]),
+        torch.cat([ones, -ones if signed else ones]), (n, m),
+        check_invariants=False)
+    return coo.coalesce().to_sparse_csr()
+
+
+def _time_arc_sum(dev, u, v, w, n, p, rng, negate_v=True):
+    """The arc-sum kernel at one shape: the probe lift (negate_v) on an
+    (m, p) block, or the degree (p = 1, the weights as the values), timed
+    as _spmv_timings times the spmv, beside its plain version and
+    torch.sparse.mm on the incidence matrix, with its bound, its share of
+    it and the SM clock."""
     from repro_torch.core.spectral_probe import build_arc_csr
     from repro_torch.kernels import spmv
 
     m = u.shape[0]
     csr = build_arc_csr(u, v, w, n)
-    sw = torch.as_tensor(rng.standard_normal((m, p)).astype(np.float32),
-                         device=dev)
+    sw = w[:, None].contiguous() if not negate_v else torch.as_tensor(
+        rng.standard_normal((m, p)).astype(np.float32), device=dev)
+    inc = _incidence_csr(u, v, n, negate_v)
     b_ms, b_by = bound_ms(4 * (n + 1) + 4 * 2 * m + 4 * m * p + 4 * n * p,
                           2 * m * p)
+
+    def run():
+        return spmv.arc_sum_cuda(csr, sw, negate_v)
+
+    got = run()
+    lib = torch.sparse.mm(inc, sw)
+    torch.cuda.synchronize()
+    dev_ms = device_ms(cold(run), "arc_sum_kernel")
     return dict(
-        ms=time_cuda(lambda: spmv.arc_sum_cuda(csr, sw, True)),
-        device_ms=device_ms(lambda: spmv.arc_sum_cuda(csr, sw, True),
-                            "arc_sum_kernel"),
-        plain_ms=time_cuda(lambda: spmv.arc_sum_plain(u, v, sw, n, True)),
-        bound_ms=b_ms, bound_by=b_by, at_n=n, at_L=m, at_p=p)
+        ms=time_cold(run), device_ms=dev_ms,
+        warm_device_ms=device_ms(run, "arc_sum_kernel"),
+        plain_ms=time_cold(lambda: spmv.arc_sum_plain(u, v, sw, n,
+                                                      negate_v)),
+        library_ms=time_cold(lambda: torch.sparse.mm(inc, sw)),
+        library_max_abs_diff=float((lib - got).abs().max()),
+        bound_ms=b_ms, bound_by=b_by, share_of_bound=b_ms / dev_ms,
+        sm_clock=sm_clock(), at_n=n, at_L=m, at_p=p)
 
 
 def _time_bitmap(m1, m2):
@@ -1342,18 +1500,25 @@ def phase_quality(dev, graphs):
     from repro_torch.kernels import bitmap_intersect, ops
 
     rng = np.random.default_rng(12)
-    big = _big_graph()
+    sweep_graphs = _spmv_graphs(graphs)
+    big = sweep_graphs["n=160000"]
     case1, case3 = graphs["case1"], graphs["case3"]
     half = case1.w.copy()
     half[::2] = 0.0  # the padding convention: zero-weight slots
     z = torch.zeros(0, dtype=torch.int64)
-    err, err_arc, err_atomics = _check_spmv_kernels(dev, {
+    star = _star_edges(STAR_LEAVES)
+    cases = {
         f"n={big.n} P=16": (_edges(big), big.n, 16),
-        "case3 P=64": (_edges(case3), case3.n, 64),
-        "case3 P=1": (_edges(case3), case3.n, 1),
+        f"n={big.n} P=64": (_edges(big), big.n, 64),
         "m=0 n=5 P=8": ((z, z, torch.zeros(0)), 5, 8),
         "case1 half zero-weight P=16": (_edges(case1, half), case1.n, 16),
-    }, rng)
+        "case1 + 3 isolated nodes P=3": (_edges(case1), case1.n + 3, 3),
+    }
+    for p in SPMV_CHECK_PS:
+        cases[f"case3 P={p}"] = (_edges(case3), case3.n, p)
+        cases[f"star of {STAR_LEAVES} leaves P={p}"] = (
+            star, STAR_LEAVES + 1, p)
+    err, err_arc, err_atomics = _check_spmv_kernels(dev, cases, rng)
 
     def bitmap(l, wd, density):
         """(l, wd) int32 words, each nonzero with probability `density`."""
@@ -1365,15 +1530,22 @@ def phase_quality(dev, graphs):
     bit_inputs = [(bitmap(l, wd, 1.0), bitmap(l, wd, 0.05))
                   for l, wd in bit_shapes]
 
+    sweep = _spmv_sweep(dev, sweep_graphs, rng)
     big_dev = [t.to(dev) for t in _edges(big)]
-    big_t = _spmv_timings(dev, *big_dev, big.n, 16, rng)
-    case3_t = _spmv_timings(dev, *[t.to(dev) for t in _edges(case3)],
-                            case3.n, 64, rng)
-    arc_t = _time_arc_sum(dev, *big_dev, big.n, 16, rng)
+    arc_t = {f"{what} P={p}": _time_arc_sum(dev, *big_dev, big.n, p, rng,
+                                            negate_v)
+             for what, p, negate_v in (("lift", 16, True),
+                                       ("lift", 64, True),
+                                       ("degree", 1, False))}
     bit_t = _time_bitmap(*bit_inputs[0])
-    print(f"laplacian_spmv timings n={big.n} P=16: {big_t}")
-    print(f"laplacian_spmv timings case3 P=64: {case3_t}")
-    print(f"arc_sum (lift) timings n={big.n} P=16: {arc_t}")
+    for key, t in arc_t.items():
+        print(f"arc_sum ({key}) n={big.n}: L2 cold: device "
+              f"{t['device_ms']:.5f} ms, event {t['ms']:.5f} ms, bound "
+              f"{t['bound_ms']:.5f} ms ({t['bound_by']}), "
+              f"{100 * t['share_of_bound']:.1f} % of the bound; "
+              f"torch.sparse.mm {t['library_ms']:.5f} ms, plain "
+              f"{t['plain_ms']:.5f} ms; L2 warm: device "
+              f"{t['warm_device_ms']:.5f} ms [clock {t['sm_clock']}]")
     print(f"bitmap_intersect timings: {bit_t}")
 
     # the quality path, counts read around it
@@ -1415,9 +1587,12 @@ def phase_quality(dev, graphs):
                             for k, c in per_call.items()},
         cuda_kernels_per_launch=1, max_abs_err=err,
         max_abs_diff_cuda_plain_atomics=err_atomics,
-        bound_assumes="x gathers hit L2", **big_t, case3_p64=case3_t,
+        bound_assumes="each input read once from HBM (L2 flushed before "
+        "each timed call; x's rows gathered again hit L2)",
+        **sweep[f"n={big.n} P=16"],
+        timings=sweep,
         arc_sum=dict(launches=path_counts["arc_sum"], max_abs_err=err_arc,
-                     **arc_t),
+                     **arc_t["lift P=16"], timings=arc_t),
         estimator_wall_ms=walls)
     bit_entry = dict(
         name="bitmap_intersect", route="cuda",

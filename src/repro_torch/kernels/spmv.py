@@ -10,11 +10,14 @@ Two executions of the one function live here:
 
   * the hand-written Hopper kernels in `csrc/spmv.cu` run on a CSR of
     arcs built once per graph (`ArcCSR`, built by
-    `core.spectral_probe.build_arc_csr`): `spmv_csr_cuda` sums
-    each (node, column) over the node's arcs in order, one thread each,
-    and `arc_sum_cuda` does the same for a per-edge value (the probe
-    lift Bᵀ s and the weighted degree). Their launches are counted in
-    `launches` and `arc_sum_launches`;
+    `core.spectral_probe.build_arc_csr`): `spmv_csr_cuda` sums each
+    (node, column) over the node's arcs in order, one lane per node and
+    column vector (four columns as a float4 when P % 4 == 0, P >= 8 and
+    the block is 16-byte aligned, else one), loading two arcs' rows
+    before adding them (a scalar lane one at a time); `arc_sum_cuda` does
+    the same for a per-edge value (the probe lift Bᵀ s and the weighted
+    degree). Each wrapper call is one CUDA kernel, counted in `launches`
+    and `arc_sum_launches`;
   * `laplacian_spmv_plain` and `arc_sum_plain` are the plain PyTorch
     versions: the reference's formula, two `index_add_` scatters.
 
@@ -77,6 +80,9 @@ def _check_block(csr: ArcCSR, x: torch.Tensor, rows: int, name: str):
                          f"{x.dtype} {tuple(x.shape)}")
     if not x.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+    if csr.n * x.shape[1] >= 2 ** 32:  # the kernels' lane index is 32-bit
+        raise ValueError(f"n * P must be below 2^32, got {csr.n} * "
+                         f"{x.shape[1]}")
 
 
 def spmv_csr_cuda(csr: ArcCSR, x: torch.Tensor) -> torch.Tensor:

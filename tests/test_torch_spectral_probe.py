@@ -70,16 +70,33 @@ def _padded(g, l_pad):
     return u, v, w, np.arange(l_pad) < g.m
 
 
+def _star(leaves):
+    """A star: node 0 joined to nodes 1..leaves (one lane of
+    `csrc/spmv.cu` walks all of the hub's arcs)."""
+    w = np.random.default_rng(leaves).lognormal(0.0, 0.5, leaves)
+    return (leaves + 1, np.zeros(leaves, np.int32),
+            np.arange(1, leaves + 1, dtype=np.int32), w.astype(np.float32),
+            None)
+
+
 def _spmv_graphs():
+    """(n, u, v, w, valid) of the spmv test graphs: valid is None or the
+    mask of real edges (padding slots have zero weight)."""
     g1 = random_connected_graph(200, 400, seed=1)
     g2 = feeder_like_graph(256, 128, seed=2)
     g3 = random_connected_graph(150, 300, seed=3)
     u3, v3, w3, valid3 = _padded(g3, 512)
     w3 = np.where(np.arange(512) % 3 == 0, 0.0, w3).astype(np.float32)
+    g5 = random_connected_graph(100, 200, seed=5)
+    z = np.zeros(0, np.int32)
     return {
         "random": (g1.n, g1.u, g1.v, g1.w, None),
         "feeder": (g2.n, g2.u, g2.v, g2.w, None),
         "padded": (g3.n, u3, v3, w3, valid3),
+        "star": _star(5000),
+        "m0": (5, z, z, np.zeros(0, np.float32), None),
+        # three isolated nodes after a random graph
+        "isolated": (g5.n + 3, g5.u, g5.v, g5.w, None),
     }
 
 
@@ -121,7 +138,14 @@ def test_plain_spmv_equals_reference(J, name):
 
 def _csr_spmv_np(csr, x):
     """numpy emulation of `spmv_csr_kernel`: per node, in CSR order,
-    acc = acc + w * (x[a] - x[b]), each operation rounded to float32."""
+    acc = acc + w * (x[a] - x[b]), each operation rounded to float32.
+
+    This is every lane's sum whatever the kernel's work split: a lane owns
+    one (node, column vector) and adds its node's arcs one after another
+    (a round loads its arcs' rows before adding them, in order), so the
+    blocks, lanes, float4 vectors and rounds of `csrc/spmv.cu` change no
+    result. The split itself is held to this order on the card by
+    `test_spmv_kernels_equal_cpu_plain`."""
     rowptr, other = csr.rowptr.numpy(), csr.other.numpy()
     w_arc = csr.w_arc.numpy()
     deg = np.diff(rowptr)
@@ -148,10 +172,12 @@ def _csr_arc_sum_np(csr, val, negate_v):
     return acc
 
 
-@pytest.mark.parametrize("name", ["random", "feeder", "padded"])
+@pytest.mark.parametrize("name", ["random", "feeder", "padded", "star",
+                                  "m0", "isolated"])
 def test_csr_order_sums_equal_plain(name):
     """The arc CSR's order makes the kernels' sequential row sums equal
-    to the plain scatters bit for bit: spmv, lift and degree."""
+    to the plain scatters bit for bit: spmv and lift at every P of the
+    card's checks (scalar and float4 lanes), and the degree."""
     n, u, v, w, valid = _spmv_graphs()[name]
     wm = w if valid is None else np.where(valid, w, 0.0).astype(np.float32)
     tu, tv, tw = _t(u, torch.int64), _t(v, torch.int64), _t(wm)
@@ -160,14 +186,15 @@ def test_csr_order_sums_equal_plain(name):
     tails = np.concatenate([u, v])[csr.arc.numpy()]
     assert np.all(np.diff(tails) >= 0)
     rng = np.random.default_rng(6)
-    for p in (1, 8):
+    for p in (1, 3, 4, 8, 16, 64):
         x = rng.standard_normal((n, p)).astype(np.float32)
         assert np.array_equal(_csr_spmv_np(csr, x),
                               spmv.laplacian_spmv_plain(tu, tv, tw,
                                                         _t(x)).numpy())
-    s = rng.standard_normal((len(u), 4)).astype(np.float32)
-    assert np.array_equal(_csr_arc_sum_np(csr, s, True),
-                          spmv.arc_sum_plain(tu, tv, _t(s), n, True).numpy())
+        s = rng.standard_normal((len(u), p)).astype(np.float32)
+        assert np.array_equal(_csr_arc_sum_np(csr, s, True),
+                              spmv.arc_sum_plain(tu, tv, _t(s), n,
+                                                 True).numpy())
     assert np.array_equal(
         _csr_arc_sum_np(csr, wm[:, None], False)[:, 0],
         spmv.arc_sum_plain(tu, tv, tw, n, False).numpy())
@@ -442,11 +469,20 @@ def test_float32_extreme_weights_no_nan():
 
 # -- the CUDA kernels (card only) ------------------------------------------
 
+def _unaligned(t, dev):
+    """A contiguous copy of t on dev, 4 bytes past a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("p", [1, 16, 64])
-def test_spmv_kernels_equal_cpu_plain(cuda_device, p):
-    n, u, v, w, valid = _spmv_graphs()["padded"]
-    wm = np.where(valid, w, 0.0).astype(np.float32)
+@pytest.mark.parametrize("graph", ["padded", "star"])
+@pytest.mark.parametrize("p", [1, 3, 4, 16, 64])
+def test_spmv_kernels_equal_cpu_plain(cuda_device, p, graph):
+    n, u, v, w, valid = _spmv_graphs()[graph]
+    wm = w if valid is None else np.where(valid, w, 0.0).astype(np.float32)
     cpu = [_t(u, torch.int64), _t(v, torch.int64), _t(wm)]
     x = _t(np.random.default_rng(p).standard_normal((n + 3, p)).astype(
         np.float32))  # three isolated nodes at the end
@@ -458,6 +494,10 @@ def test_spmv_kernels_equal_cpu_plain(cuda_device, p):
     assert torch.equal(op(x.to(cuda_device)).cpu(), want_op(x))
     assert torch.equal(op.lift(s.to(cuda_device)).cpu(), want_op.lift(s))
     assert torch.equal(op.degree().cpu(), want_op.degree())
+    # a block off a 16-byte boundary: the kernels' scalar variant
+    assert torch.equal(op(_unaligned(x, cuda_device)).cpu(), want_op(x))
+    assert torch.equal(op.lift(_unaligned(s, cuda_device)).cpu(),
+                       want_op.lift(s))
 
 
 @pytest.mark.cuda
