@@ -90,7 +90,24 @@ Phases, in order; any failed check exits non-zero:
      serving contract (prefill +
      decode against the full forward) and prefill, decode and profile
      times;
-  7. walls, last (a CPU+CUDA torch.profiler session disturbs the device
+  7. engines: the reference's other engines of `lgrass_sparsify` on the
+     card, on case1-3 and feeder4k: bfs_engine="levels", recovery="host",
+     auto_lift_bound=True, use_euler_lca=False (the kernels' lifting
+     engine) and schedule="scan", parallel=True (lockstep, no MARK kernel),
+     then the basic scan on case1 and on more graphs while its time budget
+     lasts, then levels and auto_lift_bound at n = 160,000: each mask equal
+     to the baseline's, each call's wrapper launches counted, its wall and
+     the scan engines' steps printed; then the quickstart twin
+     (`repro_torch.examples.quickstart`);
+  8. batch: `lgrass_sparsify_batch` over [case1, case2, case3, feeder4k]
+     at the exact bucket and at the pow2 bucket (16,384, 65,536), and over
+     [n = 160,000, case3], in both recovery modes: each lane's mask equal
+     to its single-graph mask and the baseline's, launches per lane (mark
+     1, rec 1, radix_hist 5; host recovery: rec 0, radix_hist 4), the
+     batch's wall beside the sum of its single calls;
+     `recover_device_batched` from `phase1_device_batched` outputs; REC's
+     device time on case3 alone and on its two padded lanes;
+  9. walls, last (a CPU+CUDA torch.profiler session disturbs the device
      times of later sessions): the case3 wall and device busy share with
      the MARK/REC kernels and with their plain loops on the card, in
      turns; one graph of n = 160,000 against its numpy baseline, with its
@@ -105,7 +122,9 @@ inside themselves; the quality path for laplacian_spmv; the entry's five shapes 
 bitmap_intersect; one `generate` call of the serving run for
 flash_attention), `launches_per_graph` splits that count by graph
 (by estimator call, or by shape), and `cuda_kernels_per_launch` says how
-many CUDA kernels one wrapper call enqueues. Each phase prints its wall
+many CUDA kernels one wrapper call enqueues. radix_hist, mark and rec
+also carry `launches_engines_path` and `launches_batch_path`, each
+counted from 0 over its phase's user calls. Each phase prints its wall
 time. Imports nothing of JAX or of `repro`.
 """
 from __future__ import annotations
@@ -755,6 +774,276 @@ def phase_walls(dev, case3, case3_oracle, big, big_oracle):
           f"{busy:.2f} ms ({100 * busy / wall:.1f} %) "
           f"[clock {big_run['sm_clock']}]")
     return dict(case3=case3_runs, n160000=big_run)
+
+
+# -- the other engines and the batched pipeline ---------------------------
+# (name, lgrass_sparsify options) of the engines phase; the default path's
+# per-call launches hold for each but host recovery (no REC, no REC sort)
+# and the scan schedule (no MARK)
+ENGINE_RUNS = (("levels", dict(bfs_engine="levels")),
+               ("host", dict(recovery="host")),
+               ("lift_bound", dict(auto_lift_bound=True)),
+               ("lifting", dict(use_euler_lca=False)),
+               ("scan_parallel", dict(schedule="scan", parallel=True)))
+SCAN_BASIC_BUDGET_S = 45.0  # the basic scan's share of the run, after case1
+PATH_KERNELS = ("radix_hist", "mark", "rec")
+
+
+def _path_diff(before, after) -> dict:
+    """The launches of the path's kernels (and tree_dist) between two
+    `launch_counts` reads."""
+    return {k: after[k] - before[k] for k in (*PATH_KERNELS, "tree_dist")}
+
+
+def _per_call(opts: dict, programs: int = 1) -> dict:
+    """The wrapper launches one lgrass_sparsify call with `opts` makes,
+    with `programs` runs of its program (2 after an auto_lift_bound
+    redo)."""
+    host = opts.get("recovery") == "host"
+    return {"radix_hist": (4 if host else 5) * programs,
+            "mark": 0 if opts.get("schedule") == "scan" else programs,
+            "rec": 0 if host else programs, "tree_dist": 0}
+
+
+def _scan_steps(g, dev) -> dict:
+    """The scan engines' trip counts on g: the basic engine's (its
+    crossing slots) and the lockstep engine's (its longest crossing
+    group), from one chunked phase 1 on the card."""
+    from repro_torch.core.sparsify import phase1_device
+
+    d = phase1_device(*[x.to(dev) for x in _edges(g)], g.n)
+    active = d["crossing"][d["perm"]]
+    sizes = torch.bincount(d["gidx"][active])
+    return dict(basic=int(active.sum()),
+                parallel=int(sizes.max()) if sizes.numel() else 0)
+
+
+def _engine_call(g, dev, name, opts, oracle, programs_ok=(1,)):
+    """One lgrass_sparsify call with `opts` on the card: its mask against
+    the baseline's, its wrapper launches against _per_call, its wall."""
+    from repro_torch.core import lgrass_sparsify
+    from repro_torch.kernels import ops
+
+    before = ops.launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = lgrass_sparsify(g, device=dev, **opts)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    got = _path_diff(before, ops.launch_counts())
+    check(np.array_equal(r.edge_mask, oracle),
+          f"{name} {opts}: CUDA mask differs from the numpy baseline")
+    check(any(all(got[k] == want for k, want in _per_call(opts, p).items())
+              for p in programs_ok),
+          f"{name} {opts}: launches {got}, not {_per_call(opts)} per run")
+    return r, wall, got
+
+
+def phase_engines(dev, graphs, oracles, big, big_oracle):
+    """The reference's other engines on the card: levels BFS, host
+    recovery, auto_lift_bound, the lifting climb (use_euler_lca=False) and
+    the lockstep scan on the four graphs, the basic scan on case1 (and on
+    more while SCAN_BASIC_BUDGET_S lasts), levels and auto_lift_bound at
+    n = 160,000; each mask equal to the baseline's, each call's wrapper
+    launches counted (a scan call launches no MARK kernel); then the
+    quickstart twin. The launch counts start at 0 here and are read at the
+    end: the path's own. Returns (counts, per-call rows)."""
+    from repro_torch.examples import quickstart
+    from repro_torch.kernels import ops
+
+    rows = {f"{name} steps": _scan_steps(g, dev)
+            for name, g in graphs.items()}
+    ops.reset_launch_counts()
+    for name, g in graphs.items():
+        steps = rows[f"{name} steps"]
+        for ename, opts in ENGINE_RUNS:
+            # an auto_lift_bound run whose tree is deeper than its guess
+            # runs its program again at full depth
+            _, wall, got = _engine_call(
+                g, dev, name, opts, oracles[name],
+                (1, 2) if opts.get("auto_lift_bound") else (1,))
+            row = dict(wall_ms=wall, launches=got)
+            if opts.get("schedule") == "scan":
+                row.update(steps=steps["parallel"],
+                           ms_per_step=wall / max(steps["parallel"], 1))
+            rows[f"{name} {ename}"] = row
+            print(f"engines {name} {ename}: mask == baseline, "
+                  f"{wall:.1f} ms, launches/call {got}"
+                  + (f", {steps['parallel']} lockstep steps"
+                     if "steps" in row else "")
+                  + f" [clock {sm_clock()}]")
+    spent, basic = 0.0, dict(schedule="scan", parallel=False)
+    for name in ("case1", "case2", "feeder4k", "case3"):
+        g, steps = graphs[name], rows[f"{name} steps"]
+        per_step = rows.get("case1 scan_basic", {}).get("ms_per_step")
+        if per_step and spent + per_step * steps["basic"] / 1e3 > \
+                SCAN_BASIC_BUDGET_S:
+            print(f"engines {name} scan_basic: not run ({steps['basic']} "
+                  f"steps at ~{per_step:.2f} ms would pass "
+                  f"{SCAN_BASIC_BUDGET_S:.0f} s)")
+            continue
+        _, wall, got = _engine_call(g, dev, name, basic, oracles[name])
+        spent += wall / 1e3
+        rows[f"{name} scan_basic"] = dict(
+            wall_ms=wall, launches=got, steps=steps["basic"],
+            ms_per_step=wall / max(steps["basic"], 1))
+        print(f"engines {name} scan_basic: mask == baseline, {wall:.1f} ms "
+              f"for {steps['basic']} steps, launches/call {got} "
+              f"[clock {sm_clock()}]")
+    for ename, opts in (("levels", dict(bfs_engine="levels")),
+                        ("lift_bound", dict(auto_lift_bound=True))):
+        _, wall, got = _engine_call(big, dev, f"n={big.n}", opts, big_oracle,
+                                    (1, 2))
+        rows[f"n={big.n} {ename}"] = dict(wall_ms=wall, launches=got)
+        print(f"engines n={big.n} {ename}: mask == baseline, {wall:.1f} ms, "
+              f"launches/call {got} [clock {sm_clock()}]")
+    before = ops.launch_counts()
+    t0 = time.perf_counter()
+    check(quickstart.main([]), "the quickstart twin's masks differ")
+    rows["quickstart"] = dict(wall_ms=(time.perf_counter() - t0) * 1e3,
+                              launches=_path_diff(before, ops.launch_counts()))
+    counts = ops.launch_counts()
+    for k in PATH_KERNELS:
+        check(counts[k] > 0, f"engines path: no {k} launch")
+    print(f"launches: engines path {counts}")
+    return counts, rows
+
+
+BATCH_BUCKETS = {"exact": None, "pow2": (16384, 65536)}
+
+
+def _single_walls(g, dev, recovery, calls: int = 1) -> float:
+    from repro_torch.core import lgrass_sparsify
+
+    return statistics.median(_walls(
+        lambda: lgrass_sparsify(g, device=dev, recovery=recovery), calls))
+
+
+def _padded_rec_ms(g, dev, bucket) -> tuple:
+    """REC's device ms on g's lane padded to bucket (n_max, L_max), and
+    whether every node of that lane is reachable (REC's lemma filter)."""
+    from repro_torch.core import GraphBatch
+    from repro_torch.core.baseline import default_budget
+    from repro_torch.core.bfs import INF
+    from repro_torch.core.sparsify import (_bucket_b_cap, _phase1_program,
+                                           _rec_inputs)
+    from repro_torch.kernels import phase1
+
+    b = GraphBatch.from_graphs([g], *bucket)
+    u, v = (torch.as_tensor(x[0].astype(np.int64), device=dev)
+            for x in (b.u, b.v))
+    w = torch.as_tensor(b.w[0], device=dev)
+    valid = torch.as_tensor(b.edge_valid[0], device=dev)
+    d, euler, _ = _phase1_program(u, v, w, b.n_max, 32, edge_valid=valid)
+    rec = _rec_inputs(d, u, v, valid)
+    budget = default_budget(g.n)
+    ms = device_ms(lambda: phase1.recover_cuda(
+        *rec, budget, _bucket_b_cap([budget]), euler),
+        MARK_REC_KERNELS["rec"], iters=10)
+    return ms, bool((d["depth_t"] != INF).all())
+
+
+def phase_batch(dev, graphs, oracles, big, big_oracle, single_ms):
+    """`lgrass_sparsify_batch` on the card over three batches (the four
+    graphs at the exact and the pow2 bucket, n = 160,000 with case3), in
+    both recovery modes: each lane's mask equal to its graph's own
+    `lgrass_sparsify` mask and to the baseline's (on the card those are
+    one: the pipeline phase held every single call to the baseline), its
+    launches per lane (mark 1, rec 1 with device recovery, radix_hist 5,
+    4 with host recovery), its wall beside the sum of single calls
+    (`single_ms`: recovery -> graph -> ms); `recover_device_batched` from
+    `phase1_device_batched` outputs; REC's device time on case3 alone and
+    on its padded lanes. The counts start at 0 here: the path's own.
+    Returns (counts, rows)."""
+    from repro_torch.core import (GraphBatch, lgrass_sparsify_batch,
+                                  phase1_device_batched,
+                                  recover_device_batched)
+    from repro_torch.core.baseline import default_budget
+    from repro_torch.core.sparsify import _bucket_b_cap, phase1_views_np
+    from repro_torch.kernels import ops
+
+    ops.reset_launch_counts()
+    four = list(graphs)
+    batches = {f"ipcc {k}": (four, bucket)
+               for k, bucket in BATCH_BUCKETS.items()}
+    batches[f"n={big.n} + case3"] = ([f"n={big.n}", "case3"], None)
+    every = dict(graphs, **{f"n={big.n}": big})
+    masks = dict(oracles, **{f"n={big.n}": big_oracle})
+    rows, results = {}, {}
+    for bname, (names, bucket) in batches.items():
+        batch = GraphBatch.from_graphs([every[k] for k in names],
+                                       *(bucket or (None, None)))
+        for recovery in ("device", "host"):
+            before = ops.launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = lgrass_sparsify_batch(batch, recovery=recovery,
+                                        device=dev)
+            wall = (time.perf_counter() - t0) * 1e3
+            got = _path_diff(before, ops.launch_counts())
+            lanes = len(names)
+            want = {k: v * lanes for k, v in
+                    _per_call(dict(recovery=recovery)).items()}
+            check(got == want, f"batch {bname} {recovery}: launches {got}, "
+                               f"not {want}")
+            for k, r in zip(names, res):
+                check(np.array_equal(r.edge_mask, masks[k]),
+                      f"batch {bname} {recovery}: lane {k} differs from "
+                      f"its single-graph mask")
+            singles = sum(single_ms[recovery][k] for k in names)
+            rows[f"{bname} {recovery}"] = dict(
+                bucket=(batch.n_max, batch.L_max), wall_ms=wall,
+                sum_single_ms=singles, launches=got,
+                launches_per_lane={k: v // lanes for k, v in got.items()})
+            results[(bname, recovery)] = res
+            print(f"batch {bname} ({batch.n_max}, {batch.L_max}) "
+                  f"{recovery}: every lane == single == baseline; wall "
+                  f"{wall:.1f} ms against {singles:.1f} ms for the single "
+                  f"calls; launches/lane "
+                  f"{rows[f'{bname} {recovery}']['launches_per_lane']} "
+                  f"[clock {sm_clock()}]")
+
+    # the standalone replay from batched phase-1 outputs
+    batch = GraphBatch.from_graphs([graphs[k] for k in four])
+    t = [torch.as_tensor(x, device=dev) for x in
+         (batch.u.astype(np.int64), batch.v.astype(np.int64), batch.w,
+          batch.edge_valid)]
+    d = {k: x.cpu().numpy() for k, x in
+         phase1_device_batched(*t, batch.n_max).items()}
+    views = [phase1_views_np({k: x[i] for k, x in d.items()}, batch.L_max)
+             for i in range(len(four))]
+    tree, crossing, accept, group, dirty0, order = (
+        np.stack(col) for col in zip(*views))
+    budgets = [default_budget(graphs[k].n) for k in four]
+    before = ops.launch_counts()
+    acc, cnt = recover_device_batched(
+        d["up"], d["depth_t"], batch.u, batch.v, d["beta"], tree, crossing,
+        order, accept, group, dirty0, budgets, _bucket_b_cap(budgets),
+        edge_valid=batch.edge_valid, device=dev)
+    got = _path_diff(before, ops.launch_counts())
+    check(got["rec"] == len(four), f"recover_device_batched: {got}")
+    for i, (k, r) in enumerate(zip(four, results[("ipcc exact", "device")])):
+        check(np.array_equal(acc[i, :graphs[k].m].cpu().numpy(),
+                             r.accepted_mask) and int(cnt[i]) == r.n_accepted,
+              f"recover_device_batched lane {k} differs from the batch")
+    print(f"recover_device_batched from phase1_device_batched (ipcc exact): "
+          f"every lane == lgrass_sparsify_batch's; launches {got}")
+    counts = ops.launch_counts()
+    for k in PATH_KERNELS:
+        check(counts[k] > 0, f"batch path: no {k} launch")
+    print(f"launches: batch path {counts}")
+
+    # REC on case3 alone and on its padded lanes (not the path's launches)
+    rec_ms = {}
+    for label, bucket in (("alone", (None, None)),
+                          ("pow2", BATCH_BUCKETS["pow2"]),
+                          (f"n={big.n} + case3", (big.n, big.m))):
+        ms, connected = _padded_rec_ms(graphs["case3"], dev, bucket)
+        rec_ms[label] = dict(device_ms=ms, connected=connected)
+        print(f"rec case3 lane {label}: {ms:.4f} ms device, every node "
+              f"reachable: {connected} [clock {sm_clock()}]")
+    rows["rec case3 lanes"] = rec_ms
+    return counts, rows
 
 
 # -- MARK and REC: the greedy loops as kernels ----------------------------
@@ -2217,6 +2506,25 @@ def main(argv) -> int:
     t0 = time.perf_counter()
     flash_entry = phase_lm(dev)
     print(f"phase lm: {time.perf_counter() - t0:.1f} s")
+    masks = {k: b.edge_mask for k, b in base.items()}
+    t0 = time.perf_counter()
+    eng_counts, eng_rows = phase_engines(dev, graphs, masks, big, big_oracle)
+    print(f"phase engines: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    single_ms = {"device": {k: walls[f"{k} euler"] for k in graphs},
+                 "host": {k: eng_rows[f"{k} host"]["wall_ms"]
+                          for k in graphs}}
+    for recovery, calls in (("device", TIMED_CALLS), ("host", 1)):
+        single_ms[recovery][f"n={big.n}"] = _single_walls(big, dev, recovery,
+                                                          calls)
+    batch_counts, batch_rows = phase_batch(dev, graphs, masks, big,
+                                           big_oracle, single_ms)
+    print(f"phase batch: {time.perf_counter() - t0:.1f} s")
+    for k in PATH_KERNELS:
+        report[k].update(launches_engines_path=eng_counts[k],
+                         launches_batch_path=batch_counts[k])
+    print(f"engine and batch numbers: "
+          f"{json.dumps(dict(engines=eng_rows, batch=batch_rows))}")
     t0 = time.perf_counter()
     profiled = phase_walls(dev, graphs["case3"], base["case3"].edge_mask,
                            big, big_oracle)

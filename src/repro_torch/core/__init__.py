@@ -1,18 +1,34 @@
-"""LGRASS core on PyTorch: graph containers, the numpy oracle and the
-single-graph pipeline (`lgrass_sparsify`). Imports torch and numpy only."""
+"""LGRASS core on PyTorch: graph containers, the numpy oracle, the
+single-graph and batched pipelines, the recovery replays and the
+solver-free quality tier. Imports torch and numpy only."""
 from repro_torch.core.baseline import (BaselineResult, baseline_sparsify,
                                        default_budget)
-from repro_torch.core.graph import (OFFICIAL_CASE_SHAPES, Graph,
+from repro_torch.core.graph import (OFFICIAL_CASE_SHAPES, Graph, GraphBatch,
                                     feeder_like_graph, from_reference,
                                     official_case, powergrid_like_graph,
                                     random_connected_graph, trivial_graph)
+from repro_torch.core.pow2 import log2_ceil, next_pow2
+from repro_torch.core.recovery import (recover_device,
+                                       recover_device_batched, recover_host)
 from repro_torch.core.sparsify import (SparsifyResult, lgrass_device,
-                                       lgrass_sparsify, phase1_device)
+                                       lgrass_device_batched, lgrass_sparsify,
+                                       lgrass_sparsify_batch, phase1_device,
+                                       phase1_device_batched)
+from repro_torch.core.spectral_probe import (laplacian_spmv,
+                                             probe_criticality,
+                                             probe_edge_resistance,
+                                             probe_edge_resistance_batched,
+                                             trace_similarity)
 
 __all__ = [
     "BaselineResult", "baseline_sparsify", "default_budget",
-    "OFFICIAL_CASE_SHAPES", "Graph", "feeder_like_graph", "from_reference",
-    "official_case", "powergrid_like_graph", "random_connected_graph",
-    "trivial_graph", "SparsifyResult", "lgrass_device", "lgrass_sparsify",
-    "phase1_device",
+    "OFFICIAL_CASE_SHAPES", "Graph", "GraphBatch", "feeder_like_graph",
+    "from_reference", "official_case", "powergrid_like_graph",
+    "random_connected_graph", "trivial_graph", "log2_ceil", "next_pow2",
+    "recover_device", "recover_device_batched", "recover_host",
+    "SparsifyResult", "lgrass_device", "lgrass_device_batched",
+    "lgrass_sparsify", "lgrass_sparsify_batch", "phase1_device",
+    "phase1_device_batched", "laplacian_spmv", "probe_criticality",
+    "probe_edge_resistance", "probe_edge_resistance_batched",
+    "trace_similarity",
 ]

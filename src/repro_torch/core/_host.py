@@ -115,6 +115,48 @@ def tree_dist_np(up, depth, a, b):
     return depth[a] + depth[b] - 2 * depth[w]
 
 
+def euler_tables_np(parent, depth):
+    """Euler tour + sparse-table RMQ of a rooted tree in which every node
+    is reachable (parent < 0 only at the root): (tour, first, table,
+    log_of) for `tree_dist_euler_np`. Any tour answers every LCA alike:
+    the depth minimum between two first occurrences is the unique LCA."""
+    n = len(parent)
+    kids = tree_children(parent, n)
+    tour = np.empty(2 * n - 1, np.int64)
+    pos, stack = 0, [(int(np.argmin(depth)), 0)]
+    while stack:
+        node, i = stack.pop()
+        tour[pos] = node
+        pos += 1
+        if i < len(kids[node]):
+            stack.append((node, i + 1))
+            stack.append((kids[node][i], 0))
+    first = np.full(n, len(tour), np.int64)
+    np.minimum.at(first, tour, np.arange(len(tour)))
+    dseq = np.asarray(depth, np.int64)[tour]
+    tabs = [np.arange(len(tour))]
+    while (1 << len(tabs)) <= len(tour):
+        prev, h = tabs[-1], 1 << (len(tabs) - 1)
+        other = prev[np.minimum(np.arange(len(tour)) + h, len(tour) - 1)]
+        tabs.append(np.where(dseq[other] < dseq[prev], other, prev))
+    log_of = np.zeros(len(tour) + 1, np.int64)
+    log_of[2:] = np.floor(np.log2(np.arange(2, len(tour) + 1))).astype(
+        np.int64)
+    return tour, first, np.stack(tabs), log_of, dseq
+
+
+def tree_dist_euler_np(tables, depth, a, b):
+    """Tree hop distances by the Euler tables' O(1) LCA; equal to
+    `tree_dist_np` on a tree in which every node is reachable."""
+    tour, first, table, log_of, dseq = tables
+    fa, fb = first[a], first[b]
+    lo, hi = np.minimum(fa, fb), np.maximum(fa, fb)
+    k = log_of[hi - lo + 1]
+    i1, i2 = table[k, lo], table[k, hi + 1 - (1 << k)]
+    w = tour[np.where(dseq[i2] < dseq[i1], i2, i1)]
+    return depth[a] + depth[b] - 2 * depth[w]
+
+
 def node_parent_inv_w_np(u, v, w, tree_mask, parent, n):
     inv = np.zeros(n, np.float32)
     for arr_c, arr_p in ((u, v), (v, u)):
@@ -153,6 +195,15 @@ def criticality_np(u, v, w, rd, edge_lca) -> np.ndarray:
     return (w.astype(np.float32) * r).astype(np.float32)
 
 
+def tree_children(parent, n):
+    kids = [[] for _ in range(n)]
+    for c in range(n):
+        p = parent[c]
+        if p >= 0:
+            kids[p].append(c)
+    return kids
+
+
 def ball_np(adj, center: int, beta: int) -> set:
     """Nodes within tree hop distance <= beta of center (adj = tree lists)."""
     seen = {center}
@@ -178,3 +229,46 @@ def tree_adjacency(parent, n):
             adj[c].append(p)
             adj[p].append(c)
     return adj
+
+
+def phase1_np(up, depth_t, su, sv, sbeta, gidx, active, k_cap):
+    """Numpy oracle for phase-1 marking — mirrors every schedule.
+
+    Inputs are the *sorted-slot* views (marking.GroupLayout order):
+    su/sv/sbeta the edge endpoints and ball radii per sorted slot, gidx
+    the dense group index, `active` the crossing-slot mask. Replays the
+    per-group greedy sequentially: accept a slot iff no *stored* earlier
+    same-group accept covers its ball pair (tree distances via the
+    binary-lifting tables); store at most k_cap accepts per group; an
+    accept past k_cap only raises the group's overflow flag.
+
+    Returns (accept (L,) bool per sorted slot, overflow (L,) bool per
+    dense group index) — the `Phase1Result` layout.
+    """
+    m = len(su)
+    accept = np.zeros(m, bool)
+    overflow = np.zeros(m, bool)
+    stored: dict = {}
+    for i in range(m):
+        if not active[i]:
+            continue
+        g = int(gidx[i])
+        lst = stored.setdefault(g, [])
+        x, y, b = int(su[i]), int(sv[i]), int(sbeta[i])
+        covered = False
+        for (au, av, ab) in lst:
+            dxu = int(tree_dist_np(up, depth_t, x, au))
+            dxv = int(tree_dist_np(up, depth_t, x, av))
+            dyu = int(tree_dist_np(up, depth_t, y, au))
+            dyv = int(tree_dist_np(up, depth_t, y, av))
+            if (dxu <= ab and dyv <= ab) or (dxv <= ab and dyu <= ab):
+                covered = True
+                break
+        if covered:
+            continue
+        accept[i] = True
+        if len(lst) >= k_cap:
+            overflow[g] = True
+        else:
+            lst.append((x, y, b))
+    return accept, overflow

@@ -1,24 +1,49 @@
 """BFS engines, root selection and effective weights (LGRASS §4.4, EFF).
 
-The port of `repro.core.bfs`, "doubling" engine only (`bfs_engine=
-"levels"` is still to port and raises). Every `jax.lax.while_loop`
-becomes a host loop that syncs once per round on its condition; the
-loop bodies are the reference's edge-parallel scatters and pointer
-doubling, on tensors of one device.
+The port of `repro.core.bfs`: both engines, selected by ``engine`` and
+equal in output.
+
+  * ``engine="levels"`` (`bfs_levels`) — one edge-parallel relaxation
+    per BFS level, a host sync per level on the frontier;
+  * ``engine="doubling"`` (`bfs_doubling`, the default) — Bellman–Ford
+    relaxations plus pointer doubling, O(log n) rounds on chain-like
+    inputs, a host sync per round on its fixpoint.
+
+Every `jax.lax.while_loop` becomes a host loop that syncs once per round
+on its condition; the loop bodies are the reference's edge-parallel
+scatters and pointer doubling, on tensors of one device. Both engines,
+`degrees`, `select_root` and `effective_weights` take the reference's
+optional edge mask (the batched pipeline's padding).
 
 Node ids, depths and parents are int64 tensors holding the reference's
 int32 values; unreachable depths hold INF = INT32_MAX exactly as there.
 The int64 width means the relaxation key dist·(n+1) + id of
 `bfs_doubling` never overflows, so the port always runs it packed (the
-reference unpacks above n = 46,339 with identical results).
+reference unpacks above PACKED_KEY_MAX_N with identical results);
+`packed_key_bound` and the two switch points are kept for parity.
 """
 from __future__ import annotations
+
+import math
+from typing import Optional
 
 import torch
 
 from repro_torch.core.pow2 import log2_ceil
 
 INF = 2 ** 31 - 1  # INT32_MAX, the reference's sentinel
+
+BFS_ENGINES = ("doubling", "levels")
+
+
+def packed_key_bound(n: int) -> int:
+    """Largest packed relaxation key `bfs_doubling` can produce at `n`:
+    dist·(n+1) + id with dist, id in [0, n], so (n+1)² − 1."""
+    return (n + 1) * (n + 1) - 1
+
+
+# Largest n for which the reference's packed key fits int32.
+PACKED_KEY_MAX_N = math.isqrt(2 ** 31) - 1
 # Largest n for which `root_tree_euler` packs an arc's (tail, head) pair
 # into one u32 radix key (16 bits each); beyond it the u64 pair sort runs.
 EULER_PACK_MAX_N = 0xFFFF
@@ -46,20 +71,55 @@ def _scatter_max(n: int, init: int, index: torch.Tensor,
     return out.scatter_reduce_(0, index, src, "amax", include_self=True)
 
 
-def bfs(u, v, n: int, root, engine: str = "doubling"):
+def _emask(src: torch.Tensor, edge_mask: Optional[torch.Tensor]):
+    """The arc mask of an (L,) edge mask over src = cat([u, v])."""
+    if edge_mask is None:
+        return torch.ones_like(src, dtype=torch.bool)
+    return torch.cat([edge_mask, edge_mask])
+
+
+def bfs(u, v, n: int, root, edge_mask: Optional[torch.Tensor] = None,
+        engine: str = "doubling"):
     """BFS over the undirected edge list from `root`: (depth, parent),
-    INF / -1 for unreachable nodes. Only the "doubling" engine is ported,
-    without the reference's edge mask (the batched pipeline's padding)."""
+    INF / -1 for unreachable nodes. edge_mask: optional (L,) bool, True
+    edges participate (the spanning tree, or the padding mask)."""
     if engine == "doubling":
-        return bfs_doubling(u, v, n, root)
-    if engine == "levels":
-        raise NotImplementedError(
-            "bfs_engine='levels' is not ported yet; use 'doubling'")
-    raise ValueError(f"unknown BFS engine {engine!r}")
+        return bfs_doubling(u, v, n, root, edge_mask)
+    if engine != "levels":
+        raise ValueError(f"unknown BFS engine {engine!r}")
+    return bfs_levels(u, v, n, root, edge_mask)
+
+
+def bfs_levels(u: torch.Tensor, v: torch.Tensor, n: int, root: torch.Tensor,
+               edge_mask: Optional[torch.Tensor] = None):
+    """Level-synchronous BFS: one edge-parallel relaxation per level, the
+    smallest active source id as each newly reached node's parent. The
+    host loop syncs once per level, on whether the frontier is empty."""
+    dev = u.device
+    src = torch.cat([u, v])
+    dst = torch.cat([v, u])
+    emask = _emask(src, edge_mask)
+    inf_src = torch.full_like(src, INF)
+    depth = _full(n, INF, dev)
+    depth[root] = 0
+    parent = _full(n, -1, dev)
+    frontier = torch.zeros((n,), dtype=torch.bool, device=dev)
+    frontier[root] = True
+    level = 0
+    while bool(frontier.any()):
+        active = frontier[src] & emask
+        cand = _scatter_min(n, INF, dst, torch.where(active, src, inf_src))
+        newly = (cand != INF) & (depth == INF)
+        parent = torch.where(newly, cand, parent)
+        depth = torch.where(newly, level + 1, depth)
+        frontier = newly
+        level += 1
+    return depth, parent
 
 
 def bfs_doubling(u: torch.Tensor, v: torch.Tensor, n: int,
-                 root: torch.Tensor):
+                 root: torch.Tensor,
+                 edge_mask: Optional[torch.Tensor] = None):
     """Hop-doubling BFS: Bellman–Ford relaxations + pointer doubling.
 
     The reference's rounds (`repro.core.bfs.bfs_doubling`): one packed
@@ -73,6 +133,7 @@ def bfs_doubling(u: torch.Tensor, v: torch.Tensor, n: int,
     dev = u.device
     src = torch.cat([u, v])
     dst = torch.cat([v, u])
+    emask = _emask(src, edge_mask)
     iota = torch.arange(n, dtype=torch.int64, device=dev)
     log = log2_ceil(n + 1)
     climb_len = max(2, (3 * log) // 5)
@@ -80,8 +141,8 @@ def bfs_doubling(u: torch.Tensor, v: torch.Tensor, n: int,
     kinf = INF
 
     inf_src = torch.full_like(src, INF)
-    lo_nbr = _scatter_min(n, INF, dst, src)
-    hi_nbr = _scatter_max(n, -1, dst, src)
+    lo_nbr = _scatter_min(n, INF, dst, torch.where(emask, src, inf_src))
+    hi_nbr = _scatter_max(n, -1, dst, torch.where(emask, src, -1))
     fallback = torch.where(lo_nbr != INF, lo_nbr, iota)
     pl = fallback
     ol = (pl != iota).to(torch.int64)
@@ -99,7 +160,7 @@ def bfs_doubling(u: torch.Tensor, v: torch.Tensor, n: int,
     while changed:
         d_in = dist
         ds = dist[src]
-        key = torch.where(ds < INF, ds * base + src, kinf)
+        key = torch.where(emask & (ds < INF), ds * base + src, kinf)
         kmin = _scatter_min(n, kinf, dst, key)
         has = kmin < kinf
         mnb = torch.where(has, kmin // base, INF)
@@ -123,7 +184,7 @@ def bfs_doubling(u: torch.Tensor, v: torch.Tensor, n: int,
         changed = bool(torch.any(dist != d_in))
 
     ds, dd = dist[src], dist[dst]
-    prev = (ds < INF) & (dd < INF) & (ds + 1 == dd)
+    prev = emask & (ds < INF) & (dd < INF) & (ds + 1 == dd)
     cand = _scatter_min(n, INF, dst, torch.where(prev, src, inf_src))
     parent = torch.where((dist > 0) & (dist < INF) & (cand < INF), cand, -1)
     return dist, parent
@@ -234,23 +295,31 @@ def root_tree(u, v, n: int, root, tree_mask):
     return depth, parent
 
 
-def degrees(u: torch.Tensor, v: torch.Tensor, n: int) -> torch.Tensor:
-    one = torch.ones_like(u)
-    deg = torch.zeros((n,), dtype=torch.int64, device=u.device)
+def degrees(u: torch.Tensor, v: torch.Tensor, n: int,
+            edge_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Node degrees; padding edges (edge_valid False) add none."""
+    one = torch.ones_like(u) if edge_valid is None else edge_valid.to(u.dtype)
+    deg = torch.zeros((n,), dtype=u.dtype, device=u.device)
     deg.index_add_(0, u, one)
     deg.index_add_(0, v, one)
     return deg
 
 
-def select_root(u, v, n: int) -> torch.Tensor:
+def select_root(u, v, n: int,
+                edge_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Max-degree node, ties -> smallest id (torch.argmax returns the
-    first maximum on CPU and CUDA). A 0-d int64 tensor."""
-    return torch.argmax(degrees(u, v, n))
+    first maximum on CPU and CUDA). A 0-d int64 tensor. Padding edges
+    add no degree, so a padded node can never win."""
+    return torch.argmax(degrees(u, v, n, edge_valid))
 
 
-def effective_weights(u, v, w, depth, n: int):
+def effective_weights(u, v, w, depth, n: int,
+                      edge_valid: Optional[torch.Tensor] = None):
     """eff(e) = w(e) * (depth[u] + depth[v] + 1), unreachable depths
     clamped to 0 first (`finite_depth`); float32, elementwise, in the
-    reference's order of operations."""
+    reference's order of operations. Padding slots are zeroed."""
     d = finite_depth(depth).to(torch.float32)
-    return w * (d[u] + d[v] + 1.0)
+    eff = w * (d[u] + d[v] + 1.0)
+    if edge_valid is not None:
+        eff = torch.where(edge_valid, eff, torch.zeros_like(eff))
+    return eff

@@ -24,10 +24,23 @@ implementations are bit-identical:
   * greedy          = accept edge iff not marked; accepted edge marks all
     off-tree edges (x, y) with (x in B(u), y in B(v)) or swapped; stop
     after `budget` accepts.
+
+Padding conventions (batched pipeline, `GraphBatch`):
+
+  * a batch pads B graphs to shared (n_max, L_max); node padding is
+    implicit (ids n..n_max-1 are simply never referenced by real edges).
+  * padding edges are self loops on node 0 with sentinel weight 0.0 and
+    edge_valid == False; every stage threads the mask so padding edges
+    never gain degree, never enter the spanning tree, and never join a
+    crossing group — real slots equal an unpadded single-graph run.
+  * real edges always occupy the leading L slots, so padding slots sort
+    strictly after every real slot under the stable (key desc, id asc)
+    orders above.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 
@@ -63,6 +76,78 @@ def trivial_graph() -> Graph:
     """
     return Graph(n=1, u=np.zeros(0, np.int32), v=np.zeros(0, np.int32),
                  w=np.zeros(0, np.float32))
+
+
+PAD_ENDPOINT = 0     # padding edges are self loops on node 0
+PAD_WEIGHT = 0.0     # sentinel: real weights are strictly positive
+
+
+@dataclasses.dataclass
+class GraphBatch:
+    """B graphs padded to shared (n_max, L_max) for one batched call.
+
+    Edge arrays are (B, L_max); `edge_valid` marks real slots, padding
+    slots hold (PAD_ENDPOINT, PAD_ENDPOINT, PAD_WEIGHT). Real edges of
+    graph i occupy slots 0..m_i-1 (see the padding conventions in the
+    module docstring). The original `Graph` objects are kept so results
+    can be sliced back to per-graph shapes.
+    """
+
+    graphs: list
+    n_max: int
+    L_max: int
+    u: np.ndarray           # (B, L_max) int32
+    v: np.ndarray           # (B, L_max) int32
+    w: np.ndarray           # (B, L_max) float32
+    edge_valid: np.ndarray  # (B, L_max) bool
+    n_real: np.ndarray      # (B,) int32 — true node counts
+    m_real: np.ndarray      # (B,) int32 — true edge counts
+
+    @property
+    def batch_size(self) -> int:
+        return len(self.graphs)
+
+    @classmethod
+    def from_graphs(
+        cls,
+        graphs,
+        n_max: Optional[int] = None,
+        L_max: Optional[int] = None,
+    ) -> "GraphBatch":
+        """Pad `graphs` to a shared bucket; n_max/L_max may round the
+        bucket up (for example to powers of two)."""
+        graphs = list(graphs)
+        if not graphs:
+            raise ValueError("empty batch")
+        need_n = max(g.n for g in graphs)
+        need_L = max(g.m for g in graphs)
+        n_max = need_n if n_max is None else int(n_max)
+        L_max = need_L if L_max is None else int(L_max)
+        if n_max < need_n or L_max < need_L:
+            raise ValueError(
+                f"bucket ({n_max}, {L_max}) too small for ({need_n}, {need_L})"
+            )
+        B = len(graphs)
+        u = np.full((B, L_max), PAD_ENDPOINT, np.int32)
+        v = np.full((B, L_max), PAD_ENDPOINT, np.int32)
+        w = np.full((B, L_max), PAD_WEIGHT, np.float32)
+        edge_valid = np.zeros((B, L_max), bool)
+        for i, g in enumerate(graphs):
+            u[i, : g.m] = g.u
+            v[i, : g.m] = g.v
+            w[i, : g.m] = g.w
+            edge_valid[i, : g.m] = True
+        return cls(
+            graphs=graphs,
+            n_max=n_max,
+            L_max=L_max,
+            u=u,
+            v=v,
+            w=w,
+            edge_valid=edge_valid,
+            n_real=np.array([g.n for g in graphs], np.int32),
+            m_real=np.array([g.m for g in graphs], np.int32),
+        )
 
 
 def random_connected_graph(

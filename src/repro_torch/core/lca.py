@@ -3,8 +3,9 @@
 The port of `repro.core.lca`. Binary lifting (`LiftingTables`, `lca`)
 answers a query in O(log depth) gathers; the Euler tour plus sparse-table
 range minimum (`EulerLCA`, `lca_euler`) in O(1) gathers. The pipeline
-builds the tour in `bfs.root_tree_euler`; `tables_from_tour` is the one
-definition of the table layout.
+builds the tour in `bfs.root_tree_euler` (the "doubling" engine) or from
+parent pointers in `build_euler` (the "levels" engine and the standalone
+recovery); `tables_from_tour` is the one definition of the table layout.
 
 The lifting table `up` and `depth` are int32, as in the reference: they
 are the inputs of the tree-distance kernel. Query ids may be int32 or
@@ -76,6 +77,13 @@ def tree_distance(t: LiftingTables, a: torch.Tensor,
     return d[a] + d[b] - 2 * d[w]
 
 
+def tree_distance_with_lca(t: LiftingTables, a: torch.Tensor,
+                           b: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Distance when the LCA `w` is already known (saves the climb)."""
+    d = t.depth.to(torch.int64)
+    return d[a] + d[b] - 2 * d[w]
+
+
 def subroot(t: LiftingTables, node: torch.Tensor) -> torch.Tensor:
     """Ancestor at depth 1 (the root-subtree id); the root maps to itself."""
     d = t.depth[node].to(torch.int64)
@@ -121,6 +129,74 @@ def tables_from_tour(tour: torch.Tensor, T: torch.Tensor,
         tabs.append(torch.where(dseq[other] < dseq[prev], other, prev))
     return EulerLCA(tour=tour, dseq=dseq, first=first,
                     table=torch.stack(tabs), depth=depth)
+
+
+def build_euler(parent: torch.Tensor, depth: torch.Tensor,
+                root: torch.Tensor, n: int) -> EulerLCA:
+    """The Euler-tour LCA tables of a rooted tree given by parent pointers
+    (parent < 0 for the root and for unreachable nodes, which are not
+    toured): the reference's `repro.core.lca.build_euler`.
+
+    The tour is the node sequence of a DFS that orders children by
+    ascending id, materialised without a sequential DFS: children sorted
+    by (parent, id) with the u64 pair sort (invalid entries last), per-arc
+    successor pointers (enter first child / next sibling / climb back;
+    the up-arc of the root's last child ends the tour), pointer-doubling
+    list ranking over the 2n arc slots, one scatter into the node
+    sequence. JAX's dropped scatters become masked scatters; every kept
+    target is distinct.
+    """
+    from repro_torch.core.sort import U32_MASK, radix_argsort_u64pair
+
+    dev = parent.device
+    P = 2 * n - 1
+    parent = parent.to(torch.int64)
+    nodes = torch.arange(n, dtype=torch.int64, device=dev)
+    valid_c = parent >= 0
+
+    # -- 1. successor pointers ------------------------------------------
+    S = radix_argsort_u64pair(
+        torch.where(valid_c, parent, torch.full_like(parent, U32_MASK)),
+        nodes)
+    Sv = valid_c[S]
+    Sp = torch.where(Sv, parent[S], -1)
+    is_first = Sv & ((nodes == 0) | (Sp != torch.roll(Sp, 1)))
+    first_child = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    first_child[Sp[is_first]] = S[is_first]
+    has_next = (nodes < n - 1) & Sv & (Sp == torch.roll(Sp, -1))
+    next_sib = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    next_sib[S[has_next]] = torch.roll(S, -1)[has_next]
+
+    # arc c (parent -> c) and n + c (c -> parent)
+    arc_ids = torch.arange(2 * n, dtype=torch.int64, device=dev)
+    succ_down = torch.where(first_child >= 0, first_child, n + nodes)
+    at_end = (parent == root) & (next_sib < 0)
+    succ_up = torch.where(
+        next_sib >= 0, next_sib,
+        torch.where(at_end, n + nodes, n + torch.clamp(parent, min=0)))
+    arc_valid = torch.cat([valid_c, valid_c])
+    succ = torch.where(arc_valid, torch.cat([succ_down, succ_up]), arc_ids)
+
+    # -- 2. list ranking by pointer doubling ----------------------------
+    d = (succ != arc_ids).to(torch.int64)
+    nxt = succ
+    for _ in range(log2_ceil(2 * n) + 1):
+        d = d + d[nxt]
+        nxt = nxt[nxt]
+    fc_root = first_child[root]
+    T = torch.where(fc_root >= 0, d[torch.clamp(fc_root, min=0)] + 1, 0)
+    pos = T - 1 - d
+
+    # -- 3. node sequence -----------------------------------------------
+    heads = torch.cat([nodes, torch.clamp(parent, min=0)])
+    tour = torch.zeros((P,), dtype=torch.int64, device=dev)
+    tour[0] = root
+    wpos = pos + 1
+    keep = arc_valid & (wpos < P)
+    tour[wpos[keep]] = heads[keep]
+
+    # -- 4. depth sequence, first occurrences, sparse RMQ table ---------
+    return tables_from_tour(tour, T, depth, n)
 
 
 def lca_euler(e: EulerLCA, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -1,30 +1,40 @@
 """Edge marking — LGRASS §3.1 + §4.2, phase 1 (MARK).
 
-The port of `repro.core.marking`, "chunked" schedule only (the "scan"
-engines are still to port and raise). Crossing edges only interact
-within their LCA group (Lemma 3.1/3.2), root-LCA edges further split by
-their (subtree, subtree) pair; the greedy keeps a bounded (G, K) table
-of accepted edges per group and decides cover analytically,
-dist(x, u_j) <= beta_j, by batched tree distances.
+The port of `repro.core.marking`. Crossing edges only interact within
+their LCA group (Lemma 3.1/3.2), root-LCA edges further split by their
+(subtree, subtree) pair; the greedy keeps a bounded (G, K) table of
+accepted edges per group and decides cover analytically,
+dist(x, u_j) <= beta_j, by batched tree distances. Three schedules, all
+with the same decisions:
 
-`phase1_chunked` processes the sorted slots in blocks of C. Per block,
-one batched distance query (`ball_pair_table`) builds the cover table of
-the block against (a) each slot's group buffer snapshot and (b) every
-other block slot. The reference then resolves the block's accept chain
-with a C-step `lax.scan`. Slots only depend on earlier slots of their
-own group, so the port finds the same decisions as the fixed point of
-one vectorised step `store <- F(store)` over the whole block: after r
-applications every slot that is at most the r-th of its group within the
-block is final. The iteration stops when nothing changes (one sync per
-step) and never runs more steps than the block's longest group run,
-which is read once for all blocks. All table updates land in one
-batched scatter per block.
+  * `phase1_chunked` (schedule "chunked", the default) processes the
+    sorted slots in blocks of C. Per block, one batched distance query
+    (`ball_pair_table`) builds the cover table of the block against (a)
+    each slot's group buffer snapshot and (b) every other block slot.
+    The reference then resolves the block's accept chain with a C-step
+    `lax.scan`. Slots only depend on earlier slots of their own group, so
+    the port finds the same decisions as the fixed point of one
+    vectorised step `store <- F(store)` over the whole block: after r
+    applications every slot that is at most the r-th of its group within
+    the block is final. The iteration stops when nothing changes (one
+    sync per step) and never runs more steps than the block's longest
+    group run, which is read once for all blocks. All table updates land
+    in one batched scatter per block.
+  * `phase1_basic` (schedule "scan", parallel=False) — one step per
+    crossing slot in sorted order (the paper's basic LGRASS).
+  * `phase1_parallel` (schedule "scan", parallel=True) — rank lockstep:
+    at step r every group decides its r-th slot; as many steps as the
+    longest crossing group.
 
-That loop is the plain version of MARK: `run_phase1` goes through
-`kernels.ops.mark`, which on a CUDA device launches the MARK kernel
-(`kernels/phase1.py`, `csrc/mark.cu`), a chain launch and a card-wide
-tail launch with no host sync between them that make the same
-decisions.
+The scan engines are the reference's lax loops as host loops of torch
+ops on the tensors' device, with the lifting climb's distances
+(`_ball_pair_covered`), as there; each step writes one slot per group,
+so no scatter of theirs has a duplicate index. They never go through
+the MARK kernel. The chunked loop is the plain version of MARK:
+`run_phase1` sends "chunked" through `kernels.ops.mark`, which on a CUDA
+device launches the MARK kernel (`kernels/phase1.py`, `csrc/mark.cu`), a
+chain launch and a card-wide tail launch with no host sync between them
+that make the same decisions.
 """
 from __future__ import annotations
 
@@ -32,7 +42,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.core.lca import (EulerLCA, LiftingTables, subroot,
+from repro_torch.core.lca import (EulerLCA, LiftingTables, lca, subroot,
                                   tree_distance_euler)
 from repro_torch.core.pow2 import auto_chunk
 from repro_torch.core.sort import (UMAX, block_view, radix_argsort_u64pair,
@@ -75,14 +85,19 @@ def group_keys(t: LiftingTables, root, u, v, edge_lca, is_offtree
     return hi, lo, crossing
 
 
-def build_group_layout(crit, hi, lo, crossing) -> GroupLayout:
+def build_group_layout(crit, hi, lo, crossing,
+                       edge_valid: Optional[torch.Tensor] = None
+                       ) -> GroupLayout:
     """Sort edges by (group, criticality desc, id asc); derive group spans.
 
     One f32 sort (4 byte passes) then one u64-pair sort (8 passes), both
     stable. Non-crossing and tree edges share the inactive (UMAX, UMAX)
-    tail group, where `active` is False. L == 0 gives empty fields and
-    n_groups == 0.
+    tail group, where `active` is False; so do padding edges
+    (edge_valid False), which leaves the real groups' indices unchanged.
+    L == 0 gives empty fields and n_groups == 0.
     """
+    if edge_valid is not None:
+        crossing = crossing & edge_valid
     m = crit.shape[0]
     dev = crit.device
     if m == 0:
@@ -143,9 +158,50 @@ def ball_pair_table(t: LiftingTables, xs, ys, cols_u, cols_v, cols_b,
         (d[2] <= cols_b) & (d[3] <= cols_b))
 
 
+def _ball_pair_covered(t: LiftingTables, x, y, row_u, row_v, row_b,
+                       cnt) -> torch.Tensor:
+    """Paired-ball cover test against a (…, K) accepted-edge table:
+
+        covered <=> exists j < cnt:
+            (d(x,u_j) <= b_j and d(y,v_j) <= b_j) or
+            (d(x,v_j) <= b_j and d(y,u_j) <= b_j)
+
+    with the lifting climb's distances (`lca`), int32 with the reference's
+    wrap (two unreachable depths), all four in one batched query. `t`
+    holds int64 tables (the climb then casts nothing)."""
+    xb = x[..., None].expand(row_u.shape)
+    yb = y[..., None].expand(row_u.shape)
+    qa = torch.stack([xb, xb, yb, yb])
+    qb = torch.stack([row_u, row_v, row_u, row_v])
+    d = t.depth
+    dist = (d[qa] + d[qb] - 2 * d[lca(t, qa, qb)]).to(torch.int32)
+    dxu, dxv, dyu, dyv = dist
+    pair = (((dxu <= row_b) & (dyv <= row_b))
+            | ((dxv <= row_b) & (dyu <= row_b)))
+    k = row_u.shape[-1]
+    valid = torch.arange(k, device=x.device) < cnt[..., None]
+    return (pair & valid).any(dim=-1)
+
+
 class Phase1Result(NamedTuple):
     accept: torch.Tensor          # (L,) bool — per *sorted slot*
     group_overflow: torch.Tensor  # (L,) bool — per dense group index
+
+
+def _empty_phase1(dev) -> Phase1Result:
+    """The L == 0 result (isolated-node graphs)."""
+    empty = torch.zeros((0,), dtype=torch.bool, device=dev)
+    return Phase1Result(accept=empty, group_overflow=empty)
+
+
+def _scan_state(t: LiftingTables, rows: int, k_cap: int, dev):
+    """The scan engines' int64 tables and their (rows, K) accepted-edge
+    table: (t64, acc_u, acc_v, acc_b, cnt), beta -1 matching nothing."""
+    t64 = LiftingTables(up=t.up.to(torch.int64), depth=t.depth.to(torch.int64))
+    acc_u = torch.zeros((rows, k_cap), dtype=torch.int64, device=dev)
+    acc_b = torch.full((rows, k_cap), -1, dtype=torch.int64, device=dev)
+    cnt = torch.zeros((rows,), dtype=torch.int64, device=dev)
+    return t64, acc_u, acc_u.clone(), acc_b, cnt
 
 
 def phase1_edge_views(perm, gidx, accept_sorted, group_overflow, crossing):
@@ -177,8 +233,7 @@ def phase1_chunked(t: LiftingTables, su, sv, sbeta, layout: GroupLayout,
     m = su.shape[0]
     dev = su.device
     if m == 0:
-        empty = torch.zeros((0,), dtype=torch.bool, device=dev)
-        return Phase1Result(accept=empty, group_overflow=empty)
+        return _empty_phase1(dev)
     c = max(min(chunk, m), 1)
     act_all = layout.active
     x_pad = block_view(torch.where(act_all, su, 0), c, 0)
@@ -241,20 +296,119 @@ def phase1_chunked(t: LiftingTables, su, sv, sbeta, layout: GroupLayout,
     return Phase1Result(accept=out.reshape(-1)[:m], group_overflow=ovf)
 
 
+def phase1_basic(t: LiftingTables, su, sv, sbeta, layout: GroupLayout,
+                 k_cap: int = 32) -> Phase1Result:
+    """Sequential greedy (basic LGRASS): one step per sorted slot, each
+    deciding its slot against its group's stored accepts.
+
+    The reference scans every slot; the inactive tail (tree, non-crossing
+    and padding slots, which sort last) decides nothing and changes no
+    state, so the host loop stops after the crossing prefix, counted
+    once. Every index of a step is a 1-element tensor, so a step enqueues
+    its ops without a sync.
+    """
+    m = su.shape[0]
+    dev = su.device
+    if m == 0:
+        return _empty_phase1(dev)
+    t64, acc_u, acc_v, acc_b, cnt = _scan_state(t, m, k_cap, dev)
+    ovf = torch.zeros((m,), dtype=torch.bool, device=dev)
+    out = torch.zeros((m,), dtype=torch.bool, device=dev)
+    su, sv, sbeta = su.to(torch.int64), sv.to(torch.int64), \
+        sbeta.to(torch.int64)
+    for i in range(int(layout.active.sum())):
+        g = layout.gidx[i:i + 1]
+        act = layout.active[i:i + 1]
+        x = torch.where(act, su[i:i + 1], 0)
+        y = torch.where(act, sv[i:i + 1], 0)
+        c = cnt[g]
+        cov = _ball_pair_covered(t64, x, y, acc_u[g], acc_v[g], acc_b[g], c)
+        accept = act & ~cov
+        full = c >= k_cap
+        ovf[g] = ovf[g] | (accept & full)
+        slot = torch.clamp(c, max=k_cap - 1)
+        store = accept & ~full
+        acc_u[g, slot] = torch.where(store, x, acc_u[g, slot])
+        acc_v[g, slot] = torch.where(store, y, acc_v[g, slot])
+        acc_b[g, slot] = torch.where(store, sbeta[i:i + 1], acc_b[g, slot])
+        cnt[g] = c + store.to(torch.int64)
+        out[i:i + 1] = accept
+    return Phase1Result(accept=out, group_overflow=ovf)
+
+
+def phase1_parallel(t: LiftingTables, su, sv, sbeta, layout: GroupLayout,
+                    k_cap: int = 32) -> Phase1Result:
+    """Rank-lockstep greedy (parallel LGRASS): step r decides the r-th
+    slot of every group at once.
+
+    The trip count is the longest *active* group: the (UMAX, UMAX) tail
+    group of inactive slots never fires. Active groups are the leading
+    dense group ids (crossing slots sort first). Their lanes are held in
+    order of group size, largest first, so that step r works on the
+    prefix of lanes whose group has an r-th slot and nothing else; the
+    sizes are read once. Each step writes one slot per live lane, so no
+    scatter has a duplicate index.
+    """
+    m = su.shape[0]
+    dev = su.device
+    if m == 0:
+        return _empty_phase1(dev)
+    group_size = torch.bincount(layout.gidx, minlength=m)
+    group_active = layout.active[torch.clamp(layout.group_start, max=m - 1)]
+    live = (torch.arange(m, device=dev) < layout.n_groups) & group_active
+    sizes, lane_group = torch.sort(torch.where(live, group_size, 0),
+                                   descending=True, stable=True)
+    sizes_h = sizes.tolist()  # the one sync
+    n_lanes = sum(1 for z in sizes_h if z > 0)
+    lane_group, gs = lane_group[:n_lanes], \
+        layout.group_start[lane_group[:n_lanes]]
+    t64, acc_u, acc_v, acc_b, cnt = _scan_state(t, n_lanes, k_cap, dev)
+    ovf = torch.zeros((n_lanes,), dtype=torch.bool, device=dev)
+    out = torch.zeros((m,), dtype=torch.bool, device=dev)
+    su, sv, sbeta = su.to(torch.int64), sv.to(torch.int64), \
+        sbeta.to(torch.int64)
+    rows = torch.arange(n_lanes, device=dev)
+    k = n_lanes
+    for r in range(sizes_h[0] if n_lanes else 0):
+        while sizes_h[k - 1] <= r:  # lanes whose group has no r-th slot
+            k -= 1
+        i = gs[:k] + r
+        x, y = su[i], sv[i]
+        c = cnt[:k]
+        accept = ~_ball_pair_covered(t64, x, y, acc_u[:k], acc_v[:k],
+                                     acc_b[:k], c)
+        full = c >= k_cap
+        ovf[:k] |= accept & full
+        slot = torch.clamp(c, max=k_cap - 1)
+        store = accept & ~full
+        at = (rows[:k], slot)
+        acc_u[at] = torch.where(store, x, acc_u[at])
+        acc_v[at] = torch.where(store, y, acc_v[at])
+        acc_b[at] = torch.where(store, sbeta[i], acc_b[at])
+        cnt[:k] += store.to(torch.int64)
+        out[i] = accept
+    group_overflow = torch.zeros((m,), dtype=torch.bool, device=dev)
+    group_overflow[lane_group] = ovf
+    return Phase1Result(accept=out, group_overflow=group_overflow)
+
+
 def run_phase1(t: LiftingTables, su, sv, sbeta, layout: GroupLayout,
                k_cap: int = 32, schedule: str = "chunked",
-               chunk: Optional[int] = None,
+               parallel: bool = True, chunk: Optional[int] = None,
                use_tree_kernel: bool = False,
                euler: Optional[EulerLCA] = None) -> Phase1Result:
-    """Schedule dispatcher: "chunked" through `ops.mark`, the MARK kernel
-    on a CUDA device and `phase1_chunked` on the CPU, with an automatic
-    pow2 block size for the plain loop (`pow2.auto_chunk`, ~sqrt(L))
-    unless `chunk` pins one. The "scan" engines are not ported yet."""
+    """Schedule dispatcher. "chunked" goes through `ops.mark`: the MARK
+    kernel on a CUDA device and `phase1_chunked` on the CPU (an automatic
+    pow2 block size, `pow2.auto_chunk`, ~sqrt(L), unless `chunk` pins
+    one), with the Euler tables' distances, or the lifting climb's when
+    `euler` is None or under use_tree_kernel. "scan" runs
+    `phase1_parallel` (parallel=True) or `phase1_basic` on the tensors'
+    device, never the MARK kernel."""
     if schedule == "chunked":
         c = auto_chunk(int(su.shape[0])) if chunk is None else int(chunk)
         return Phase1Result(*ops.mark(t, su, sv, sbeta, layout, k_cap, c,
                                       None if use_tree_kernel else euler))
-    if schedule == "scan":
-        raise NotImplementedError(
-            "schedule='scan' is not ported yet; use 'chunked'")
-    raise ValueError(f"unknown phase-1 schedule {schedule!r}")
+    if schedule != "scan":
+        raise ValueError(f"unknown phase-1 schedule {schedule!r}")
+    fn = phase1_parallel if parallel else phase1_basic
+    return fn(t, su, sv, sbeta, layout, k_cap=k_cap)

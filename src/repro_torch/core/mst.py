@@ -10,6 +10,8 @@ host loops that sync once per round / jump on their conditions.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 
@@ -17,17 +19,22 @@ from repro_torch.core.bfs import INF
 
 
 def boruvka_mst(u: torch.Tensor, v: torch.Tensor, rank: torch.Tensor,
-                n: int) -> torch.Tensor:
-    """(L,) bool mask of spanning-tree edges; rank 0 is the best edge."""
+                n: int, edge_valid: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+    """(L,) bool mask of spanning-tree edges; rank 0 is the best edge.
+    edge_valid: optional (L,) padding mask; padding edges are never
+    candidates, and the termination test ignores them."""
     dev = u.device
     ids = torch.arange(n, dtype=torch.int64, device=dev)
     comp = ids
     tree_mask = torch.zeros_like(u, dtype=torch.bool)
+    if edge_valid is None:
+        edge_valid = torch.ones_like(u, dtype=torch.bool)
     rank = rank.to(torch.int64)
     inf_e = torch.full_like(rank, INF)
-    while bool(torch.any(comp[u] != comp[v])):
+    while bool(torch.any((comp[u] != comp[v]) & edge_valid)):
         cu, cv = comp[u], comp[v]
-        inter = cu != cv
+        inter = (cu != cv) & edge_valid
         key = torch.where(inter, rank, inf_e)
         best = torch.full((n,), INF, dtype=torch.int64, device=dev)
         best.scatter_reduce_(0, cu, key, "amin", include_self=True)

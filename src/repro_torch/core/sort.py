@@ -86,3 +86,13 @@ def block_view(x: torch.Tensor, chunk: int, fill) -> torch.Tensor:
     pad = torch.full((n_blocks * chunk - m,), fill, dtype=x.dtype,
                      device=x.device)
     return torch.cat([x, pad]).reshape(n_blocks, chunk)
+
+
+def stable_group_sort(group_ids: torch.Tensor,
+                      rank_perm: torch.Tensor) -> torch.Tensor:
+    """Edges already permuted by criticality rank (`rank_perm`); stable-sort
+    that order by u32 `group_ids` so groups are contiguous and
+    criticality-ordered within each group. Returns the composed
+    permutation (one radix argsort)."""
+    g = group_ids[rank_perm].to(torch.int64) & U32_MASK
+    return rank_perm[radix_argsort_u32(g)]

@@ -1,0 +1,1 @@
+"""Runnable examples of the PyTorch port (`python -m repro_torch.examples.<name>`)."""

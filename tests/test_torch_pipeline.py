@@ -196,10 +196,13 @@ def test_root_tree_euler_on_both_sides_of_the_pack_switch(side):
 
 
 def test_unported_options_raise():
+    """Every engine of the reference is ported (tests/test_torch_engines.py
+    holds them); a name that is no engine raises, as in the reference."""
     g = tgraph.random_connected_graph(10, 5, seed=0)
-    for kw in (dict(recovery="host"), dict(schedule="scan"),
-               dict(bfs_engine="levels"), dict(auto_lift_bound=True)):
-        with pytest.raises(NotImplementedError):
+    for kw in (dict(recovery="hots"), dict(schedule="scans"),
+               dict(bfs_engine="level"), dict(schedule="scan",
+                                              bfs_engine="bfs")):
+        with pytest.raises(ValueError):
             tcore.lgrass_sparsify(g, device="cpu", **kw)
 
 
