@@ -107,7 +107,30 @@ Phases, in order; any failed check exits non-zero:
      batch's wall beside the sum of its single calls;
      `recover_device_batched` from `phase1_device_batched` outputs; REC's
      device time on case3 alone and on its two padded lanes;
-  9. walls, last (a CPU+CUDA torch.profiler session disturbs the device
+  9. service: the serving plane, `SparsifyService`, on a stream of 24
+     requests over 9 graphs (case1-3, feeder4k, a 1,600-node grid,
+     random graphs of 3,000, 9,000 and 40,000 nodes, the last in the
+     (65,536, 131,072) bucket past the reference's BFS and Euler switch
+     points, and the trivial graph), repeats interleaved, budgets mixed,
+     `max_batch_size=4`: sync, async, async+donate and a one-card mesh,
+     two passes each after a warmup over the stream's sizes and chunk
+     sizes; every result equal to its single `lgrass_sparsify` call
+     (which equals the baseline at the default budget), 5 radix_hist, 1
+     mark and 1 rec launches per dispatched lane (placeholder lanes
+     included), no on-path compile, the pools grown by at most one set
+     after the first pass; each pass's wall beside the sum of the single
+     calls, its dispatch and drain time and the device work still
+     pending at the first drain (what async could overlap), the
+     `ServiceStats` padding split; the attention-mask planner at
+     S = 1,024 (mask equal to the CPU's), `block_sparse_attention` on
+     the card against its CPU run (fp32, rtol = atol = 1e-5) and both
+     example twins (`repro_torch.examples.batch_sparsify`,
+     `sparse_attention`); then `lgrass_phase1_distributed` over 4 shards
+     of cuda:0 on case3 and at n = 160,000: accept equal to
+     `phase1_device`'s, 1 + 4 MARK launches a call (its unsharded phase
+     1, then one a shard), on case3 REC over its outputs equal to the
+     baseline, its wall beside `phase1_device`'s;
+ 10. walls, last (a CPU+CUDA torch.profiler session disturbs the device
      times of later sessions): the case3 wall and device busy share with
      the MARK/REC kernels and with their plain loops on the card, in
      turns; one graph of n = 160,000 against its numpy baseline, with its
@@ -123,8 +146,10 @@ bitmap_intersect; one `generate` call of the serving run for
 flash_attention), `launches_per_graph` splits that count by graph
 (by estimator call, or by shape), and `cuda_kernels_per_launch` says how
 many CUDA kernels one wrapper call enqueues. radix_hist, mark and rec
-also carry `launches_engines_path` and `launches_batch_path`, each
-counted from 0 over its phase's user calls. Each phase prints its wall
+also carry `launches_engines_path`, `launches_batch_path` and
+`launches_service_path`, each counted from 0 over its phase's user
+calls, and mark `launches_sharded_path`, over the sharded phase 1's two
+timed calls. Each phase prints its wall
 time. Imports nothing of JAX or of `repro`.
 """
 from __future__ import annotations
@@ -1044,6 +1069,321 @@ def phase_batch(dev, graphs, oracles, big, big_oracle, single_ms):
               f"reachable: {connected} [clock {sm_clock()}]")
     rows["rec case3 lanes"] = rec_ms
     return counts, rows
+
+
+# -- the serving plane, the sharded phase 1 and the mask planner ----------
+
+SERVICE_MAX_BATCH = 4
+SERVICE_MODES = (("sync", {}), ("async", dict(async_dispatch=True)),
+                 ("async+donate", dict(async_dispatch=True, donate=True)),
+                 ("mesh", dict(mesh="batch_mesh")))
+SERVICE_PASSES = 2
+# the stream's distinct graphs and how often each is requested (24 in all)
+SERVICE_COUNTS = (("case1", 3), ("rand3k", 3), ("case3", 3), ("pg40", 3),
+                  ("rand40k", 3), ("case2", 2), ("feeder4k", 2),
+                  ("rand9k", 3), ("trivial", 2))
+SHARDS = 4  # shards of cuda:0 for the group-sharded phase 1
+
+
+def _service_stream(graphs):
+    """24 requests, repeats interleaved: round-robin over SERVICE_COUNTS,
+    each graph's first request at its default budget (None), later ones
+    at explicit budgets below it (so that b_cap stays the bucket's
+    default and warmup covers every signature). Returns (distinct
+    graphs, request names, request budgets)."""
+    from repro_torch.core import (default_budget, powergrid_like_graph,
+                                  random_connected_graph, trivial_graph)
+
+    distinct = {k: graphs[k] for k in ("case1", "case2", "case3",
+                                       "feeder4k")}
+    distinct.update(pg40=powergrid_like_graph(40, 0.3, seed=1),
+                    rand3k=random_connected_graph(3000, 6000, seed=11),
+                    rand9k=random_connected_graph(9000, 18000, seed=12),
+                    rand40k=random_connected_graph(40000, 40000, seed=13),
+                    trivial=trivial_graph())
+    left = dict(SERVICE_COUNTS)
+    names, budgets, seen = [], [], {}
+    while any(left.values()):
+        for name, _ in SERVICE_COUNTS:
+            if not left[name]:
+                continue
+            left[name] -= 1
+            k = seen[name] = seen.get(name, -1) + 1
+            names.append(name)
+            budgets.append(None if k == 0 else max(
+                1, default_budget(distinct[name].n) // (k + 1)))
+    return distinct, names, budgets
+
+
+def _timed_service(svc, graphs, budgets) -> tuple:
+    """One `sparsify` pass with its dispatch and drain calls timed on the
+    host clock (the wrappers only read the clock): (results, wall ms,
+    dispatch ms, drain ms, device ms still pending when the first drain
+    began, dispatched lanes)."""
+    acc = dict(dispatch=0.0, drain=0.0, pending=None, lanes=0)
+    dispatch, drain = svc._dispatch, svc._drain
+
+    def timed_dispatch(*a):
+        t0 = time.perf_counter()
+        out = dispatch(*a)
+        acc["dispatch"] += (time.perf_counter() - t0) * 1e3
+        acc["lanes"] += a[4]  # B_pad
+        return out
+
+    def timed_drain(*a):
+        t0 = time.perf_counter()
+        if acc["pending"] is None:
+            torch.cuda.synchronize()  # the drain's first copy waits so too
+            acc["pending"] = (time.perf_counter() - t0) * 1e3
+        drain(*a)
+        acc["drain"] += (time.perf_counter() - t0) * 1e3
+
+    svc._dispatch, svc._drain = timed_dispatch, timed_drain
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = svc.sparsify(graphs, budget=budgets)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        del svc._dispatch, svc._drain
+    return res, wall, acc["dispatch"], acc["drain"], acc["pending"], \
+        acc["lanes"]
+
+
+def _serve_modes(dev, distinct, names, budgets, singles, single_ms):
+    """The stream through SparsifyService in every mode, SERVICE_PASSES
+    passes each after a warmup over the stream's sizes and chunk sizes:
+    results in request order equal to the single calls, launches per
+    dispatched lane (radix_hist 5, mark 1, rec 1), no on-path compile,
+    the pools' growth after the first pass. Returns rows by mode."""
+    from repro_torch.core.distributed import batch_mesh
+    from repro_torch.kernels import ops
+    from repro_torch.serve.sparsify_service import SparsifyService
+
+    graphs = [distinct[k] for k in names]
+    sum_single = sum(single_ms[(k, b)] for k, b in zip(names, budgets))
+    probe = SparsifyService(max_batch_size=SERVICE_MAX_BATCH, device=dev)
+    by_bucket = {}
+    for g in graphs:
+        key = probe.bucket_key(g)
+        by_bucket.setdefault(key, [0, g])[0] += 1
+    rows = {}
+    for mode, kw in SERVICE_MODES:
+        kw = dict(kw)
+        if kw.get("mesh") == "batch_mesh":
+            kw["mesh"] = batch_mesh()
+        svc = SparsifyService(max_batch_size=SERVICE_MAX_BATCH, device=dev,
+                              **kw)
+        before = ops.launch_counts()
+        for count, g in by_bucket.values():
+            sizes = {min(SERVICE_MAX_BATCH, count - lo)
+                     for lo in range(0, count, SERVICE_MAX_BATCH)}
+            svc.warmup([(g.n, g.m)], batch_sizes=sorted(sizes))
+        warm = _path_diff(before, ops.launch_counts())
+        warm_lanes = sum(s[2] for s in svc._warmed)
+        check(all(warm[k] == PER_CALL[k] * warm_lanes for k in PATH_KERNELS),
+              f"service {mode} warmup: launches {warm} for {warm_lanes} "
+              f"lanes")
+        passes, pools = [], []
+        for p in range(SERVICE_PASSES):
+            before = ops.launch_counts()
+            res, wall, t_disp, t_drain, pending, lanes = _timed_service(
+                svc, graphs, budgets)
+            got = _path_diff(before, ops.launch_counts())
+            check(all(got[k] == PER_CALL[k] * lanes for k in PATH_KERNELS),
+                  f"service {mode} pass {p}: launches {got} for {lanes} "
+                  f"lanes")
+            for i, (k, b, r) in enumerate(zip(names, budgets, res)):
+                one = singles[(k, b)]
+                check(np.array_equal(r.edge_mask, one.edge_mask)
+                      and np.array_equal(r.tree_mask, one.tree_mask)
+                      and np.array_equal(r.accepted_mask, one.accepted_mask)
+                      and r.n_accepted == one.n_accepted,
+                      f"service {mode} pass {p}: request {i} ({k}, budget "
+                      f"{b}) differs from its single call")
+            pools.append((svc._pool.n_buffer_sets,
+                          svc._device_pool.n_buffer_sets))
+            passes.append(dict(wall_ms=wall, dispatch_ms=t_disp,
+                               drain_ms=t_drain,
+                               pending_at_first_drain_ms=pending,
+                               lanes=lanes,
+                               launches_per_lane={k: v / lanes for k, v
+                                                  in got.items()}))
+        check(svc.stats.n_on_path_compiles == 0,
+              f"service {mode}: {svc.stats.n_on_path_compiles} on-path "
+              f"compiles after warmup")
+        check(all(b - a <= 1 for a, b in zip(pools[0], pools[-1])),
+              f"service {mode}: pools grew {pools}")
+        s = svc.stats
+        rows[mode] = dict(
+            passes=passes, sum_single_ms=sum_single,
+            warmup_dispatches=s.n_warmup_dispatches,
+            warmup_ms=s.warmup_seconds * 1e3, dispatches=s.n_dispatches,
+            buckets={f"{k[0]}x{k[1]}": c for k, c in
+                     sorted(s.bucket_counts.items())},
+            padding_overhead=s.padding_overhead,
+            batch_pad_overhead=s.batch_pad_overhead,
+            shape_pad_overhead=s.shape_pad_overhead,
+            on_path_compiles=s.n_on_path_compiles, pool_sets=pools)
+        walls = ", ".join(f"{x['wall_ms']:.1f}" for x in passes)
+        print(f"service {mode}: {len(graphs)} requests == single calls; "
+              f"walls {walls} ms against {sum_single:.1f} ms for the single "
+              f"calls; dispatch {passes[-1]['dispatch_ms']:.1f} ms, drain "
+              f"{passes[-1]['drain_ms']:.1f} ms, device work pending at the "
+              f"first drain {passes[-1]['pending_at_first_drain_ms']:.3f} ms;"
+              f" {s.n_dispatches // SERVICE_PASSES} dispatches, "
+              f"{passes[-1]['lanes']} lanes a pass, launches/lane "
+              f"{passes[-1]['launches_per_lane']}; padding "
+              f"{s.padding_overhead:.4f} (batch {s.batch_pad_overhead:.4f}, "
+              f"shape {s.shape_pad_overhead:.4f}); warmup "
+              f"{s.n_warmup_dispatches} dispatches {s.warmup_seconds:.2f} s; "
+              f"pool sets {pools} [clock {sm_clock()}]")
+    return rows
+
+
+def _sharded_phase1(dev, g, name, oracle):
+    """`lgrass_phase1_distributed` over SHARDS shards of cuda:0: accept
+    equal to `phase1_device`'s, 1 + SHARDS MARK launches (the unsharded
+    phase 1 it starts from, then one a shard); with `oracle`, the REC
+    kernel over its outputs gives the baseline's mask. Returns a row."""
+    from repro_torch.core import (default_budget, lgrass_phase1_distributed,
+                                  phase1_device, recover_device)
+    from repro_torch.core.distributed import batch_mesh
+    from repro_torch.core.sparsify import _bucket_b_cap, phase1_views_np
+    from repro_torch.kernels import ops
+
+    mesh = batch_mesh(SHARDS, device="cuda:0")
+    edges = [x.to(dev) for x in _edges(g)]
+    lgrass_phase1_distributed(g, mesh)  # warm
+    before = ops.launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    acc, dirty, d = lgrass_phase1_distributed(g, mesh)
+    wall = (time.perf_counter() - t0) * 1e3
+    got = _path_diff(before, ops.launch_counts())
+    check(got["mark"] == 1 + SHARDS,
+          f"sharded phase 1 {name}: {got['mark']} MARK launches, not "
+          f"1 + {SHARDS}")
+    p1_ms = statistics.median(_walls(lambda: phase1_device(*edges, g.n)))
+    ref = phase1_device(*edges, g.n)
+    want = np.zeros(g.m, bool)
+    want[ref["perm"].cpu().numpy()] = ref["accept_sorted"].cpu().numpy()
+    check(np.array_equal(acc, want),
+          f"sharded phase 1 {name}: accept differs from phase1_device's")
+    tree, crossing, _, group, dirty0, order = phase1_views_np(d, g.m)
+    check(np.array_equal(dirty, dirty0),
+          f"sharded phase 1 {name}: dirty set differs from phase1_device's")
+    if oracle is not None:
+        budget = default_budget(g.n)
+        accepted, _ = recover_device(
+            d["up"], d["depth_t"], g.u, g.v, d["beta"], tree, crossing,
+            order, acc, group, dirty, budget, _bucket_b_cap([budget]),
+            device=dev)
+        check(np.array_equal(tree | accepted.cpu().numpy(), oracle),
+              f"sharded phase 1 {name}: REC over its outputs differs from "
+              f"the baseline")
+    print(f"sharded phase 1 {name} ({SHARDS} shards of cuda:0): accept == "
+          f"phase1_device's"
+          + (", REC over it == baseline" if oracle is not None else "")
+          + f"; wall {wall:.1f} ms against phase1_device {p1_ms:.1f} ms; "
+          f"MARK launches {got['mark']} [clock {sm_clock()}]")
+    return dict(wall_ms=wall, phase1_device_ms=p1_ms, launches=got)
+
+
+def _planner(dev):
+    """The attention-mask planner and both example twins on the card:
+    the plan equal to the CPU's, block_sparse_attention allclose to its
+    CPU run (fp32, rtol = atol = 1e-5). Returns a row."""
+    from repro_torch.examples import batch_sparsify, sparse_attention
+    from repro_torch.sparse import block_sparse_attention, plan_block_mask
+
+    rng = np.random.default_rng(0)
+    B, S, H, D, block = 1, 1024, 4, 64, 32
+    nb = S // block
+    x = rng.standard_normal((B, S, H * D)).astype(np.float32)
+    x[:, 700:732] += x[:, 100:132] * 2.0
+    feats = x[0].reshape(nb, block, -1).mean(1)
+    plan_ms = statistics.median(_walls(
+        lambda: plan_block_mask(feats, keep_frac=0.3, device=dev)))
+    plan = plan_block_mask(feats, keep_frac=0.3, device=dev)
+    check(np.array_equal(plan.mask, plan_block_mask(
+        feats, keep_frac=0.3, device="cpu").mask),
+        "planner: the card's mask differs from the CPU's")
+    q, k, v = (torch.as_tensor(rng.standard_normal((B, S, H, D)),
+                               dtype=torch.float32) for _ in range(3))
+    got = block_sparse_attention(q, k, v, plan.mask, block, device=dev)
+    want = block_sparse_attention(q, k, v, plan.mask, block, device="cpu")
+    err = float((got.cpu() - want).abs().max())
+    check(torch.allclose(got.cpu(), want, rtol=1e-5, atol=1e-5),
+          f"block_sparse_attention: card vs CPU max abs err {err:.3e}")
+    attn_ms = time_cuda(lambda: block_sparse_attention(
+        q, k, v, plan.mask, block, device=dev), iters=10)
+    t0 = time.perf_counter()
+    check(batch_sparsify.main([]), "batch_sparsify twin failed")
+    twin_b = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    out = sparse_attention.main([])
+    twin_s = (time.perf_counter() - t0) * 1e3
+    check(out["connected"] and bool(torch.isfinite(out["out"]).all()),
+          "sparse_attention twin: disconnected mask or non-finite output")
+    print(f"planner S={S} block={block}: mask == CPU's ({plan.kept_edges}/"
+          f"{plan.total_edges} edges kept), {plan_ms:.1f} ms a plan; "
+          f"block_sparse_attention card vs CPU max abs err {err:.3e}, "
+          f"{attn_ms:.3f} ms (events); twins batch_sparsify {twin_b:.1f} ms, "
+          f"sparse_attention {twin_s:.1f} ms [clock {sm_clock()}]")
+    return dict(plan_ms=plan_ms, attention_ms=attn_ms,
+                attention_max_abs_err=err, batch_sparsify_twin_ms=twin_b,
+                sparse_attention_twin_ms=twin_s)
+
+
+def phase_service(dev, graphs, oracles, big):
+    """The layer above the batch: the request stream through
+    SparsifyService in every mode, the planner and the example twins,
+    with the path's launches counted from 0; then the group-sharded
+    phase 1 on case3 and n = 160,000, its MARK launches counted from 0.
+    Returns (service counts, sharded counts, rows)."""
+    from repro_torch.core import baseline_sparsify, lgrass_sparsify
+    from repro_torch.kernels import ops
+
+    distinct, names, budgets = _service_stream(graphs)
+    t0 = time.perf_counter()
+    masks = dict(oracles)
+    for k, g in distinct.items():
+        if k not in masks and g.m:
+            masks[k] = baseline_sparsify(g).edge_mask
+    base_s = time.perf_counter() - t0
+    singles, single_ms = {}, {}
+    for k, b in dict.fromkeys(zip(names, budgets)):
+        g = distinct[k]
+        [single_ms[(k, b)]] = _walls(
+            lambda: singles.__setitem__((k, b), lgrass_sparsify(
+                g, budget=b, device=dev)), 1)
+        if b is None and g.m:
+            check(np.array_equal(singles[(k, b)].edge_mask, masks[k]),
+                  f"service stream: {k}'s single call differs from the "
+                  f"baseline")
+    print(f"service stream: {len(names)} requests over {len(distinct)} "
+          f"graphs, every distinct graph's single call == baseline "
+          f"(new baselines {base_s:.1f} s)")
+    ops.reset_launch_counts()
+    rows = dict(modes=_serve_modes(dev, distinct, names, budgets, singles,
+                                   single_ms))
+    rows["planner"] = _planner(dev)
+    counts = ops.launch_counts()
+    for k in PATH_KERNELS:
+        check(counts[k] > 0, f"service path: no {k} launch")
+    print(f"launches: service path {counts}")
+    rows["sharded case3"] = _sharded_phase1(dev, graphs["case3"], "case3",
+                                            oracles["case3"])
+    rows[f"sharded n={big.n}"] = _sharded_phase1(dev, big, f"n={big.n}",
+                                                 None)
+    # the path's own launches: the two timed calls, not their comparisons
+    sharded = {k: sum(rows[f"sharded {x}"]["launches"][k]
+                      for x in ("case3", f"n={big.n}"))
+               for k in rows["sharded case3"]["launches"]}
+    print(f"launches: sharded path {sharded}")
+    return counts, sharded, rows
 
 
 # -- MARK and REC: the greedy loops as kernels ----------------------------
@@ -2520,11 +2860,18 @@ def main(argv) -> int:
     batch_counts, batch_rows = phase_batch(dev, graphs, masks, big,
                                            big_oracle, single_ms)
     print(f"phase batch: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    svc_counts, sharded_counts, svc_rows = phase_service(dev, graphs, masks,
+                                                         big)
+    print(f"phase service: {time.perf_counter() - t0:.1f} s")
     for k in PATH_KERNELS:
         report[k].update(launches_engines_path=eng_counts[k],
-                         launches_batch_path=batch_counts[k])
+                         launches_batch_path=batch_counts[k],
+                         launches_service_path=svc_counts[k])
+    report["mark"]["launches_sharded_path"] = sharded_counts["mark"]
     print(f"engine and batch numbers: "
           f"{json.dumps(dict(engines=eng_rows, batch=batch_rows))}")
+    print(f"service numbers: {json.dumps(svc_rows)}")
     t0 = time.perf_counter()
     profiled = phase_walls(dev, graphs["case3"], base["case3"].edge_mask,
                            big, big_oracle)

@@ -261,6 +261,27 @@ def lgrass_device(u, v, w, budget: int, n: int, k_cap: int = 32,
                            p1_chunk, use_euler_lca, bfs_engine)
 
 
+def _lgrass_batched(u, v, w, edge_valid, budget, n: int, donate: bool,
+                    **opts) -> dict:
+    """The lane loop of the batched program; with `donate`, each lane's
+    tree mask is written over its `edge_valid` row once the lane is done
+    (later lanes read only their own rows), and the stacked `tree_mask`
+    is `edge_valid` itself."""
+    budgets = [int(b) for b in (budget.tolist() if torch.is_tensor(budget)
+                                else budget)]
+    lanes = []
+    for i in range(u.shape[0]):
+        d = _lgrass_program(u[i], v[i], w[i], budgets[i], n,
+                            edge_valid=edge_valid[i], **opts)
+        if donate:
+            edge_valid[i].copy_(d.pop("tree_mask"))
+        lanes.append(d)
+    out = _stack(lanes)
+    if donate:
+        out["tree_mask"] = edge_valid
+    return out
+
+
 def lgrass_device_batched(u, v, w, edge_valid, budget, n: int,
                           k_cap: int = 32, parallel: bool = True,
                           lift_levels: Optional[int] = None,
@@ -271,30 +292,79 @@ def lgrass_device_batched(u, v, w, edge_valid, budget, n: int,
                           use_euler_lca: bool = True,
                           bfs_engine: str = "doubling") -> dict:
     """`lgrass_device` over a padded batch: (B, L_max) tensors, their
-    padding mask, a (B,) budget vector and the node pad n = n_max. Each
-    lane runs phase 1 and the replay (one MARK and one REC launch on a
-    CUDA device); the outputs are stacked (B, ...)."""
-    budgets = [int(b) for b in budget]
-    return _stack([_lgrass_program(
-        u[i], v[i], w[i], budgets[i], n, k_cap, parallel, lift_levels,
-        b_cap, edge_valid[i], use_tree_kernel, chunk, schedule, p1_chunk,
-        use_euler_lca, bfs_engine) for i in range(u.shape[0])])
+    padding mask, a (B,) budget vector (read on the host: REC takes its
+    budget as a launch argument) and the node pad n = n_max. Each lane
+    runs phase 1 and the replay (one MARK and one REC launch on a CUDA
+    device); the outputs are stacked (B, ...)."""
+    return _lgrass_batched(
+        u, v, w, edge_valid, budget, n, False, k_cap=k_cap,
+        parallel=parallel, lift_levels=lift_levels, b_cap=b_cap,
+        use_tree_kernel=use_tree_kernel, chunk=chunk, schedule=schedule,
+        p1_chunk=p1_chunk, use_euler_lca=use_euler_lca,
+        bfs_engine=bfs_engine)
 
 
-def _result_from_device(d: dict, i: Optional[int], L: int) -> SparsifyResult:
-    """One graph's `SparsifyResult` out of (batched) device outputs."""
+def lgrass_device_batched_donated(u, v, w, edge_valid, budget, n: int,
+                                  k_cap: int = 32, parallel: bool = True,
+                                  lift_levels: Optional[int] = None,
+                                  b_cap: int = B_CAP_FLOOR,
+                                  use_tree_kernel: bool = False,
+                                  chunk: int = 32,
+                                  schedule: str = "chunked",
+                                  p1_chunk: Optional[int] = None,
+                                  use_euler_lca: bool = True,
+                                  bfs_engine: str = "doubling") -> dict:
+    """`lgrass_device_batched` for callers that hand their inputs over
+    (the serving plane's donated mode). The only same-shape, same-dtype
+    input/output pair is edge_valid -> tree_mask, so each lane's tree
+    mask is written into `edge_valid[i]` once lane i is done and the
+    returned `tree_mask` is that storage: the call allocates no (B, L)
+    output mask. Same outputs as the plain form, bit for bit."""
+    return _lgrass_batched(
+        u, v, w, edge_valid, budget, n, True, k_cap=k_cap,
+        parallel=parallel, lift_levels=lift_levels, b_cap=b_cap,
+        use_tree_kernel=use_tree_kernel, chunk=chunk, schedule=schedule,
+        p1_chunk=p1_chunk, use_euler_lca=use_euler_lca,
+        bfs_engine=bfs_engine)
+
+
+_RESULT_STATS = ("n_accepted", "n_groups", "n_overflow_groups", "n_dirty")
+
+
+def results_to_host(d: dict) -> dict:
+    """The result fields of (batched) device outputs as numpy arrays, in
+    one device-to-host copy: the four statistics as int64 and the two
+    masks as bytes, packed on the device first."""
+    stats = torch.stack([d[k].to(torch.int64) for k in _RESULT_STATS])
+    masks = torch.stack([d["tree_mask"], d["accepted"]]).to(torch.uint8)
+    flat = torch.cat([stats.reshape(-1).view(torch.uint8),
+                      masks.reshape(-1)]).cpu().numpy()
+    cut = stats.numel() * 8
+    stats_h = flat[:cut].view(np.int64).reshape(stats.shape)
+    masks_h = flat[cut:].view(bool).reshape(masks.shape)
+    return dict(zip(_RESULT_STATS, stats_h), tree_mask=masks_h[0],
+                accepted=masks_h[1])
+
+
+def _result_from_host(h: dict, i: Optional[int], L: int) -> SparsifyResult:
+    """One graph's `SparsifyResult` out of `results_to_host` arrays."""
     pick = (lambda x: x[i]) if i is not None else (lambda x: x)
-    tree_mask = pick(d["tree_mask"]).cpu().numpy()[:L]
-    accepted = pick(d["accepted"]).cpu().numpy()[:L]
+    tree_mask = pick(h["tree_mask"])[:L]
+    accepted = pick(h["accepted"])[:L]
     return SparsifyResult(
         edge_mask=tree_mask | accepted,
         tree_mask=tree_mask,
         accepted_mask=accepted,
-        n_accepted=int(pick(d["n_accepted"])),
-        n_groups=int(pick(d["n_groups"])),
-        n_overflow_groups=int(pick(d["n_overflow_groups"])),
-        n_dirty=int(pick(d["n_dirty"])),
+        n_accepted=int(pick(h["n_accepted"])),
+        n_groups=int(pick(h["n_groups"])),
+        n_overflow_groups=int(pick(h["n_overflow_groups"])),
+        n_dirty=int(pick(h["n_dirty"])),
     )
+
+
+def _result_from_device(d: dict, i: Optional[int], L: int) -> SparsifyResult:
+    """One graph's `SparsifyResult` out of (batched) device outputs."""
+    return _result_from_host(results_to_host(d), i, L)
 
 
 def _numpy(d: dict) -> dict:
@@ -476,9 +546,10 @@ def lgrass_sparsify_batch(graphs, budget=None, k_cap: int = 32,
             b_cap = _bucket_b_cap(budgets)
         if b_cap < max(budgets):
             raise ValueError(f"b_cap {b_cap} < max budget {max(budgets)}")
-        d = lgrass_device_batched(u, v, w, valid, budgets, batch.n_max,
-                                  b_cap=b_cap, chunk=chunk, **opts)
-        return [_result_from_device(d, i, g.m)
+        h = results_to_host(lgrass_device_batched(
+            u, v, w, valid, budgets, batch.n_max, b_cap=b_cap, chunk=chunk,
+            **opts))
+        return [_result_from_host(h, i, g.m)
                 for i, g in enumerate(batch.graphs)]
     if recovery != "host":
         raise ValueError(f"unknown recovery mode {recovery!r}")
