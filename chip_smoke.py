@@ -79,17 +79,24 @@ Phases, in order; any failed check exits non-zero:
      fp32, internlm2-20b's GQA ratio, granite's d = 64 GQA, hubert's
      d = 80 (the mma.sync route), a window, ragged Sq != Sk, -1 padding
      with query rows that see no key (also over more work items than
-     SMs), and one query against a full and a ring cache; the route's
-     kernel timed at the phi3 prefill shape beside the plain version,
-     F.scaled_dot_product_attention and the bound; then phi3-mini-3.8b
-     at full width and depth 2 in fp32, the card against the CPU
-     (prefill and three decode steps); then the serving run: phi3 at
-     full width and depth in bf16, `generate` on 4 prompts of 2,048
-     tokens with 32 new tokens, twice (equal tokens, bit-equal logits),
-     32 flash launches per prefill, all through the wgmma kernel, the
-     serving contract (prefill +
-     decode against the full forward) and prefill, decode and profile
-     times;
+     SMs), one query against a full and a ring cache, and the served
+     families' prefill shapes (minicpm3: 40 heads at d = 96, v
+     zero-padded from 64; hymba: 25/5 GQA at d = 64, with a window of
+     1,024 and without); the route's kernel timed at the phi3 prefill
+     shape and at the families' three beside the plain version,
+     F.scaled_dot_product_attention on the same tensors (GQA by
+     `enable_gqa`, a window as a boolean mask) and the bound; then
+     phi3-mini-3.8b at full width and depth 2 in fp32, the card against
+     the CPU (prefill and three decode steps); then the serving run:
+     phi3 at full width and depth in bf16, `generate` on 4 prompts of
+     2,048 tokens with 32 new tokens, twice (equal tokens, bit-equal
+     logits), 32 flash launches per prefill, all through the wgmma
+     kernel, the serving contract (prefill + decode against the full
+     forward) and prefill, decode and profile times; then the same
+     depth-2 parity and serving run (one timed run of the serving steps)
+     for minicpm3-4b (MLA, 62 flash launches per prefill), mamba2-370m
+     (SSD, none) and hymba-1.5b (GQA with windows in parallel with the
+     SSM, 32), each model freed before the next is built;
   7. engines: the reference's other engines of `lgrass_sparsify` on the
      card, on case1-3 and feeder4k: bfs_engine="levels", recovery="host",
      auto_lift_bound=True, use_euler_lca=False (the kernels' lifting
@@ -142,8 +149,9 @@ wrapper's calls over the whole run of its path (the four graphs of the
 default path for radix_hist, mark and rec; the four graphs of the
 use_tree_kernel path for tree_dist, 0 since MARK and REC run its climb
 inside themselves; the quality path for laplacian_spmv; the entry's five shapes for
-bitmap_intersect; one `generate` call of the serving run for
-flash_attention), `launches_per_graph` splits that count by graph
+bitmap_intersect; one `generate` call of phi3's serving run for
+flash_attention, whose `launches_per_prefill` also gives each served
+family's), `launches_per_graph` splits that count by graph
 (by estimator call, or by shape), and `cuda_kernels_per_launch` says how
 many CUDA kernels one wrapper call enqueues. radix_hist, mark and rec
 also carry `launches_engines_path`, `launches_batch_path` and
@@ -2235,6 +2243,9 @@ def phase_quality(dev, graphs):
 # -- phase 6: the LM serving path -----------------------------------------
 
 LM_ARCH = "phi3-mini-3.8b"
+# the MLA, SSM and hybrid families, served after phi3
+LM_FAMILIES = ("minicpm3-4b", "mamba2-370m", "hymba-1.5b")
+FAMILY_TIMED_CALLS = 1   # their timed runs of the serving steps
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 2048, 32
 PARITY_DEPTH, PARITY_BATCH, PARITY_PROMPT = 2, 2, 256
 F32_TOL = 2e-5  # atol = rtol, the reference's own kernel tests
@@ -2285,14 +2296,34 @@ def _flash_cases():
                                       None, True, None),
         "hubert d80 bidirectional bf16": (2, 1000, 1000, 16, 16, 80, bf,
                                           None, None, False, None),
+        # the served families' prefill shapes: MLA's q/k head dim 64 + 32
+        # with v zero-padded from 64 (FLASH_V_DIM); hymba's 25/5 GQA at
+        # d = 64 on its windowed layers and on its global ones
+        "minicpm3 prefill bf16": (4, 2048, 2048, 40, 40, 96, bf, None, None,
+                                  True, None),
+        "hymba prefill bf16 window 1024": (4, 2048, 2048, 25, 5, 64, bf,
+                                           None, None, True, 1024),
+        "hymba prefill bf16 global": (4, 2048, 2048, 25, 5, 64, bf, None,
+                                      None, True, None),
     }
 
 
-def _flash_inputs(dev, case, seed):
-    b, sq, sk, h, kv, d, dt, qpos, kpos, causal, window = case
+# cases whose v holds zeros past this column, as MLA pads it
+FLASH_V_DIM = {"minicpm3 prefill bf16": 64}
+# the served families' flash shapes, timed beside SDPA and the bound
+FAMILY_FLASH_CASES = ("minicpm3 prefill bf16",
+                      "hymba prefill bf16 window 1024",
+                      "hymba prefill bf16 global")
+
+
+def _flash_inputs(dev, name, seed):
+    b, sq, sk, h, kv, d, dt, qpos, kpos, causal, window = \
+        _flash_cases()[name]
     g = torch.Generator(dev).manual_seed(seed)
     q, k, v = (torch.randn(shape, generator=g, device=dev).to(dt)
                for shape in ((b, sq, h, d), (b, sk, kv, d), (b, sk, kv, d)))
+    if name in FLASH_V_DIM:
+        v[..., FLASH_V_DIM[name]:] = 0
     qp = torch.as_tensor(np.arange(sq) if qpos is None else qpos,
                          dtype=torch.int32, device=dev)
     kp = torch.as_tensor(np.arange(sk) if kpos is None else kpos,
@@ -2320,7 +2351,7 @@ def _check_flash(dev):
 
     errors = {}
     for i, (name, case) in enumerate(_flash_cases().items()):
-        args = _flash_inputs(dev, case, seed=100 + i)
+        args = _flash_inputs(dev, name, seed=100 + i)
         route = fa.cuda_route(case[6], case[5])
         got = fa.flash_attention_cuda(*args)
         torch.cuda.synchronize()
@@ -2348,19 +2379,23 @@ def _check_flash(dev):
 
 def _time_flash(dev, name):
     """The kernel its route picks at one case: CUDA-event and device time
-    beside the plain version, F.scaled_dot_product_attention and the
+    beside the plain version, F.scaled_dot_product_attention on the same
+    tensors (GQA by `enable_gqa`, a window as a boolean mask) and the
     bound."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
 
-    q, k, v, qp, kp, causal, window = args = _flash_inputs(
-        dev, _flash_cases()[name], seed=7)
-    check(window is None and causal and torch.equal(qp, kp),
+    q, k, v, qp, kp, causal, window = args = _flash_inputs(dev, name, seed=7)
+    check(causal and torch.equal(qp, kp),
           "the SDPA yardstick takes a causal square case")
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    how = dict(is_causal=True) if window is None else dict(
+        attn_mask=fa.visible_mask(qp, kp, True, window))
+    if k.shape[2] != q.shape[2]:
+        how["enable_gqa"] = True
     sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
-        qt, kt, vt, is_causal=True)
+        qt, kt, vt, **how)
     lib_diff = float((sdpa().transpose(1, 2).float()
                       - fa.flash_attention_cuda(*args).float()).abs().max())
     b_ms, b_by = _flash_bound(*args)
@@ -2376,28 +2411,33 @@ def _time_flash(dev, name):
         library_max_abs_diff=lib_diff,
         bound_ms=b_ms, bound_by=b_by, kernel_route=route,
         cuda_kernel=f"{fa.ROUTES[route]}<{q.shape[3]}>",
-        at=f"B={q.shape[0]} S={q.shape[1]} H={q.shape[2]} d={q.shape[3]} "
-           f"{str(q.dtype).replace('torch.', '')} causal")
-    # SDPA's kernel (cuDNN's or PyTorch's own flash kernel) by the same
-    # method; None where the trace names neither
+        at=f"B={q.shape[0]} S={q.shape[1]} H={q.shape[2]} Kv={k.shape[2]} "
+           f"d={q.shape[3]} {str(q.dtype).replace('torch.', '')} causal"
+           + ("" if window is None else f" window {window}"),
+        library_call=("F.scaled_dot_product_attention("
+                      + ", ".join(sorted(how)) + ")"))
+    # SDPA's kernel (cuDNN's, PyTorch's own flash or memory-efficient
+    # kernel) by the same method; None where the trace names none
     t["library_device_ms"], lib_kernels = device_profile(
-        sdpa, ("sdpa", "flash_fwd", "fmha"), iters=10, required=False)
+        sdpa, ("sdpa", "flash_fwd", "fmha", "efficient_attention"),
+        iters=10, required=False)
     t["library_kernels"] = sorted(lib_kernels)
     return t
 
 
-def _parity_depth2(dev):
-    """phi3 at full width and depth 2 in fp32, weights drawn on a CPU
+def _parity_depth2(dev, arch=LM_ARCH):
+    """`arch` at full width and depth 2 in fp32, weights drawn on a CPU
     generator: the card against the CPU, prefill's last logits and three
     decode steps fed the same (the CPU's greedy) tokens. Returns the max
-    abs difference and the card run's flash launches."""
+    abs difference and the card run's flash launches (one per attention
+    layer)."""
     import dataclasses
 
     from repro_torch.configs import get_arch
     from repro_torch.kernels import ops
     from repro_torch.models.model import LM
 
-    cfg = dataclasses.replace(get_arch(LM_ARCH), n_layers=PARITY_DEPTH,
+    cfg = dataclasses.replace(get_arch(arch), n_layers=PARITY_DEPTH,
                               dtype="float32")
     cpu = LM(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
     gpu = LM(cfg, device=dev)
@@ -2426,12 +2466,13 @@ def _parity_depth2(dev):
         diff = float((a - b).abs().max())
         worst = max(worst, diff)
         ok = torch.allclose(b, a, atol=1e-4, rtol=1e-4)
-        print(f"lm parity {LM_ARCH} depth {PARITY_DEPTH} fp32 {what}: max abs "
+        print(f"lm parity {arch} depth {PARITY_DEPTH} fp32 {what}: max abs "
               f"diff card vs CPU {diff:.3e} (|logit| max "
               f"{float(a.abs().max()):.2f}), allclose 1e-4 {ok}")
         check(ok, f"lm parity: card and CPU differ at {what}")
-    check(launches == PARITY_DEPTH,
-          f"lm parity: {launches} flash launches on the card's prefill")
+    want = PARITY_DEPTH if cfg.has_attention else 0
+    check(launches == want, f"lm parity {arch}: {launches} flash launches "
+          f"on the card's prefill, not {want}")
     return worst, launches
 
 
@@ -2521,7 +2562,8 @@ def _flash_on_path_inputs(model, prompt, max_len):
     wrapped, seen = ops.flash_attention, []
 
     def catch(*args, **kwargs):
-        seen.append((args, kwargs))
+        if not seen:  # holding every layer's inputs would raise the peak
+            seen.append((args, kwargs))
         return wrapped(*args, **kwargs)
 
     ops.flash_attention = catch
@@ -2539,16 +2581,21 @@ def _flash_on_path_inputs(model, prompt, max_len):
                 strides=[list(x.stride()) for x in args[:3]])
 
 
-def _serve(dev):
-    """The serving run at full width and depth in bf16. Returns the flash
-    launches of one `generate` call and the run's numbers."""
+def _serve(dev, arch=LM_ARCH, timed=TIMED_CALLS):
+    """The serving run of `arch` at full width and depth in bf16, weights
+    drawn on the card. Returns the flash launches of one `generate` call
+    (one per attention layer, all through the route of the bf16 head dim)
+    and the run's numbers."""
     from repro_torch.configs import get_arch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.models.model import LM
     from repro_torch.serve.serve_step import generate
 
-    cfg = get_arch(LM_ARCH)
+    cfg = get_arch(arch)
+    per_prefill = cfg.n_layers if cfg.has_attention else 0
+    head_dim = (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+                if cfg.attn_type == "mla" else cfg.resolved_head_dim)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = LM(cfg, generator=torch.Generator(dev).manual_seed(0),
@@ -2570,32 +2617,34 @@ def _serve(dev):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = ops.launch_counts()
-        print(f"lm serve {LM_ARCH} B={SERVE_BATCH} S={SERVE_PROMPT} new="
+        print(f"lm serve {arch} B={SERVE_BATCH} S={SERVE_PROMPT} new="
               f"{SERVE_NEW}: generate {wall:.2f} s, launches {counts}")
-        check(counts["flash_attention"] == cfg.n_layers,
-              f"generate made {counts['flash_attention']} flash launches, "
-              f"not {cfg.n_layers} (one per layer of the prefill)")
+        check(counts["flash_attention"] == per_prefill,
+              f"{arch}: generate made {counts['flash_attention']} flash "
+              f"launches, not {per_prefill} (one per attention layer of the "
+              f"prefill)")
         check(sum(counts.values()) == counts["flash_attention"],
-              "generate launched another kernel of the port")
+              f"{arch}: generate launched another kernel of the port")
         routes = dict(fa.launches)
-        want = fa.cuda_route(torch.bfloat16, cfg.resolved_head_dim)
-        check(routes[want] == cfg.n_layers,
-              f"generate's flash launches by route {routes}, not "
-              f"{cfg.n_layers} through {want}")
+        if per_prefill:
+            want = fa.cuda_route(torch.bfloat16, head_dim)
+            check(routes[want] == per_prefill,
+                  f"{arch}: generate's flash launches by route {routes}, not "
+                  f"{per_prefill} through {want}")
         runs.append((toks, wall, counts["flash_attention"], routes))
     (toks, gen_s, launches, routes), (toks2, gen2_s, _, _) = runs
     check(toks.shape == (SERVE_BATCH, SERVE_NEW), f"tokens {toks.shape}")
     check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
           "a token outside the vocabulary")
-    check(torch.equal(toks, toks2), "two generate runs differ")
+    check(torch.equal(toks, toks2), f"{arch}: two generate runs differ")
 
     # the same loop through the serving steps, for its logits and times:
-    # a warm-up run, then TIMED_CALLS runs; each the tokens of generate
+    # a warm-up run, then `timed` runs; each the tokens of generate
     steps = []
-    for _ in range(1 + TIMED_CALLS):
+    for _ in range(1 + timed):
         ops.reset_launch_counts()
         steps.append(_run_steps(model, prompt, max_len))
-        check(ops.launch_counts()["flash_attention"] == cfg.n_layers,
+        check(ops.launch_counts()["flash_attention"] == per_prefill,
               "the serving steps made another number of flash launches")
     logits = steps[0][1]
     check(bool(torch.isfinite(logits).all()), "serving logits not finite")
@@ -2613,20 +2662,23 @@ def _serve(dev):
     a, b = full.float(), logits[:, 1].float()
     rel = float(torch.linalg.vector_norm(a - b)
                 / torch.linalg.vector_norm(a))
-    print(f"lm serve contract: decode logits at position {SERVE_PROMPT} vs "
-          f"the full forward over {SERVE_PROMPT + 1} tokens: relative L2 "
-          f"{rel:.4e} (limit 5e-2), max abs {float((a - b).abs().max()):.4e}"
-          f", greedy tokens equal {bool(torch.equal(a.argmax(-1), b.argmax(-1)))}")
-    check(rel <= 5e-2, f"serving contract: relative L2 {rel}")
+    print(f"lm serve contract {arch}: decode logits at position "
+          f"{SERVE_PROMPT} vs the full forward over {SERVE_PROMPT + 1} "
+          f"tokens: relative L2 {rel:.4e} (limit 5e-2), max abs "
+          f"{float((a - b).abs().max()):.4e}, greedy tokens equal "
+          f"{bool(torch.equal(a.argmax(-1), b.argmax(-1)))}")
+    check(rel <= 5e-2, f"serving contract {arch}: relative L2 {rel}")
 
     prof_prefill, prof_decode = _profile_serving(model, prompt, max_len)
-    on_path = _flash_on_path_inputs(model, prompt, max_len)
-    on_path["profile_prefill_ms_per_launch"] = (prof_prefill["flash"]
-                                                / cfg.n_layers)
-    print(f"lm flash per launch: {on_path}")
+    on_path = None
+    if per_prefill:
+        on_path = _flash_on_path_inputs(model, prompt, max_len)
+        on_path["profile_prefill_ms_per_launch"] = (prof_prefill["flash"]
+                                                    / per_prefill)
+        print(f"lm flash per launch {arch}: {on_path}")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     numbers = dict(
-        arch=LM_ARCH, params=n_params, batch=SERVE_BATCH,
+        arch=arch, params=n_params, batch=SERVE_BATCH,
         prompt=SERVE_PROMPT, new_tokens=SERVE_NEW, init_s=init_s,
         generate_s=[gen_s, gen2_s], prefill_ms=prefill_ms,
         prefill_tok_per_s=SERVE_BATCH * SERVE_PROMPT / prefill_ms * 1e3,
@@ -2636,6 +2688,11 @@ def _serve(dev):
         flash_on_path=on_path,
         prefill_profile_ms=prof_prefill, decode_profile_ms=prof_decode)
     numbers["flash_launches_by_route"] = routes
+    print(f"lm serve {arch}: {n_params / 1e9:.3f} B params, prefill "
+          f"{prefill_ms:.1f} ms ({numbers['prefill_tok_per_s']:.0f} tok/s), "
+          f"decode {decode_ms:.2f} ms a step "
+          f"({numbers['decode_tok_per_s']:.1f} tok/s), peak memory "
+          f"{peak_gb:.2f} GB")
     print(f"lm serve numbers: {json.dumps(numbers)}")
     return launches, numbers
 
@@ -2703,8 +2760,10 @@ def _flash_sass() -> dict:
 
 
 def phase_lm(dev):
-    """Kernel checks and times, the depth-2 parity, then the serving run.
-    Returns the flash_attention entry of the kernels line."""
+    """Kernel checks and times, the depth-2 parity, then the serving run;
+    then each of LM_FAMILIES: its depth-2 parity and its serving run, each
+    model freed before the next is built. Returns the flash_attention
+    entry of the kernels line."""
     from repro_torch.kernels import ops
 
     build_report = _flash_build_report()
@@ -2714,10 +2773,35 @@ def phase_lm(dev):
     timing32 = _time_flash(dev, "phi3 prefill fp32")
     print(f"flash_attention timings {timing['at']}: {timing}")
     print(f"flash_attention timings {timing32['at']}: {timing32}")
+    t0 = time.perf_counter()
+    family_timings = {}
+    for name in FAMILY_FLASH_CASES:
+        family_timings[name] = _time_flash(dev, name)
+        print(f"flash_attention timings {name} "
+              f"{family_timings[name]['at']}: {family_timings[name]}")
+    print(f"lm family flash timings: {time.perf_counter() - t0:.1f} s")
     ops.reset_launch_counts()  # the checks above are not the main path
     parity_diff, parity_launches = _parity_depth2(dev)
     launches, numbers = _serve(dev)
+    families = {}
+    for arch in LM_FAMILIES:
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        diff, par_launches = _parity_depth2(dev, arch)
+        print(f"lm parity {arch} wall: {time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        fam_launches, fam_numbers = _serve(dev, arch, FAMILY_TIMED_CALLS)
+        print(f"lm serve {arch} wall: {time.perf_counter() - t0:.1f} s")
+        families[arch] = dict(launches_per_prefill=fam_launches,
+                              parity_depth2_max_abs_diff=diff,
+                              parity_depth2_launches=par_launches,
+                              serve=fam_numbers)
+    torch.cuda.empty_cache()
     bf16_errs = [e for n, e in errors.items() if "fp32" not in n]
+    per_prefill = {LM_ARCH: launches}
+    per_prefill.update({a: f["launches_per_prefill"]
+                        for a, f in families.items()})
     return dict(
         name="flash_attention", route="cuda",
         source="src/repro_torch/csrc/flash_attention_sm90.cu",
@@ -2728,11 +2812,14 @@ def phase_lm(dev):
         build=build_report, sass=sass,
         replaces="src/repro/kernels/flash_attention.py:72",
         launches=launches, launches_per_graph={"prefill": launches},
+        launches_per_prefill=per_prefill,
         cuda_kernels_per_launch=1, max_abs_err=max(bf16_errs),
         max_abs_err_fp32=max(e for n, e in errors.items() if "fp32" in n),
         max_abs_err_per_case=errors, **timing, fp32=timing32,
+        family_shapes=family_timings,
         parity_depth2_max_abs_diff=parity_diff,
-        parity_depth2_launches=parity_launches, serve=numbers)
+        parity_depth2_launches=parity_launches, serve=numbers,
+        families=families)
 
 
 def phase_profile(dev, graphs, out_dir):

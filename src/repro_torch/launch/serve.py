@@ -5,8 +5,12 @@
     python -m repro_torch.launch.serve --arch phi3-mini-3.8b --reduced \
         --device cpu --batch 2 --prompt-len 16 --max-new 8
 
-Runs on the CUDA device unless `--device cpu` is given, and raises
-without a card otherwise. The weights are drawn from `--seed` on the
+`--arch` takes every decoder family the port serves: the dense GQA ones
+(phi3-mini-3.8b, starcoder2-15b, internlm2-20b, chameleon-34b), MLA
+(minicpm3-4b), the SSM (mamba2-370m) and the hybrid with sliding windows
+(hymba-1.5b); MoE and the encoder raise NotImplementedError. Runs on the
+CUDA device unless `--device cpu` is given, and raises without a card
+otherwise. The weights are drawn from `--seed` on the
 device; the prompt from the same seed with numpy.
 """
 import argparse

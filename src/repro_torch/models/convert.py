@@ -8,11 +8,14 @@ anything `np.asarray` reads) into the state dict of
   * the `scan` layout's stacked layers (a leading layer axis on every
     leaf) are unstacked into `layers.<i>.*`; the `unroll` layout's list
     is taken as it is;
-  * matmul weights and the embedding are stored in the activation dtype,
-    norm scales in float32. The reference keeps float32 params and casts
-    each to the activation dtype where it is used (`.astype(dt)`); the
-    port casts once here, which computes the same thing at half the
-    memory in bf16 (7.6 GB rather than 15.3 GB for phi3-mini-3.8b);
+  * each leaf is stored in the dtype the reference reads it in
+    (`leaf_dtype`). The reference keeps float32 params and casts each
+    where it is used: matmul weights, the embedding and the SSM's conv_w,
+    conv_b and D to the activation dtype (`.astype(dt)`), which the port
+    does once here, computing the same thing at half the memory in bf16
+    (7.6 GB rather than 15.3 GB for phi3-mini-3.8b); the norm scales
+    (`*norm`), A_log and dt_bias to float32, so they stay float32 (in
+    bf16 a rounded A_log or dt_bias would change softplus and exp);
   * fused weights (`wqkv`, `wig`, from the reference's `fused_qkv`
     optimisation) are refused: the port has the unfused layout only.
 
@@ -33,6 +36,16 @@ from repro_torch.models.layers import act_dtype
 from repro_torch.models.model import LM
 
 FUSED = ("wqkv", "wig")
+# leaves the reference reads in float32 besides the norm scales
+FP32_LEAVES = ("A_log", "dt_bias")
+
+
+def leaf_dtype(name: str, act: torch.dtype) -> torch.dtype:
+    """The dtype the reference reads the leaf `name` in: float32 for the
+    norm scales (`*norm`) and FP32_LEAVES, else `act`."""
+    leaf = name.rsplit(".", 1)[-1]
+    return torch.float32 if (leaf.endswith("norm")
+                             or leaf in FP32_LEAVES) else act
 
 
 def _leaves(tree: Any, prefix: str) -> Iterator[Tuple[str, Any]]:
@@ -63,7 +76,7 @@ def reference_state_dict(cfg: ArchConfig,
             raise ValueError(f"{name}: fused weights are not ported; build "
                              f"the reference without 'fused_qkv'")
         t = torch.from_numpy(np.array(x, dtype=np.float32))
-        return t if name.endswith("norm") else t.to(dt)
+        return t.to(leaf_dtype(name, dt))
 
     flat = {name: x for name, x in _leaves(
         {k: v for k, v in params.items() if k != "layers"}, "")}

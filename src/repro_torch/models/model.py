@@ -1,9 +1,11 @@
-"""Model assembly of the port: the dense GQA decoder LM as an `nn.Module`.
+"""Model assembly of the port: the decoder LMs as an `nn.Module`.
 
-The port of `repro.models.model.LM` for the families this slice serves:
-decoders with GQA attention (any head ratio, RoPE, optional sliding
-window) and a SwiGLU or GELU MLP — phi3, starcoder2, internlm2 and
-chameleon. Its surface:
+The port of `repro.models.model.LM` for the families this package
+serves: decoders with GQA attention (any head ratio, RoPE, optional
+sliding window) and a SwiGLU or GELU MLP (phi3, starcoder2, internlm2,
+chameleon); MLA attention with an MLP (minicpm3); the Mamba2/SSD layer
+alone (mamba2); and the hybrid block of parallel GQA and SSM heads with
+per-layer sliding windows (hymba). Its surface:
 
     LM(cfg, generator=g)            weights drawn from g, on the card
     LM(cfg, generator=g, device=d)  weights drawn from g, placed on d
@@ -15,13 +17,16 @@ chameleon. Its surface:
     decode_step(tok, pos, caches)   -> (logits (B, V), caches)
 
 Parameter names are the reference's pytree paths ("embedding",
-"layers.3.attn.wq", ...), and shapes its layouts. Matmul weights and the
-embedding are kept in the activation dtype, norm scales in float32.
-The reference's `scan` and `unroll` layouts are both a `ModuleList` of
-layers; what the layout still decides is the reference's window rule
-(`scan` gives every layer `cfg.sliding_window`). Training's loss waits
-for the training slice. The families the slice does not port raise
-NotImplementedError.
+"layers.3.attn.wq", "layers.3.attn.kv_b", "layers.3.ssm.A_log", ...), and
+shapes its layouts. A layer's cache is the reference's too: {"attn": ...}
+and / or {"ssm": ...}. Matmul weights, the embedding and the SSM's conv_b
+and D are kept in the activation dtype; what the reference reads in
+float32 (norm scales, A_log, dt_bias) stays float32. The reference's
+`scan` and `unroll` layouts are both a `ModuleList` of layers; what the
+layout still decides is the reference's window rule (`scan` gives every
+layer `cfg.sliding_window`; hymba, the one config with a window, is
+`unroll`). Training's loss waits for the training slice. MoE and the
+encoder with its audio frontend raise NotImplementedError.
 
 The model lives on the CUDA device unless `device` asks for another
 (`core.sparsify.resolve_device`): without a card the default raises, and
@@ -38,26 +43,21 @@ from torch import nn
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.sparsify import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import ssm
 from repro_torch.models.layers import (act_dtype, embed_tokens, init_mlp,
                                        init_normal, lm_logits, mlp, rms_scale,
                                        rmsnorm)
 
-# where the families this slice leaves out will be ported
-_LATER = "ROADMAP.md Queue 1 item 16 (the LM modules still to port)"
+# where the families not ported yet wait
+_LATER = "ROADMAP.md Queue 1, \"The rest of the LM stack\""
 
 
 def unsupported_reason(cfg: ArchConfig) -> Optional[str]:
     """Why the port cannot build `cfg` yet, or None."""
     if cfg.is_encoder or cfg.frontend == "audio":
         return f"{cfg.name}: the encoder and its audio frontend"
-    if cfg.attn_type == "mla":
-        return f"{cfg.name}: MLA attention"
-    if cfg.has_ssm:
-        return f"{cfg.name}: SSM layers"
     if cfg.is_moe:
         return f"{cfg.name}: MoE layers"
-    if not cfg.has_attention:
-        return f"{cfg.name}: a model without attention"
     return None
 
 
@@ -78,36 +78,76 @@ def _param(x: torch.Tensor) -> nn.Parameter:
 
 
 class Block(nn.Module):
-    """One pre-norm decoder layer: x + attn(norm x), then + mlp(norm x)."""
+    """One pre-norm layer, the reference's `_block`: x + mixer(norm x),
+    then + mlp(norm x) where d_ff > 0. The mixer is attention (GQA or
+    MLA), the SSM, or both in parallel on one normed input, averaged
+    (hybrid)."""
 
     def __init__(self, cfg: ArchConfig, dtype: torch.dtype,
                  generator: Optional[torch.Generator], device):
         super().__init__()
         dev = generator.device if generator is not None else device
-        self.attn_norm = _param(rms_scale(cfg.d_model, dev))
-        self.attn = _params(attn.init_gqa(cfg, dtype, generator, dev))
+        if cfg.has_attention:
+            self.attn_norm = _param(rms_scale(cfg.d_model, dev))
+            init = attn.init_mla if cfg.attn_type == "mla" else attn.init_gqa
+            self.attn = _params(init(cfg, dtype, generator, dev))
+        if cfg.has_ssm:
+            # built for the hybrid too, which normalises with attn_norm
+            self.ssm_norm = _param(rms_scale(cfg.d_model, dev))
+            self.ssm = _params(ssm.init_ssm(cfg, dtype, generator, dev))
         self.has_mlp = cfg.d_ff > 0
         if self.has_mlp:
             self.mlp_norm = _param(rms_scale(cfg.d_model, dev))
             self.mlp = _params(init_mlp(cfg.d_model, cfg.d_ff, cfg.act,
                                         dtype, generator, dev))
 
+    def _attention(self, cfg, h_in, positions, window, mode, cache, pos):
+        if cfg.attn_type == "mla":
+            if mode == "decode":
+                return attn.mla_decode(self.attn, cfg, h_in, pos,
+                                       cache["attn"])[0]
+            y = attn.mla_attention(self.attn, cfg, h_in, positions,
+                                   causal=True)
+            if mode == "prefill":
+                attn.mla_fill_cache(self.attn, cfg, h_in, positions,
+                                    cache["attn"])
+            return y
+        if mode == "decode":
+            return attn.gqa_decode(self.attn, cfg, h_in, pos, cache["attn"],
+                                   window)[0]
+        y = attn.gqa_attention(self.attn, cfg, h_in, positions, causal=True,
+                               window=window)
+        if mode == "prefill":
+            attn.gqa_fill_cache(self.attn, cfg, h_in, positions,
+                                cache["attn"], window)
+        return y
+
+    def _ssm(self, cfg, h_in, mode, cache):
+        if mode == "decode":
+            return ssm.ssm_decode(self.ssm, cfg, h_in, cache["ssm"])[0]
+        if mode == "prefill":
+            y, state = ssm.ssm_forward(self.ssm, cfg, h_in, return_state=True)
+            ssm.ssm_fill_cache(cache["ssm"], state)
+            return y
+        return ssm.ssm_forward(self.ssm, cfg, h_in)
+
     def run(self, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor,
             window: Optional[int], mode: str, cache: Optional[Dict] = None,
             pos: Optional[int] = None) -> Tuple[torch.Tensor, Optional[Dict]]:
-        """mode: 'train' (full sequence), 'prefill' (also fills `cache`)
-        or 'decode' (one token at `pos` against `cache`)."""
-        h_in = rmsnorm(x, self.attn_norm, cfg.norm_eps)
-        if mode == "decode":
-            y, cache = attn.gqa_decode(self.attn, cfg, h_in, pos, cache,
-                                       window)
-        else:
-            y = attn.gqa_attention(self.attn, cfg, h_in, positions,
-                                   causal=True, window=window)
-            if mode == "prefill":
-                cache = attn.gqa_fill_cache(self.attn, cfg, h_in, positions,
-                                            cache, window)
-        x = x + y
+        """mode: 'train' (full sequence), 'prefill' (also fills `cache`,
+        in place) or 'decode' (one token at `pos` against `cache`)."""
+        args = (positions, window, mode, cache, pos)
+        if cfg.has_attention and cfg.has_ssm:   # hybrid: parallel heads
+            h_in = rmsnorm(x, self.attn_norm, cfg.norm_eps)
+            a = self._attention(cfg, h_in, *args)
+            s = self._ssm(cfg, h_in, mode, cache)
+            x = x + 0.5 * (a + s)
+        elif cfg.has_attention:
+            h_in = rmsnorm(x, self.attn_norm, cfg.norm_eps)
+            x = x + self._attention(cfg, h_in, *args)
+        else:                                    # pure SSM
+            h_in = rmsnorm(x, self.ssm_norm, cfg.norm_eps)
+            x = x + self._ssm(cfg, h_in, mode, cache)
         if self.has_mlp:
             x = x + mlp(self.mlp, rmsnorm(x, self.mlp_norm, cfg.norm_eps),
                         cfg.act)
@@ -115,7 +155,7 @@ class Block(nn.Module):
 
 
 class LM(nn.Module):
-    """A dense GQA decoder LM (see the module docstring)."""
+    """A decoder LM (see the module docstring)."""
 
     def __init__(self, cfg: ArchConfig,
                  generator: Optional[torch.Generator] = None, device=None):
@@ -153,10 +193,24 @@ class LM(nn.Module):
 
     # ---------- serve ----------
     def init_caches(self, batch: int, max_len: int) -> List[Dict[str, Any]]:
-        return [attn.init_gqa_cache(self.cfg, batch, max_len,
-                                    layer_window(self.cfg, i), self.dtype,
-                                    self.device)
-                for i in range(self.cfg.n_layers)]
+        """Each layer's family's cache: GQA's full or ring cache (by
+        `layer_window`), MLA's latent cache, the SSM's state and conv
+        window."""
+        cfg, dt, dev = self.cfg, self.dtype, self.device
+
+        def one(i: int) -> Dict[str, Any]:
+            c: Dict[str, Any] = {}
+            if cfg.has_attention:
+                c["attn"] = (attn.init_mla_cache(cfg, batch, max_len, dt, dev)
+                             if cfg.attn_type == "mla" else
+                             attn.init_gqa_cache(cfg, batch, max_len,
+                                                 layer_window(cfg, i), dt,
+                                                 dev))
+            if cfg.has_ssm:
+                c["ssm"] = ssm.init_ssm_cache(cfg, batch, dt, dev)
+            return c
+
+        return [one(i) for i in range(cfg.n_layers)]
 
     def prefill(self, tokens: torch.Tensor, caches: List[Dict]
                 ) -> Tuple[torch.Tensor, List[Dict]]:

@@ -1,10 +1,11 @@
 """Serving steps of the port: batched prefill and single-token greedy
-decode with persistent KV caches.
+decode with persistent caches (KV, MLA's latent, the SSM's state).
 
 The port of `repro.serve.serve_step`. The model holds its weights (an
 `nn.Module`), so the steps take no `params`; a position is a Python int.
 On a CUDA model every prefill runs the flash-attention kernel once per
-layer (`kernels/ops.py` counts the launches); decode is plain torch.
+attention layer (GQA or MLA; none for an SSM layer; `kernels/ops.py`
+counts the launches); decode is plain torch.
 """
 from __future__ import annotations
 

@@ -446,6 +446,8 @@ def test_kernel_arg_checks_refuse_what_the_kernel_does_not_take():
     pos = torch.arange(8, dtype=torch.int32)
     bad = {
         "head dim 24": (torch.zeros(1, 8, 2, 24), torch.zeros(1, 8, 2, 24)),
+        # the reduced minicpm3's MLA: 8 + 4
+        "head dim 12": (torch.zeros(1, 8, 2, 12), torch.zeros(1, 8, 2, 12)),
         "float16": (torch.zeros(1, 8, 2, 16, dtype=torch.float16),
                     torch.zeros(1, 8, 2, 16, dtype=torch.float16)),
         "heads 3 over kv 2": (torch.zeros(1, 8, 3, 16),

@@ -3,56 +3,47 @@
 Configs, layer functions, GQA attention (against the reference's jnp path
 and its Pallas kernel in interpret mode), the KV cache, and whole reduced
 models (phi3-mini-3.8b: SwiGLU, MHA; starcoder2-15b: GELU, GQA reduced to
-MQA) with the reference's weights carried across by `models/convert.py`.
-Inputs are made with numpy from a seed and go through both packages.
-
-Tolerances, each with its reason:
-  * layer functions: atol = rtol = 1e-5 (float32, the same arithmetic;
-    only the order of a sum of up to 48 products, or a transcendental's
-    last ulp, differs);
-  * attention and model logits: atol = rtol = 1e-4 (float32 sums of
-    64-128 products per matmul over two layers, in another order);
-  * prefill + decode against the full forward: 5e-5, the reference's own
-    bound (tests/test_serve.py).
+MQA) with the reference's weights carried across by `models/convert.py`;
+the carry-across, the port's own init and the full-size shapes of every
+family served (MLA, SSM and hybrid included; their layers and models are
+held in `test_torch_{mla,ssm,families}.py`). Inputs are made with numpy
+from a seed and go through both packages; tolerances are `_torch_lm`'s.
 The `cuda` tests hold the model on the card against the CPU and skip here.
 """
 import dataclasses
-import types
 
 import numpy as np
 import pytest
 import torch
 
+from _torch_lm import (LAYER_TOL, MODEL_TOL, SERVE_TOL, reference_lm)
+from _torch_lm import close as _close
+from _torch_lm import port_cfg as _port_cfg
+from _torch_lm import ref_full_logits as _ref_full_logits
+from _torch_lm import ref_model as _ref_model
+from _torch_lm import step_logits as _step_logits
+from _torch_lm import tokens as _tokens
 from repro_torch import configs as tconfigs
 from repro_torch.kernels import ops
 from repro_torch.launch import serve as tlaunch
 from repro_torch.models import attention as tattn
 from repro_torch.models import convert
 from repro_torch.models import layers as tlayers
+from repro_torch.models import ssm as tssm
 from repro_torch.models.model import LM, unsupported_reason
 from repro_torch.serve import serve_step as tserve
 
 torch.set_num_threads(1)
 
-LAYER_TOL = 1e-5
-MODEL_TOL = 1e-4
-SERVE_TOL = 5e-5
 SERVED = ["phi3-mini-3.8b", "starcoder2-15b"]
+# the families of MLA, the SSM and the hybrid block
+NEW_FAMILIES = ["minicpm3-4b", "mamba2-370m", "hymba-1.5b"]
 
 
 @pytest.fixture(scope="module")
 def J():
     """The JAX package's LM stack (skips where JAX is absent)."""
-    pytest.importorskip("jax")
-    import jax
-    import jax.numpy as jnp
-    from repro import configs
-    from repro.models import attention, layers, model
-    from repro.serve import serve_step
-
-    return types.SimpleNamespace(jax=jax, jnp=jnp, configs=configs,
-                                 attention=attention, layers=layers,
-                                 model=model, serve_step=serve_step)
+    return reference_lm()
 
 
 @pytest.fixture
@@ -60,52 +51,6 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run chip_smoke.py on the card)")
     return torch.device("cuda")
-
-
-def _np(x):
-    return np.asarray(x, dtype=np.float32)
-
-
-def _close(got, want, tol, msg=""):
-    np.testing.assert_allclose(_np(got.detach().cpu()) if torch.is_tensor(got)
-                               else _np(got), _np(want), atol=tol, rtol=tol,
-                               err_msg=msg)
-
-
-def _ref_model(J, name, seed=1, **changes):
-    cfg = dataclasses.replace(J.configs.ARCHS[name].reduced(), **changes)
-    m = J.model.LM(cfg)
-    params, _ = m.init(J.jax.random.PRNGKey(seed))
-    return cfg, m, J.jax.tree.map(np.asarray, params)
-
-
-def _port_cfg(cfg):
-    """The port's config with the reference config's fields."""
-    return tconfigs.ArchConfig(**dataclasses.asdict(cfg))
-
-
-def _tokens(vocab, b, s, seed=0):
-    return np.random.default_rng(seed).integers(0, vocab, (b, s)).astype(
-        np.int32)
-
-
-@torch.inference_mode()
-def _step_logits(model, prompt, max_new, max_len):
-    """`generate`'s loop through the serving steps, keeping the logits:
-    the (B, max_new) greedy tokens and the (B, max_new, V) logits that
-    chose them (the prefill's last position, then each decode step)."""
-    prefill = tserve.make_prefill_step(model)
-    decode = tserve.make_decode_step(model)
-    s = prompt.shape[1]
-    logits, caches = prefill(prompt, model.init_caches(prompt.shape[0],
-                                                       max_len))
-    tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
-    toks, all_logits = [tok], [logits]
-    for i in range(max_new - 1):
-        tok, logits, caches = decode(tok, s + i, caches)
-        toks.append(tok)
-        all_logits.append(logits)
-    return torch.cat(toks, dim=1), torch.stack(all_logits, dim=1)
 
 
 # -- configs -----------------------------------------------------------------
@@ -242,13 +187,6 @@ def test_gqa_cache_and_decode_match_reference(J, window):
 
 # -- whole models with the reference's weights -------------------------------
 
-def _ref_full_logits(J, m, params, toks):
-    x, positions = m._embed_inputs(params, {"tokens": toks})
-    x, _ = m._run_layers_train(params, x, positions)
-    x = J.layers.rmsnorm(x, params["final_norm"], m.cfg.norm_eps)
-    return J.layers.lm_logits(params, x, m.cfg.tie_embeddings)
-
-
 @pytest.mark.parametrize("name", SERVED)
 def test_model_prefill_decode_and_forward_match_reference(J, name):
     cfg, m, params = _ref_model(J, name)
@@ -350,7 +288,8 @@ def test_convert_refuses_fused_weights(J):
 
 
 @pytest.mark.parametrize("name", ["phi3-mini-3.8b", "starcoder2-15b",
-                                  "internlm2-20b", "chameleon-34b"])
+                                  "internlm2-20b", "chameleon-34b"]
+                         + NEW_FAMILIES)
 def test_full_size_shapes_equal_reference(J, name):
     """At the published widths (on the meta device: nothing allocated),
     every parameter of the port has the shape of the reference's."""
@@ -359,8 +298,12 @@ def test_full_size_shapes_equal_reference(J, name):
                               J.jax.random.PRNGKey(0))
     flat = {}
     for key, leaf in J.jax.tree_util.tree_leaves_with_path(shapes):
-        names = [k.key for k in key]
-        if names[0] == "layers":
+        # a dict key's .key, an unroll layout's list index .idx
+        names = [str(getattr(k, "key", getattr(k, "idx", None)))
+                 for k in key]
+        if names[0] == "layers" and cfg.layout == "unroll":
+            flat[".".join(names)] = tuple(leaf.shape)
+        elif names[0] == "layers":
             for i in range(cfg.n_layers):
                 flat[".".join(["layers", str(i)] + names[1:])] = \
                     tuple(leaf.shape[1:])
@@ -371,7 +314,12 @@ def test_full_size_shapes_equal_reference(J, name):
     assert got == flat
 
 
-def test_own_init_draws_the_reference_distributions():
+def test_own_init_draws_the_reference_distributions(J):
+    """Each drawn leaf's std is the reference's (to 5 %, from a few
+    thousand draws); the constant leaves are the reference's values; two
+    draws from one seed are equal. A_log is log(linspace(1, e, H)) rounded
+    once to float32, which the reference's float32 steps (its linspace and
+    log) reach within an ulp: held to 1.2e-7 against them."""
     cfg = dataclasses.replace(tconfigs.get_arch("phi3-mini-3.8b").reduced(),
                               d_model=256, d_ff=512)
     a = LM(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
@@ -386,14 +334,53 @@ def test_own_init_draws_the_reference_distributions():
         assert abs(float(sd[name].std()) / std - 1) < 0.05, name
     assert torch.equal(sd["layers.0.attn_norm"], torch.ones(256))
 
+    # MLA: minicpm3 at d_model 256, ranks 64 / 32, 4 heads of 16 + 8 (v 16)
+    mcfg = dataclasses.replace(tconfigs.get_arch("minicpm3-4b").reduced(),
+                               d_model=256, q_lora_rank=64, kv_lora_rank=32,
+                               qk_nope_head_dim=16, qk_rope_head_dim=8,
+                               v_head_dim=16)
+    sd = LM(mcfg, generator=torch.Generator().manual_seed(1),
+            device="cpu").state_dict()
+    for name, std in {"layers.0.attn.q_a": 256 ** -0.5,
+                      "layers.0.attn.q_b": 64 ** -0.5,
+                      "layers.0.attn.kv_a": 256 ** -0.5,
+                      "layers.0.attn.kv_b": 32 ** -0.5,
+                      "layers.0.attn.wo": (4 * 16) ** -0.5}.items():
+        assert abs(float(sd[name].std()) / std - 1) < 0.05, name
+    for name, dim in (("q_a_norm", 64), ("kv_a_norm", 32)):
+        assert torch.equal(sd[f"layers.1.attn.{name}"], torch.ones(dim))
 
-@pytest.mark.parametrize("name", ["minicpm3-4b", "mamba2-370m", "hymba-1.5b",
-                                  "dbrx-132b", "granite-moe-3b-a800m",
+    # SSM: hymba at d_model 256 (d_inner 512, 32 heads of 16, state 8)
+    hcfg = dataclasses.replace(tconfigs.get_arch("hymba-1.5b").reduced(),
+                               d_model=256, d_ff=512)
+    sd = LM(hcfg, generator=torch.Generator().manual_seed(2),
+            device="cpu").state_dict()
+    di, h = hcfg.d_inner, hcfg.ssm_nheads
+    conv_dim = di + 2 * hcfg.ssm_ngroups * hcfg.ssm_state
+    for name, std in {"layers.0.ssm.in_proj": 256 ** -0.5,
+                      "layers.0.ssm.conv_w": 0.1,
+                      "layers.0.ssm.out_proj": di ** -0.5}.items():
+        assert abs(float(sd[name].std()) / std - 1) < 0.05, name
+    ref = J.jax.tree.map(np.asarray, J.model.LM(hcfg).init(
+        J.jax.random.PRNGKey(0))[0])["layers"][1]["ssm"]
+    for name in ("conv_b", "D", "dt_bias", "norm"):
+        assert torch.equal(sd[f"layers.1.ssm.{name}"],
+                           torch.from_numpy(np.array(ref[name]))), name
+    a_log = sd["layers.1.ssm.A_log"]
+    assert torch.equal(a_log, torch.from_numpy(tssm.a_log_init(h)))
+    np.testing.assert_allclose(a_log.numpy(), ref["A_log"], rtol=0,
+                               atol=1.2e-7)
+    assert torch.equal(sd["layers.1.ssm_norm"], torch.ones(256))
+    assert sd["layers.1.ssm.conv_b"].shape == (conv_dim,)
+
+
+@pytest.mark.parametrize("name", ["dbrx-132b", "granite-moe-3b-a800m",
                                   "hubert-xlarge"])
 def test_unported_families_raise(name):
     cfg = tconfigs.get_arch(name).reduced()
     assert unsupported_reason(cfg) is not None
-    with pytest.raises(NotImplementedError, match="Queue 1 item 16"):
+    with pytest.raises(NotImplementedError,
+                       match="Queue 1, \"The rest of the LM stack\""):
         LM(cfg, device="meta")
 
 
@@ -431,10 +418,21 @@ def test_launch_serve_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
 
 # -- on the card (skip here) ---------------------------------------------------
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("name", SERVED)
-def test_cuda_model_matches_cpu(cuda_device, name):
+def _cuda_reduced(name):
+    """The reduced config of `name` for the card: MLA's qk head dim is
+    8 + 4 = 12 there, which no CUDA flash kernel takes, so its card twin
+    has 12 + 4 = 16 (v 8)."""
     cfg = tconfigs.get_arch(name).reduced()
+    if cfg.attn_type == "mla":
+        cfg = dataclasses.replace(cfg, qk_nope_head_dim=12,
+                                  qk_rope_head_dim=4, v_head_dim=8)
+    return cfg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", SERVED + NEW_FAMILIES)
+def test_cuda_model_matches_cpu(cuda_device, name):
+    cfg = _cuda_reduced(name)
     cpu_model = LM(cfg, generator=torch.Generator().manual_seed(7),
                    device="cpu")
     gpu_model = LM(cfg, device=cuda_device)
@@ -442,7 +440,8 @@ def test_cuda_model_matches_cpu(cuda_device, name):
     toks = torch.from_numpy(_tokens(cfg.vocab_size, 2, 150))
     ops.reset_launch_counts()
     got = tserve.generate(gpu_model, toks, 4, 160)
-    assert ops.launch_counts()["flash_attention"] == cfg.n_layers
+    assert ops.launch_counts()["flash_attention"] == (
+        cfg.n_layers if cfg.has_attention else 0)
     assert torch.equal(got.cpu(), tserve.generate(cpu_model, toks, 4, 160))
     want = _step_logits(cpu_model, toks, 4, 160)
     got = _step_logits(gpu_model, toks.to(cuda_device), 4, 160)
