@@ -82,10 +82,14 @@ Phases, in order; any failed check exits non-zero:
      SMs), one query against a full and a ring cache, and the served
      families' prefill shapes (minicpm3: 40 heads at d = 96, v
      zero-padded from 64; hymba: 25/5 GQA at d = 64, with a window of
-     1,024 and without); the route's kernel timed at the phi3 prefill
-     shape and at the families' three beside the plain version,
-     F.scaled_dot_product_attention on the same tensors (GQA by
-     `enable_gqa`, a window as a boolean mask) and the bound; then
+     1,024 and without; granite: 24/8 at d = 64; dbrx: 48/8 at d = 128;
+     hubert's encode: 16/16 at d = 80, bidirectional, 1,500 frames); the
+     route's kernel timed at the phi3 prefill shape and at the families'
+     six beside the plain version, F.scaled_dot_product_attention on the
+     same tensors (GQA by `enable_gqa`, a window as a boolean mask, no
+     mask where bidirectional) and the bound; the radix rank entry at the
+     MoE dispatch's shapes (granite's and dbrx's prefill keys, a decode
+     step's) equal to its plain version, timed beside it and the bound; then
      phi3-mini-3.8b at full width and depth 2 in fp32, the card against
      the CPU (prefill and three decode steps); then the serving run:
      phi3 at full width and depth in bf16, `generate` on 4 prompts of
@@ -95,8 +99,19 @@ Phases, in order; any failed check exits non-zero:
      forward) and prefill, decode and profile times; then the same
      depth-2 parity and serving run (one timed run of the serving steps)
      for minicpm3-4b (MLA, 62 flash launches per prefill), mamba2-370m
-     (SSD, none) and hymba-1.5b (GQA with windows in parallel with the
-     SSM, 32), each model freed before the next is built;
+     (SSD, none), hymba-1.5b (GQA with windows in parallel with the
+     SSM, 32), granite-moe-3b-a800m (32 MoE layers: 32 flash launches
+     per prefill and one rank launch per MoE layer in the prefill and in
+     each decode step, 32 x 32 a generate; the pairs the prefill dropped
+     printed per layer) and dbrx-132b (a depth cut to 8 of its 40
+     layers, which one card cannot hold; parity at depth 1; 8 flash and
+     8 x 32 rank launches), each model freed before the next is built;
+     then hubert-xlarge's encoder: a depth-2 fp32 encode, card against
+     CPU, at 2 x 256 frames, then 48 layers in bf16 on 4 x 1,500 frames
+     of random features (two encodes bit-equal, 48 flash launches on
+     the mma.sync route and no other kernel, the median encode ms, the
+     device time by kernel kind, peak memory, and the bf16 logits
+     against an fp32 encode of the same weights, rel. L2 <= 5e-2);
   7. engines: the reference's other engines of `lgrass_sparsify` on the
      card, on case1-3 and feeder4k: bfs_engine="levels", recovery="host",
      auto_lift_bound=True, use_euler_lca=False (the kernels' lifting
@@ -151,14 +166,17 @@ use_tree_kernel path for tree_dist, 0 since MARK and REC run its climb
 inside themselves; the quality path for laplacian_spmv; the entry's five shapes for
 bitmap_intersect; one `generate` call of phi3's serving run for
 flash_attention, whose `launches_per_prefill` also gives each served
-family's), `launches_per_graph` splits that count by graph
+family's and `launches_per_encode` the encoder's),
+`launches_per_graph` splits that count by graph
 (by estimator call, or by shape), and `cuda_kernels_per_launch` says how
 many CUDA kernels one wrapper call enqueues. radix_hist, mark and rec
 also carry `launches_engines_path`, `launches_batch_path` and
 `launches_service_path`, each counted from 0 over its phase's user
 calls, and mark `launches_sharded_path`, over the sharded phase 1's two
-timed calls. Each phase prints its wall
-time. Imports nothing of JAX or of `repro`.
+timed calls; radix_hist also `launches_moe_path`, the rank launches of
+each MoE model's prefill, decode step and `generate` call, and
+`rank_entry_moe`, the rank entry's times at the MoE shapes. Each phase
+prints its wall time. Imports nothing of JAX or of `repro`.
 """
 from __future__ import annotations
 
@@ -2243,11 +2261,20 @@ def phase_quality(dev, graphs):
 # -- phase 6: the LM serving path -----------------------------------------
 
 LM_ARCH = "phi3-mini-3.8b"
-# the MLA, SSM and hybrid families, served after phi3
-LM_FAMILIES = ("minicpm3-4b", "mamba2-370m", "hymba-1.5b")
+# the MLA, SSM, hybrid and MoE families, served after phi3
+LM_FAMILIES = ("minicpm3-4b", "mamba2-370m", "hymba-1.5b",
+               "granite-moe-3b-a800m", "dbrx-132b")
 FAMILY_TIMED_CALLS = 1   # their timed runs of the serving steps
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 2048, 32
 PARITY_DEPTH, PARITY_BATCH, PARITY_PROMPT = 2, 2, 256
+# depth cuts: dbrx-132b's 40 layers (264 GB in bf16) do not fit one
+# card's 80 GB; 8 layers at full width are 54.6 GB. Its fp32 parity runs
+# at depth 1: about 18 GB of fp32 weights on each side
+SERVE_DEPTH = {"dbrx-132b": 8}
+PARITY_DEPTHS = {"dbrx-132b": 1}
+# the encoder: 4 clips of 30 s at hubert's 20 ms frame stride
+ENCODER_ARCH = "hubert-xlarge"
+ENCODE_BATCH, ENCODE_FRAMES, ENCODE_TIMED = 4, 1500, 3
 F32_TOL = 2e-5  # atol = rtol, the reference's own kernel tests
 
 
@@ -2305,6 +2332,15 @@ def _flash_cases():
                                            None, None, True, 1024),
         "hymba prefill bf16 global": (4, 2048, 2048, 25, 5, 64, bf, None,
                                       None, True, None),
+        # MoE's prefill shapes (granite 24/8 at d = 64, dbrx 48/8 at
+        # d = 128) and hubert's encode (16/16 at d = 80, bidirectional,
+        # 1,500 frames: no multiple of a tile)
+        "granite prefill bf16": (4, 2048, 2048, 24, 8, 64, bf, None, None,
+                                 True, None),
+        "dbrx prefill bf16": (4, 2048, 2048, 48, 8, 128, bf, None, None,
+                              True, None),
+        "hubert encode bf16": (4, 1500, 1500, 16, 16, 80, bf, None, None,
+                               False, None),
     }
 
 
@@ -2313,7 +2349,8 @@ FLASH_V_DIM = {"minicpm3 prefill bf16": 64}
 # the served families' flash shapes, timed beside SDPA and the bound
 FAMILY_FLASH_CASES = ("minicpm3 prefill bf16",
                       "hymba prefill bf16 window 1024",
-                      "hymba prefill bf16 global")
+                      "hymba prefill bf16 global", "granite prefill bf16",
+                      "dbrx prefill bf16", "hubert encode bf16")
 
 
 def _flash_inputs(dev, name, seed):
@@ -2380,18 +2417,19 @@ def _check_flash(dev):
 def _time_flash(dev, name):
     """The kernel its route picks at one case: CUDA-event and device time
     beside the plain version, F.scaled_dot_product_attention on the same
-    tensors (GQA by `enable_gqa`, a window as a boolean mask) and the
-    bound."""
+    tensors (GQA by `enable_gqa`, a window as a boolean mask, no mask for
+    a bidirectional case) and the bound."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
 
     q, k, v, qp, kp, causal, window = args = _flash_inputs(dev, name, seed=7)
-    check(causal and torch.equal(qp, kp),
-          "the SDPA yardstick takes a causal square case")
+    check(torch.equal(qp, kp), "the SDPA yardstick takes a square case")
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    how = dict(is_causal=True) if window is None else dict(
-        attn_mask=fa.visible_mask(qp, kp, True, window))
+    if window is not None:
+        how = dict(attn_mask=fa.visible_mask(qp, kp, causal, window))
+    else:
+        how = dict(is_causal=True) if causal else {}
     if k.shape[2] != q.shape[2]:
         how["enable_gqa"] = True
     sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
@@ -2412,10 +2450,11 @@ def _time_flash(dev, name):
         bound_ms=b_ms, bound_by=b_by, kernel_route=route,
         cuda_kernel=f"{fa.ROUTES[route]}<{q.shape[3]}>",
         at=f"B={q.shape[0]} S={q.shape[1]} H={q.shape[2]} Kv={k.shape[2]} "
-           f"d={q.shape[3]} {str(q.dtype).replace('torch.', '')} causal"
+           f"d={q.shape[3]} {str(q.dtype).replace('torch.', '')} "
+           + ("causal" if causal else "bidirectional")
            + ("" if window is None else f" window {window}"),
         library_call=("F.scaled_dot_product_attention("
-                      + ", ".join(sorted(how)) + ")"))
+                      + ", ".join(sorted(how) or ["no mask"]) + ")"))
     # SDPA's kernel (cuDNN's, PyTorch's own flash or memory-efficient
     # kernel) by the same method; None where the trace names none
     t["library_device_ms"], lib_kernels = device_profile(
@@ -2426,19 +2465,25 @@ def _time_flash(dev, name):
 
 
 def _parity_depth2(dev, arch=LM_ARCH):
-    """`arch` at full width and depth 2 in fp32, weights drawn on a CPU
-    generator: the card against the CPU, prefill's last logits and three
-    decode steps fed the same (the CPU's greedy) tokens. Returns the max
-    abs difference and the card run's flash launches (one per attention
-    layer)."""
+    """`arch` at full width and depth 2 (PARITY_DEPTHS: less) in fp32,
+    weights drawn on a CPU generator: the card against the CPU, prefill's
+    last logits and three decode steps fed the same (the CPU's greedy)
+    tokens. Returns the max abs difference and the card run's flash
+    launches (one per attention layer); an MoE layer makes one rank launch
+    in the prefill and one in each decode step."""
     import dataclasses
 
     from repro_torch.configs import get_arch
     from repro_torch.kernels import ops
     from repro_torch.models.model import LM
 
-    cfg = dataclasses.replace(get_arch(arch), n_layers=PARITY_DEPTH,
+    depth = PARITY_DEPTHS.get(arch, PARITY_DEPTH)
+    cfg = dataclasses.replace(get_arch(arch), n_layers=depth,
                               dtype="float32")
+    if depth != PARITY_DEPTH:
+        print(f"lm parity {arch}: depth cut to {depth}, not "
+              f"{PARITY_DEPTH} (fp32 weights "
+              f"{cfg.n_params() * 4 / 1e9:.1f} GB on each side)")
     cpu = LM(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
     gpu = LM(cfg, device=dev)
     gpu.load_state_dict(cpu.state_dict())
@@ -2459,20 +2504,24 @@ def _parity_depth2(dev, arch=LM_ARCH):
             l_cpu, c_cpu = cpu.decode_step(tok, pos, c_cpu)
             l_gpu, c_gpu = gpu.decode_step(tok.to(dev), pos, c_gpu)
             pairs.append((f"decode {pos}", l_cpu, l_gpu))
-    launches = ops.launch_counts()["flash_attention"]
+    counts = ops.launch_counts()
+    launches = counts["flash_attention"]
     worst = 0.0
     for what, a, b in pairs:
         b = b.cpu()
         diff = float((a - b).abs().max())
         worst = max(worst, diff)
         ok = torch.allclose(b, a, atol=1e-4, rtol=1e-4)
-        print(f"lm parity {arch} depth {PARITY_DEPTH} fp32 {what}: max abs "
+        print(f"lm parity {arch} depth {depth} fp32 {what}: max abs "
               f"diff card vs CPU {diff:.3e} (|logit| max "
               f"{float(a.abs().max()):.2f}), allclose 1e-4 {ok}")
         check(ok, f"lm parity: card and CPU differ at {what}")
-    want = PARITY_DEPTH if cfg.has_attention else 0
+    want = depth if cfg.has_attention else 0
     check(launches == want, f"lm parity {arch}: {launches} flash launches "
           f"on the card's prefill, not {want}")
+    want = 4 * depth if cfg.is_moe else 0
+    check(counts["radix_hist"] == want, f"lm parity {arch}: "
+          f"{counts['radix_hist']} rank launches, not {want}")
     return worst, launches
 
 
@@ -2480,7 +2529,10 @@ def _run_steps(model, prompt, max_len):
     """`generate`'s loop through the serving steps, keeping what generate
     drops: the (B, new) tokens, the (B, new, V) logits that chose them,
     the prefill's ms and each decode step's ms (host clock around work
-    that ends in a synchronize)."""
+    that ends in a synchronize), and the port's kernel launches of the
+    prefill and of each decode step (the counts set to 0 before each, read
+    after it)."""
+    from repro_torch.kernels import ops
     from repro_torch.serve.serve_step import make_decode_step, \
         make_prefill_step
 
@@ -2489,22 +2541,26 @@ def _run_steps(model, prompt, max_len):
     with torch.inference_mode():
         caches = model.init_caches(b, max_len)
         torch.cuda.synchronize()
+        ops.reset_launch_counts()
         t0 = time.perf_counter()
         logits, caches = prefill(prompt, caches)
         torch.cuda.synchronize()
         pre_ms = (time.perf_counter() - t0) * 1e3
+        pre_launches = ops.launch_counts()
         tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
-        toks, all_logits, dec_ms = [tok], [logits], []
+        toks, all_logits, dec_ms, dec_launches = [tok], [logits], [], []
         for i in range(SERVE_NEW - 1):
             torch.cuda.synchronize()
+            ops.reset_launch_counts()
             t0 = time.perf_counter()
             tok, logits, caches = decode(tok, s + i, caches)
             torch.cuda.synchronize()
             dec_ms.append((time.perf_counter() - t0) * 1e3)
+            dec_launches.append(ops.launch_counts())
             toks.append(tok)
             all_logits.append(logits)
     return torch.cat(toks, dim=1), torch.stack(all_logits, dim=1), \
-        pre_ms, dec_ms
+        pre_ms, dec_ms, (pre_launches, dec_launches)
 
 
 def _profile(fn):
@@ -2521,7 +2577,7 @@ def _profile(fn):
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    kinds = {"flash": 0.0, "gemm": 0.0, "other": 0.0}
+    kinds = {"flash": 0.0, "gemm": 0.0, "radix": 0.0, "other": 0.0}
     launches = 0
     for e in prof.key_averages():
         if e.key == "cudaLaunchKernel":
@@ -2531,6 +2587,8 @@ def _profile(fn):
         key = e.key.lower()
         if "flash_attention_" in key:
             kind = "flash"
+        elif "radix_" in key:
+            kind = "radix"
         elif any(t in key for t in ("gemm", "xmma", "cutlass", "nvjet")):
             kind = "gemm"
         else:
@@ -2581,11 +2639,80 @@ def _flash_on_path_inputs(model, prompt, max_len):
                 strides=[list(x.stride()) for x in args[:3]])
 
 
+def _moe_drops(model, run) -> tuple:
+    """run() with every MoE layer's dispatch counted: returns (run's
+    result, the (token, choice) pairs each layer dropped past its
+    expert's capacity, those of the last position). A forward hook on
+    each layer's `moe.MoE` module routes the input the path gave it once
+    more, for that run only; its rank launches are not the main path's."""
+    from repro_torch.models import moe
+
+    drops, last = [], []
+
+    def count(module, args, _out):
+        cfg, x = args
+        _, _, idx = moe.route(module, cfg, x)
+        pos = moe.dispatch_ranks(idx, cfg.n_experts)
+        dropped = pos >= _capacity(cfg, x.shape[1])
+        drops.append(int(dropped.sum()))
+        last.append(int(dropped.reshape(*idx.shape)[:, -1].sum()))
+
+    hooks = [blk.mlp.register_forward_hook(count) for blk in model.layers
+             if isinstance(blk.mlp, moe.MoE)]
+    try:
+        with torch.inference_mode():
+            out = run()
+    finally:
+        for h in hooks:
+            h.remove()
+    return out, drops, last
+
+
+def _rel_l2(want, got) -> tuple:
+    a, b = want.float(), got.float()
+    rel = float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(a))
+    return rel, (f"max abs {float((a - b).abs().max()):.4e}, greedy tokens "
+                 f"equal {bool(torch.equal(a.argmax(-1), b.argmax(-1)))}")
+
+
+def _dropless_contract(model, prompt, tok, max_len) -> tuple:
+    """The serving contract of an MoE model where no pair is dropped, as
+    the reference's own serving test holds it (its reduced configs' cf 8):
+    at capacity factor E / k every expert's capacity exceeds the tokens of
+    a row, the most pairs a row can send it. A prefill, one decode step
+    at position S and the full forward over S + 1 tokens, all at that
+    factor (a dispatch setting, not a weight), through a shallow copy of
+    the model that shares its layers and weights and holds that config;
+    returns the relative L2 of decode's logits against the full
+    forward's, and how they differ."""
+    import copy
+    import dataclasses
+
+    s = prompt.shape[1]
+    dropless = copy.copy(model)   # model itself keeps its config
+    dropless.cfg = dataclasses.replace(
+        model.cfg, capacity_factor=model.cfg.n_experts / model.cfg.moe_top_k)
+    check(all(_capacity(dropless.cfg, t) > t for t in (1, s, s + 1)),
+          "the dropless capacity factor leaves a pair to drop")
+    torch.cuda.empty_cache()
+    with torch.inference_mode():
+        _, caches = dropless.prefill(prompt, dropless.init_caches(
+            prompt.shape[0], max_len))
+        got, _ = dropless.decode_step(tok, s, caches)
+        del caches
+        want = dropless(torch.cat([prompt, tok], dim=1))[:, -1]
+    return _rel_l2(want, got)
+
+
 def _serve(dev, arch=LM_ARCH, timed=TIMED_CALLS):
-    """The serving run of `arch` at full width and depth in bf16, weights
-    drawn on the card. Returns the flash launches of one `generate` call
-    (one per attention layer, all through the route of the bf16 head dim)
-    and the run's numbers."""
+    """The serving run of `arch` at full width in bf16 (at full depth, or
+    SERVE_DEPTH's cut), weights drawn on the card. Returns the flash
+    launches of one `generate` call (one per attention layer, all through
+    the route of the bf16 head dim) and the run's numbers. An MoE model
+    also makes one rank launch per MoE layer in the prefill and in each
+    decode step, and no other kernel of the port runs."""
+    import dataclasses
+
     from repro_torch.configs import get_arch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
@@ -2593,7 +2720,16 @@ def _serve(dev, arch=LM_ARCH, timed=TIMED_CALLS):
     from repro_torch.serve.serve_step import generate
 
     cfg = get_arch(arch)
+    cut = None
+    if arch in SERVE_DEPTH:
+        cut = f"{SERVE_DEPTH[arch]} of {cfg.n_layers} layers"
+        cfg = dataclasses.replace(cfg, n_layers=SERVE_DEPTH[arch])
+        print(f"lm serve {arch}: depth cut to {cut} (a cut: "
+              f"{get_arch(arch).n_params() / 1e9:.1f} B params do not fit "
+              f"one card; full width)")
     per_prefill = cfg.n_layers if cfg.has_attention else 0
+    moe_layers = cfg.n_layers if cfg.is_moe else 0
+    rank_per_generate = moe_layers * SERVE_NEW   # the prefill, 31 steps
     head_dim = (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
                 if cfg.attn_type == "mla" else cfg.resolved_head_dim)
     torch.cuda.reset_peak_memory_stats()
@@ -2623,7 +2759,12 @@ def _serve(dev, arch=LM_ARCH, timed=TIMED_CALLS):
               f"{arch}: generate made {counts['flash_attention']} flash "
               f"launches, not {per_prefill} (one per attention layer of the "
               f"prefill)")
-        check(sum(counts.values()) == counts["flash_attention"],
+        check(counts["radix_hist"] == rank_per_generate,
+              f"{arch}: generate made {counts['radix_hist']} rank launches, "
+              f"not {rank_per_generate} (one per MoE layer in the prefill "
+              f"and in each of {SERVE_NEW - 1} decode steps)")
+        check(sum(counts.values()) == counts["flash_attention"]
+              + counts["radix_hist"],
               f"{arch}: generate launched another kernel of the port")
         routes = dict(fa.launches)
         if per_prefill:
@@ -2631,8 +2772,9 @@ def _serve(dev, arch=LM_ARCH, timed=TIMED_CALLS):
             check(routes[want] == per_prefill,
                   f"{arch}: generate's flash launches by route {routes}, not "
                   f"{per_prefill} through {want}")
-        runs.append((toks, wall, counts["flash_attention"], routes))
-    (toks, gen_s, launches, routes), (toks2, gen2_s, _, _) = runs
+        runs.append((toks, wall, counts, routes))
+    (toks, gen_s, gen_counts, routes), (toks2, gen2_s, _, _) = runs
+    launches = gen_counts["flash_attention"]
     check(toks.shape == (SERVE_BATCH, SERVE_NEW), f"tokens {toks.shape}")
     check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
           "a token outside the vocabulary")
@@ -2640,34 +2782,79 @@ def _serve(dev, arch=LM_ARCH, timed=TIMED_CALLS):
 
     # the same loop through the serving steps, for its logits and times:
     # a warm-up run, then `timed` runs; each the tokens of generate
+    # and the launches of each prefill and decode step, counted apart:
+    # flash and one rank launch per MoE layer in the prefill, rank
+    # launches alone in a decode step
     steps = []
     for _ in range(1 + timed):
-        ops.reset_launch_counts()
         steps.append(_run_steps(model, prompt, max_len))
-        check(ops.launch_counts()["flash_attention"] == per_prefill,
-              "the serving steps made another number of flash launches")
+    for st in steps:
+        pre, dec = st[4]
+        for what, got, flash in [("the prefill", pre, per_prefill)] + [
+                (f"decode step {i}", c, 0) for i, c in enumerate(dec)]:
+            check(got["flash_attention"] == flash,
+                  f"{arch}: {what} made {got['flash_attention']} flash "
+                  f"launches, not {flash}")
+            check(got["radix_hist"] == moe_layers,
+                  f"{arch}: {what} made {got['radix_hist']} rank launches, "
+                  f"not {moe_layers} (one per MoE layer)")
+            check(sum(got.values()) == flash + moe_layers,
+                  f"{arch}: {what} launched another kernel of the port")
+    pre_ranks = [st[4][0]["radix_hist"] for st in steps]
+    dec_ranks = [c["radix_hist"] for st in steps for c in st[4][1]]
+    if moe_layers:
+        print(f"lm serve {arch}: rank launches per prefill {pre_ranks} "
+              f"(each of {len(steps)} runs), per decode step "
+              f"{sorted(set(dec_ranks))} (each of {len(dec_ranks)} steps)")
     logits = steps[0][1]
     check(bool(torch.isfinite(logits).all()), "serving logits not finite")
-    for st_toks, st_logits, _, _ in steps:
+    for st_toks, st_logits, _, _, _ in steps:
         check(torch.equal(st_toks, toks), "the serving steps chose other "
               "tokens than generate")
         check(torch.equal(st_logits, logits), "two runs' logits differ")
     prefill_ms = statistics.median(st[2] for st in steps[1:])
     decode_ms = statistics.median(t for st in steps[1:] for t in st[3])
 
+    # the serving runs' peak; the contract's runs below (an MoE model's
+    # at a capacity where nothing drops) are checks, not serving
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+
     # the serving contract: decode's logits at position S against the full
     # forward over the prompt and the first generated token
-    with torch.inference_mode():
-        full = model(torch.cat([prompt, toks[:, :1]], dim=1))[:, -1]
-    a, b = full.float(), logits[:, 1].float()
-    rel = float(torch.linalg.vector_norm(a - b)
-                / torch.linalg.vector_norm(a))
+    full_toks = torch.cat([prompt, toks[:, :1]], dim=1)
+    where, drops, published = "", None, None
+    if moe_layers:
+        _, drops, _ = _moe_drops(model, lambda: model.prefill(
+            prompt, model.init_caches(SERVE_BATCH, max_len)))
+        full, _, last = _moe_drops(model, lambda: model(full_toks)[:, -1])
+        rel, how = _rel_l2(full, logits[:, 1])
+        print(f"lm serve {arch}: (token, choice) pairs the prefill dropped "
+              f"past capacity, per MoE layer, of {SERVE_PROMPT} x "
+              f"{cfg.moe_top_k} a row ({SERVE_BATCH} rows): {drops} "
+              f"(total {sum(drops)})")
+        print(f"lm serve {arch} at the config's capacity factor "
+              f"{cfg.capacity_factor:g}: decode logits at position "
+              f"{SERVE_PROMPT} vs the full forward over {SERVE_PROMPT + 1} "
+              f"tokens: relative L2 {rel:.4e}, {how} (not the contract: "
+              f"the full forward drops {sum(last)} of the last token's "
+              f"{SERVE_BATCH * cfg.moe_top_k * moe_layers} pairs past "
+              f"capacity, per layer {last}, which decode, capacity "
+              f"{_capacity(cfg, 1)} for one token a row, never drops)")
+        published = dict(rel_l2=rel, last_token_dropped_per_layer=last)
+        del full
+        rel, how = _dropless_contract(model, prompt, toks[:, :1], max_len)
+        where = (f", both with no pair dropped (capacity factor E / k = "
+                 f"{cfg.n_experts / cfg.moe_top_k:g})")
+    else:
+        with torch.inference_mode():
+            full = model(full_toks)[:, -1]
+        rel, how = _rel_l2(full, logits[:, 1])
     print(f"lm serve contract {arch}: decode logits at position "
           f"{SERVE_PROMPT} vs the full forward over {SERVE_PROMPT + 1} "
-          f"tokens: relative L2 {rel:.4e} (limit 5e-2), max abs "
-          f"{float((a - b).abs().max()):.4e}, greedy tokens equal "
-          f"{bool(torch.equal(a.argmax(-1), b.argmax(-1)))}")
+          f"tokens{where}: relative L2 {rel:.4e} (limit 5e-2), {how}")
     check(rel <= 5e-2, f"serving contract {arch}: relative L2 {rel}")
+    contract_peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     prof_prefill, prof_decode = _profile_serving(model, prompt, max_len)
     on_path = None
@@ -2676,25 +2863,216 @@ def _serve(dev, arch=LM_ARCH, timed=TIMED_CALLS):
         on_path["profile_prefill_ms_per_launch"] = (prof_prefill["flash"]
                                                     / per_prefill)
         print(f"lm flash per launch {arch}: {on_path}")
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     numbers = dict(
-        arch=arch, params=n_params, batch=SERVE_BATCH,
+        arch=arch, depth_cut=cut, params=n_params, batch=SERVE_BATCH,
         prompt=SERVE_PROMPT, new_tokens=SERVE_NEW, init_s=init_s,
         generate_s=[gen_s, gen2_s], prefill_ms=prefill_ms,
         prefill_tok_per_s=SERVE_BATCH * SERVE_PROMPT / prefill_ms * 1e3,
         decode_ms_per_step=decode_ms,
         decode_tok_per_s=SERVE_BATCH / decode_ms * 1e3,
         contract_rel_l2=rel, peak_memory_gb=peak_gb,
-        flash_on_path=on_path,
+        contract_peak_memory_gb=contract_peak_gb, flash_on_path=on_path,
         prefill_profile_ms=prof_prefill, decode_profile_ms=prof_decode)
     numbers["flash_launches_by_route"] = routes
+    if moe_layers:
+        numbers["moe"] = dict(
+            rank_launches_per_prefill=pre_ranks[-1],
+            rank_launches_per_decode_step=dec_ranks[-1],
+            rank_launches_per_generate=gen_counts["radix_hist"],
+            capacity_prefill=_capacity(cfg, SERVE_PROMPT),
+            capacity_decode=_capacity(cfg, 1),
+            dropped_pairs_per_layer=drops,
+            contract_at_config_capacity_factor=published,
+            contract_capacity_factor=cfg.n_experts / cfg.moe_top_k)
     print(f"lm serve {arch}: {n_params / 1e9:.3f} B params, prefill "
           f"{prefill_ms:.1f} ms ({numbers['prefill_tok_per_s']:.0f} tok/s), "
           f"decode {decode_ms:.2f} ms a step "
           f"({numbers['decode_tok_per_s']:.1f} tok/s), peak memory "
-          f"{peak_gb:.2f} GB")
+          f"{peak_gb:.2f} GB (the contract's runs {contract_peak_gb:.2f} GB)"
+          + (f" (depth cut: {cut})" if cut else ""))
     print(f"lm serve numbers: {json.dumps(numbers)}")
     return launches, numbers
+
+
+# the MoE dispatch's rank calls: keys row·E + expert over B rows of
+# S·k pairs (granite's prefill: 65,536 keys < 160; dbrx's: 32,768 < 64;
+# a granite decode step: 32 keys < 160)
+MOE_RANK_CASES = {"granite prefill": (4, 2048 * 8, 40),
+                  "dbrx prefill": (4, 2048 * 4, 16),
+                  "granite decode step": (4, 8, 40)}
+
+
+def _moe_rank_entry(dev) -> dict:
+    """The rank entry of csrc/radix_hist.cu at the MoE dispatch's shapes
+    against its plain version (torch.equal, rank and histogram), then
+    timed: CUDA events, then device time, beside the plain version and
+    the bound by bytes (M int32 read, M int32 and the 256-bin histogram
+    written). No single PyTorch call computes a rank within buckets."""
+    from repro_torch.kernels import radix_hist
+
+    rng = np.random.default_rng(23)
+    out, calls = {}, {}
+    for name, (b, pairs, e) in MOE_RANK_CASES.items():
+        keys = (rng.integers(0, e, (b, pairs))
+                + np.arange(b)[:, None] * e).reshape(-1)
+        dt = torch.as_tensor(keys.astype(np.int32), device=dev)
+        rank, hist = radix_hist.bucket_rank_hist_cuda(dt)
+        want_r, want_h = radix_hist.bucket_rank_hist_plain(dt)
+        torch.cuda.synchronize()
+        ok = torch.equal(rank, want_r) and torch.equal(hist, want_h)
+        print(f"radix_hist rank entry at MoE {name} (M={dt.numel()}, keys "
+              f"< {b * e}): equal={ok}")
+        check(ok, f"radix_hist rank entry differs from its plain version "
+                  f"at MoE {name}")
+        calls[name] = call = (
+            lambda dt=dt: radix_hist.bucket_rank_hist_cuda(dt))
+        b_ms, b_by = bound_ms(8 * dt.numel() + 4 * radix_hist.NB, 0)
+        out[name] = dict(
+            m=dt.numel(), buckets=b * e, ms=time_cuda(call, iters=50),
+            plain_ms=time_cuda(lambda dt=dt: radix_hist.bucket_rank_hist_plain(
+                dt), iters=3, warmup=1),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    for name, call in calls.items():
+        out[name]["device_ms"] = device_ms(call, RADIX_DEVICE)
+        print(f"radix_hist rank entry at MoE {name}: {out[name]}")
+    return out
+
+
+def _encode_parity(dev, arch=ENCODER_ARCH):
+    """The encoder at full width and depth 2 in fp32, weights drawn on a
+    CPU generator: the card's encode of PARITY_BATCH x PARITY_PROMPT
+    frames against the CPU's. Returns the max abs difference and the card
+    run's flash launches (one per layer, the only kernel of the port)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import LM
+
+    cfg = dataclasses.replace(get_arch(arch), n_layers=PARITY_DEPTH,
+                              dtype="float32")
+    cpu = LM(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    gpu = LM(cfg, device=dev)
+    gpu.load_state_dict(cpu.state_dict())
+    feats = torch.as_tensor(np.random.default_rng(4).standard_normal(
+        (PARITY_BATCH, PARITY_PROMPT, cfg.feat_dim)), dtype=torch.float32)
+    ops.reset_launch_counts()
+    with torch.inference_mode():
+        want = cpu.encode(feats)
+        got = gpu.encode(feats.to(dev)).cpu()
+    counts = ops.launch_counts()
+    diff = float((got - want).abs().max())
+    ok = torch.allclose(got, want, atol=1e-4, rtol=1e-4)
+    print(f"lm parity {arch} depth {PARITY_DEPTH} fp32 encode of "
+          f"{PARITY_BATCH} x {PARITY_PROMPT} frames: max abs diff card vs "
+          f"CPU {diff:.3e} (|logit| max {float(want.abs().max()):.2f}), "
+          f"allclose 1e-4 {ok}, launches {counts}")
+    check(ok, f"lm parity {arch}: card and CPU encodes differ")
+    check(counts["flash_attention"] == sum(counts.values()) == PARITY_DEPTH,
+          f"lm parity {arch}: launches {counts}, not {PARITY_DEPTH} flash")
+    return diff, counts["flash_attention"]
+
+
+def _encode(dev, arch=ENCODER_ARCH):
+    """The encoder at full width and depth in bf16, weights drawn on the
+    card, on ENCODE_BATCH x ENCODE_FRAMES random frame features: two
+    encodes bit-equal, one flash launch per layer (the route of the bf16
+    head dim) and no other kernel of the port, finite logits, the median
+    encode ms, the device time by kernel kind, peak memory, and the
+    contract: the bf16 logits against an fp32 encode of the same weights
+    on the card, relative L2 <= 5e-2. Returns the flash launches of one
+    encode and the run's numbers."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import LM
+
+    cfg = get_arch(arch)
+    route = fa.cuda_route(torch.bfloat16, cfg.resolved_head_dim)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = LM(cfg, generator=torch.Generator(dev).manual_seed(0),
+               device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    feats = torch.randn((ENCODE_BATCH, ENCODE_FRAMES, cfg.feat_dim),
+                        generator=torch.Generator(dev).manual_seed(3),
+                        device=dev)
+    outs = []
+    for _ in range(2):
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            outs.append(model.encode(feats))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts, routes = ops.launch_counts(), dict(fa.launches)
+        print(f"lm encode {arch} B={ENCODE_BATCH} T={ENCODE_FRAMES}: "
+              f"{wall * 1e3:.1f} ms, launches {counts}, flash by route "
+              f"{routes}")
+        check(counts["flash_attention"] == cfg.n_layers,
+              f"{arch}: encode made {counts['flash_attention']} flash "
+              f"launches, not {cfg.n_layers}")
+        check(sum(counts.values()) == counts["flash_attention"],
+              f"{arch}: encode launched another kernel of the port")
+        check(routes[route] == cfg.n_layers,
+              f"{arch}: flash launches by route {routes}, not "
+              f"{cfg.n_layers} through {route}")
+    logits = outs[0]
+    check(torch.equal(outs[0], outs[1]), f"{arch}: two encodes differ")
+    del outs
+    check(logits.shape == (ENCODE_BATCH, ENCODE_FRAMES, cfg.vocab_size),
+          f"encode logits {tuple(logits.shape)}")
+    check(bool(torch.isfinite(logits).all()), "encode logits not finite")
+    walls = []
+    for _ in range(ENCODE_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            model.encode(feats)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    encode_ms = statistics.median(walls)
+    with torch.inference_mode():
+        prof = _profile(lambda: model.encode(feats))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    # the contract: the same weights in fp32 on the card (the fp32 route)
+    m32 = LM(dataclasses.replace(cfg, dtype="float32"), device=dev)
+    m32.load_state_dict(model.state_dict())
+    with torch.inference_mode():
+        want = m32.encode(feats)
+    del m32
+    a, b = want, logits.float()
+    rel = float(torch.linalg.vector_norm(a - b)
+                / torch.linalg.vector_norm(a))
+    print(f"lm encode contract {arch}: bf16 logits vs an fp32 encode of the "
+          f"same weights on the card: relative L2 {rel:.4e} (limit 5e-2), "
+          f"max abs {float((a - b).abs().max()):.4e}, argmax equal "
+          f"{float((a.argmax(-1) == b.argmax(-1)).float().mean()):.4f} of "
+          f"frames")
+    check(rel <= 5e-2, f"encode contract {arch}: relative L2 {rel}")
+    numbers = dict(
+        arch=arch, params=n_params, batch=ENCODE_BATCH, frames=ENCODE_FRAMES,
+        init_s=init_s, encode_ms=encode_ms, encode_ms_runs=walls,
+        frames_per_s=ENCODE_BATCH * ENCODE_FRAMES / encode_ms * 1e3,
+        contract_rel_l2=rel, peak_memory_gb=peak_gb,
+        encode_profile_ms=prof, flash_launches_by_route=routes)
+    print(f"lm encode {arch}: {n_params / 1e9:.3f} B params, encode "
+          f"{encode_ms:.1f} ms ({numbers['frames_per_s']:.0f} frames/s), "
+          f"peak memory {peak_gb:.2f} GB")
+    print(f"lm encode numbers: {json.dumps(numbers)}")
+    return counts["flash_attention"], numbers
+
+
+def _capacity(cfg, tokens: int) -> int:
+    from repro_torch.models import moe
+
+    return moe.capacity(tokens, cfg.moe_top_k, cfg.n_experts,
+                        cfg.capacity_factor)
 
 
 def _flash_build_report() -> list:
@@ -2760,10 +3138,12 @@ def _flash_sass() -> dict:
 
 
 def phase_lm(dev):
-    """Kernel checks and times, the depth-2 parity, then the serving run;
-    then each of LM_FAMILIES: its depth-2 parity and its serving run, each
-    model freed before the next is built. Returns the flash_attention
-    entry of the kernels line."""
+    """Kernel checks and times (the flash shapes, the rank entry at the MoE
+    dispatch's shapes), the depth-2 parity, then the serving run; then
+    each of LM_FAMILIES: its depth-2 parity and its serving run; then the
+    encoder's depth-2 parity and its encode run; each model freed before
+    the next is built. Returns the flash_attention entry of the kernels
+    line and what the radix_hist entry gains on the MoE path."""
     from repro_torch.kernels import ops
 
     build_report = _flash_build_report()
@@ -2780,6 +3160,7 @@ def phase_lm(dev):
         print(f"flash_attention timings {name} "
               f"{family_timings[name]['at']}: {family_timings[name]}")
     print(f"lm family flash timings: {time.perf_counter() - t0:.1f} s")
+    moe_rank = _moe_rank_entry(dev)
     ops.reset_launch_counts()  # the checks above are not the main path
     parity_diff, parity_launches = _parity_depth2(dev)
     launches, numbers = _serve(dev)
@@ -2796,12 +3177,23 @@ def phase_lm(dev):
         families[arch] = dict(launches_per_prefill=fam_launches,
                               parity_depth2_max_abs_diff=diff,
                               parity_depth2_launches=par_launches,
+                              parity_depth=PARITY_DEPTHS.get(arch,
+                                                             PARITY_DEPTH),
                               serve=fam_numbers)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    enc_diff, enc_par_launches = _encode_parity(dev)
+    enc_launches, enc_numbers = _encode(dev)
+    print(f"lm encode {ENCODER_ARCH} wall: {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     bf16_errs = [e for n, e in errors.items() if "fp32" not in n]
     per_prefill = {LM_ARCH: launches}
     per_prefill.update({a: f["launches_per_prefill"]
                         for a, f in families.items()})
+    radix_moe = dict(
+        rank_entry_moe=moe_rank,
+        launches_moe_path={a: f["serve"]["moe"] for a, f in families.items()
+                           if "moe" in f["serve"]})
     return dict(
         name="flash_attention", route="cuda",
         source="src/repro_torch/csrc/flash_attention_sm90.cu",
@@ -2819,7 +3211,11 @@ def phase_lm(dev):
         family_shapes=family_timings,
         parity_depth2_max_abs_diff=parity_diff,
         parity_depth2_launches=parity_launches, serve=numbers,
-        families=families)
+        families=families,
+        launches_per_encode={ENCODER_ARCH: enc_launches},
+        encoder=dict(parity_depth2_max_abs_diff=enc_diff,
+                     parity_depth2_launches=enc_par_launches,
+                     encode=enc_numbers)), radix_moe
 
 
 def phase_profile(dev, graphs, out_dir):
@@ -2931,7 +3327,8 @@ def main(argv) -> int:
     print(f"phase quality: {time.perf_counter() - t0:.1f} s")
     report["radix_hist"]["launches_quality_path"] = radix_quality
     t0 = time.perf_counter()
-    flash_entry = phase_lm(dev)
+    flash_entry, radix_moe = phase_lm(dev)
+    report["radix_hist"].update(radix_moe)
     print(f"phase lm: {time.perf_counter() - t0:.1f} s")
     masks = {k: b.edge_mask for k, b in base.items()}
     t0 = time.perf_counter()

@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, radix_hist
 
 U32_MASK = 0xFFFFFFFF
 UMAX = U32_MASK
@@ -65,8 +65,16 @@ def sort_f32_desc_stable(keys: torch.Tensor,
 
 def bucket_ranks(keys: torch.Tensor, n_buckets: int) -> torch.Tensor:
     """Stable rank of each element within its bucket (keys in
-    [0, n_buckets)), (L,) int64: the position in the stable order minus
-    the bucket's first position."""
+    [0, n_buckets)), (L,) int32: the count of equal keys before it.
+
+    Up to 256 buckets this is the rank output of one
+    `ops.bucket_rank_hist` call (the rank entry of `csrc/radix_hist.cu`
+    on a CUDA tensor, `bucket_rank_hist_plain` on a CPU one), as the
+    reference's `_digit_ranks_and_hist` is the jnp twin of the Pallas
+    kernel; above 256, the position in a stable radix argsort minus the
+    bucket's first position."""
+    if n_buckets <= radix_hist.NB:
+        return ops.bucket_rank_hist(keys.to(torch.int32).contiguous())[0]
     keys = keys.to(torch.int64)
     order = radix_argsort_u32(keys)
     counts = torch.bincount(keys, minlength=n_buckets)
@@ -74,7 +82,7 @@ def bucket_ranks(keys: torch.Tensor, n_buckets: int) -> torch.Tensor:
     rank = torch.empty_like(order)
     rank[order] = torch.arange(keys.shape[0], device=keys.device) \
         - starts[keys[order]]
-    return rank
+    return rank.to(torch.int32)
 
 
 def block_view(x: torch.Tensor, chunk: int, fill) -> torch.Tensor:

@@ -10,7 +10,9 @@ anything `np.asarray` reads) into the state dict of
     is taken as it is;
   * each leaf is stored in the dtype the reference reads it in
     (`leaf_dtype`). The reference keeps float32 params and casts each
-    where it is used: matmul weights, the embedding and the SSM's conv_w,
+    where it is used: matmul weights (MoE's router and its (E, d, f) /
+    (E, f, d) experts, the audio frontend's `frontend.proj` among them),
+    the embedding and the SSM's conv_w,
     conv_b and D to the activation dtype (`.astype(dt)`), which the port
     does once here, computing the same thing at half the memory in bf16
     (7.6 GB rather than 15.3 GB for phi3-mini-3.8b); the norm scales

@@ -1,11 +1,13 @@
-"""Model assembly of the port: the decoder LMs as an `nn.Module`.
+"""Model assembly of the port: the LMs of every family as an `nn.Module`.
 
-The port of `repro.models.model.LM` for the families this package
-serves: decoders with GQA attention (any head ratio, RoPE, optional
-sliding window) and a SwiGLU or GELU MLP (phi3, starcoder2, internlm2,
-chameleon); MLA attention with an MLP (minicpm3); the Mamba2/SSD layer
-alone (mamba2); and the hybrid block of parallel GQA and SSM heads with
-per-layer sliding windows (hymba). Its surface:
+The port of `repro.models.model.LM`: decoders with GQA attention (any
+head ratio, RoPE, optional sliding window) and a SwiGLU or GELU MLP
+(phi3, starcoder2, internlm2, chameleon) or an MoE FFN (granite-moe,
+dbrx; `models/moe.py`); MLA attention with an MLP (minicpm3); the
+Mamba2/SSD layer alone (mamba2); the hybrid block of parallel GQA and SSM
+heads with per-layer sliding windows (hymba); and the encoder with its
+audio frontend (hubert: bidirectional attention, a linear projection of
+frame features). Its surface:
 
     LM(cfg, generator=g)            weights drawn from g, on the card
     LM(cfg, generator=g, device=d)  weights drawn from g, placed on d
@@ -15,18 +17,25 @@ per-layer sliding windows (hymba). Its surface:
     init_caches(batch, max_len)     -> caches (one dict per layer)
     prefill(tokens, caches)         -> (last logits (B, V), caches)
     decode_step(tok, pos, caches)   -> (logits (B, V), caches)
+    run_layers(x, positions)        -> (x, the MoE aux loss), the layers
+    encode(features)                -> logits (B, T, V)     [encoder]
+
+The four decoder entries raise ValueError on an encoder, whose config
+has no decode step (`supports_decode`); `encode` raises on a decoder.
 
 Parameter names are the reference's pytree paths ("embedding",
-"layers.3.attn.wq", "layers.3.attn.kv_b", "layers.3.ssm.A_log", ...), and
-shapes its layouts. A layer's cache is the reference's too: {"attn": ...}
-and / or {"ssm": ...}. Matmul weights, the embedding and the SSM's conv_b
-and D are kept in the activation dtype; what the reference reads in
-float32 (norm scales, A_log, dt_bias) stays float32. The reference's
-`scan` and `unroll` layouts are both a `ModuleList` of layers; what the
-layout still decides is the reference's window rule (`scan` gives every
-layer `cfg.sliding_window`; hymba, the one config with a window, is
-`unroll`). Training's loss waits for the training slice. MoE and the
-encoder with its audio frontend raise NotImplementedError.
+"layers.3.attn.wq", "layers.3.mlp.router", "layers.3.ssm.A_log",
+"frontend.proj", ...), and shapes its layouts. A layer's cache is the
+reference's too: {"attn": ...} and / or {"ssm": ...}. Matmul weights,
+the embedding and the SSM's conv_b and D are kept in the activation
+dtype; what the reference reads in float32 (norm scales, A_log,
+dt_bias) stays float32. The reference's `scan` and `unroll` layouts are
+both a `ModuleList` of layers; what the layout still decides is the
+reference's window rule (`scan` gives every layer `cfg.sliding_window`;
+hymba, the one config with a window, is `unroll`). Training's loss
+waits for the training slice; `run_layers` already returns the MoE aux
+loss it adds, the reference's `_run_layers_train` (the mean over layers
+of each MoE layer's loss).
 
 The model lives on the CUDA device unless `device` asks for another
 (`core.sparsify.resolve_device`): without a card the default raises, and
@@ -43,23 +52,10 @@ from torch import nn
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.sparsify import resolve_device
 from repro_torch.models import attention as attn
-from repro_torch.models import ssm
+from repro_torch.models import moe, ssm
 from repro_torch.models.layers import (act_dtype, embed_tokens, init_mlp,
                                        init_normal, lm_logits, mlp, rms_scale,
                                        rmsnorm)
-
-# where the families not ported yet wait
-_LATER = "ROADMAP.md Queue 1, \"The rest of the LM stack\""
-
-
-def unsupported_reason(cfg: ArchConfig) -> Optional[str]:
-    """Why the port cannot build `cfg` yet, or None."""
-    if cfg.is_encoder or cfg.frontend == "audio":
-        return f"{cfg.name}: the encoder and its audio frontend"
-    if cfg.is_moe:
-        return f"{cfg.name}: MoE layers"
-    return None
-
 
 def layer_window(cfg: ArchConfig, idx: int) -> Optional[int]:
     """The reference's `_layer_window`: no window on global layers."""
@@ -80,8 +76,8 @@ def _param(x: torch.Tensor) -> nn.Parameter:
 class Block(nn.Module):
     """One pre-norm layer, the reference's `_block`: x + mixer(norm x),
     then + mlp(norm x) where d_ff > 0. The mixer is attention (GQA or
-    MLA), the SSM, or both in parallel on one normed input, averaged
-    (hybrid)."""
+    MLA; bidirectional in an encoder), the SSM, or both in parallel on
+    one normed input, averaged (hybrid); the MLP is dense or MoE."""
 
     def __init__(self, cfg: ArchConfig, dtype: torch.dtype,
                  generator: Optional[torch.Generator], device):
@@ -95,11 +91,14 @@ class Block(nn.Module):
             # built for the hybrid too, which normalises with attn_norm
             self.ssm_norm = _param(rms_scale(cfg.d_model, dev))
             self.ssm = _params(ssm.init_ssm(cfg, dtype, generator, dev))
+        self.causal = not cfg.is_encoder
         self.has_mlp = cfg.d_ff > 0
         if self.has_mlp:
             self.mlp_norm = _param(rms_scale(cfg.d_model, dev))
-            self.mlp = _params(init_mlp(cfg.d_model, cfg.d_ff, cfg.act,
-                                        dtype, generator, dev))
+            self.mlp = (moe.MoE(moe.init_moe(cfg, dtype, generator, dev))
+                        if cfg.is_moe else
+                        _params(init_mlp(cfg.d_model, cfg.d_ff, cfg.act,
+                                         dtype, generator, dev)))
 
     def _attention(self, cfg, h_in, positions, window, mode, cache, pos):
         if cfg.attn_type == "mla":
@@ -107,7 +106,7 @@ class Block(nn.Module):
                 return attn.mla_decode(self.attn, cfg, h_in, pos,
                                        cache["attn"])[0]
             y = attn.mla_attention(self.attn, cfg, h_in, positions,
-                                   causal=True)
+                                   causal=self.causal)
             if mode == "prefill":
                 attn.mla_fill_cache(self.attn, cfg, h_in, positions,
                                     cache["attn"])
@@ -115,8 +114,8 @@ class Block(nn.Module):
         if mode == "decode":
             return attn.gqa_decode(self.attn, cfg, h_in, pos, cache["attn"],
                                    window)[0]
-        y = attn.gqa_attention(self.attn, cfg, h_in, positions, causal=True,
-                               window=window)
+        y = attn.gqa_attention(self.attn, cfg, h_in, positions,
+                               causal=self.causal, window=window)
         if mode == "prefill":
             attn.gqa_fill_cache(self.attn, cfg, h_in, positions,
                                 cache["attn"], window)
@@ -133,9 +132,12 @@ class Block(nn.Module):
 
     def run(self, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor,
             window: Optional[int], mode: str, cache: Optional[Dict] = None,
-            pos: Optional[int] = None) -> Tuple[torch.Tensor, Optional[Dict]]:
+            pos: Optional[int] = None
+            ) -> Tuple[torch.Tensor, Optional[Dict], Optional[torch.Tensor]]:
         """mode: 'train' (full sequence), 'prefill' (also fills `cache`,
-        in place) or 'decode' (one token at `pos` against `cache`)."""
+        in place) or 'decode' (one token at `pos` against `cache`).
+        Returns (x, cache, the MoE layer's aux loss in 'train' mode, else
+        None)."""
         args = (positions, window, mode, cache, pos)
         if cfg.has_attention and cfg.has_ssm:   # hybrid: parallel heads
             h_in = rmsnorm(x, self.attn_norm, cfg.norm_eps)
@@ -148,22 +150,23 @@ class Block(nn.Module):
         else:                                    # pure SSM
             h_in = rmsnorm(x, self.ssm_norm, cfg.norm_eps)
             x = x + self._ssm(cfg, h_in, mode, cache)
+        aux = None
         if self.has_mlp:
-            x = x + mlp(self.mlp, rmsnorm(x, self.mlp_norm, cfg.norm_eps),
-                        cfg.act)
-        return x, cache
+            h_in = rmsnorm(x, self.mlp_norm, cfg.norm_eps)
+            if cfg.is_moe:
+                y, aux = self.mlp(cfg, h_in, with_aux=mode == "train")
+            else:
+                y = mlp(self.mlp, h_in, cfg.act)
+            x = x + y
+        return x, cache, aux
 
 
 class LM(nn.Module):
-    """A decoder LM (see the module docstring)."""
+    """An LM of any family (see the module docstring)."""
 
     def __init__(self, cfg: ArchConfig,
                  generator: Optional[torch.Generator] = None, device=None):
         super().__init__()
-        why = unsupported_reason(cfg)
-        if why is not None:
-            raise NotImplementedError(f"{why} is not ported yet; it waits "
-                                      f"for {_LATER}")
         if generator is None and device is None:
             raise ValueError("LM needs a generator to draw its weights, or "
                              "an explicit device to leave them empty on "
@@ -179,6 +182,10 @@ class LM(nn.Module):
             self.lm_head = _param(init_normal((v, d), d ** -0.5, self.dtype,
                                               generator, dev))
         self.final_norm = _param(rms_scale(d, dev))
+        if cfg.frontend == "audio":
+            self.frontend = _params({"proj": init_normal(
+                (cfg.feat_dim, d), cfg.feat_dim ** -0.5, self.dtype,
+                generator, dev)})
         self.layers = nn.ModuleList([Block(cfg, self.dtype, generator, dev)
                                      for _ in range(cfg.n_layers)])
         # the reference's scan layout gives every layer the config's window
@@ -196,6 +203,7 @@ class LM(nn.Module):
         """Each layer's family's cache: GQA's full or ring cache (by
         `layer_window`), MLA's latent cache, the SSM's state and conv
         window."""
+        self._decoder("init_caches")
         cfg, dt, dev = self.cfg, self.dtype, self.device
 
         def one(i: int) -> Dict[str, Any]:
@@ -216,11 +224,12 @@ class LM(nn.Module):
                 ) -> Tuple[torch.Tensor, List[Dict]]:
         """tokens: (B, S) int. Returns the logits of the last position
         (B, V) and the caches filled with positions 0..S-1."""
+        self._decoder("prefill")
         x, positions = self._embed_inputs(tokens)
         new_caches = []
         for blk, window, cache in zip(self.layers, self.windows, caches):
-            x, cache = blk.run(self.cfg, x, positions, window, "prefill",
-                               cache)
+            x, cache, _ = blk.run(self.cfg, x, positions, window,
+                                  "prefill", cache)
             new_caches.append(cache)
         x = rmsnorm(x[:, -1:, :], self.final_norm, self.cfg.norm_eps)
         return self._logits(x)[:, 0, :], new_caches
@@ -228,11 +237,12 @@ class LM(nn.Module):
     def decode_step(self, tok: torch.Tensor, pos: int, caches: List[Dict]
                     ) -> Tuple[torch.Tensor, List[Dict]]:
         """tok: (B, 1) int; pos: its absolute position (a Python int)."""
+        self._decoder("decode_step")
         x = embed_tokens(self.embedding, tok, self.dtype)
         new_caches = []
         for blk, window, cache in zip(self.layers, self.windows, caches):
-            x, cache = blk.run(self.cfg, x, None, window, "decode", cache,
-                               pos)
+            x, cache, _ = blk.run(self.cfg, x, None, window, "decode",
+                                  cache, pos)
             new_caches.append(cache)
         x = rmsnorm(x, self.final_norm, self.cfg.norm_eps)
         return self._logits(x)[:, 0, :], new_caches
@@ -241,13 +251,49 @@ class LM(nn.Module):
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         """Logits (B, S, V) of every position: the layers of the
         reference's `_run_layers_train`, then the final norm and head."""
+        self._decoder("forward")
         x, positions = self._embed_inputs(tokens)
+        x, _ = self.run_layers(x, positions)
+        x = rmsnorm(x, self.final_norm, self.cfg.norm_eps)
+        return self._logits(x)
+
+    def run_layers(self, x: torch.Tensor, positions: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The layers in 'train' mode, the reference's `_run_layers_train`:
+        (x, the MoE aux loss summed over layers over n_layers; 0 without
+        MoE layers)."""
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for blk, window in zip(self.layers, self.windows):
-            x, _ = blk.run(self.cfg, x, positions, window, "train")
+            x, _, a = blk.run(self.cfg, x, positions, window, "train")
+            if a is not None:
+                aux = aux + a
+        return x, aux / max(self.cfg.n_layers, 1)
+
+    # ---------- encoder ----------
+    def encode(self, features: torch.Tensor) -> torch.Tensor:
+        """features: (B, T, feat_dim) frame features -> logits (B, T, V):
+        the reference's `encode`. The features are cast to the activation
+        dtype and projected by `frontend.proj`; positions 0..T-1; the
+        layers (bidirectional attention) as in `forward`."""
+        if not self.cfg.is_encoder:
+            raise ValueError(f"{self.cfg.name} is a decoder: encode is the "
+                             f"encoder's entry")
+        feats = features.to(self.dtype)
+        x = torch.einsum("btf,fd->btd", feats,
+                         self.frontend["proj"].to(self.dtype))
+        b, t, _ = x.shape
+        positions = torch.arange(t, dtype=torch.int32,
+                                 device=x.device).expand(b, t)
+        x, _ = self.run_layers(x, positions)
         x = rmsnorm(x, self.final_norm, self.cfg.norm_eps)
         return self._logits(x)
 
     # ---------- internals ----------
+    def _decoder(self, entry: str) -> None:
+        if self.cfg.is_encoder:
+            raise ValueError(f"{self.cfg.name} is encoder-only: it has no "
+                             f"{entry} (use encode)")
+
     def _embed_inputs(self, tokens: torch.Tensor):
         x = embed_tokens(self.embedding, tokens, self.dtype)
         b, s = tokens.shape

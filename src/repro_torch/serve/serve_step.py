@@ -4,8 +4,10 @@ decode with persistent caches (KV, MLA's latent, the SSM's state).
 The port of `repro.serve.serve_step`. The model holds its weights (an
 `nn.Module`), so the steps take no `params`; a position is a Python int.
 On a CUDA model every prefill runs the flash-attention kernel once per
-attention layer (GQA or MLA; none for an SSM layer; `kernels/ops.py`
-counts the launches); decode is plain torch.
+attention layer (GQA or MLA; none for an SSM layer), and every prefill
+and decode step the radix rank kernel once per MoE layer (its dispatch
+ranks); `kernels/ops.py` counts the launches. Decode attention is plain
+torch. An encoder has no steps (`LM.encode` is its entry).
 """
 from __future__ import annotations
 

@@ -1,8 +1,10 @@
-"""Whole reduced models of the MLA, SSM and hybrid families against the
-JAX package, on the CPU: minicpm3-4b (MLA + MLP, `scan`), mamba2-370m
-(SSM blocks only, tied embeddings, `scan`) and hymba-1.5b (parallel GQA
+"""Whole reduced models of the MLA, SSM, hybrid and MoE families against
+the JAX package, on the CPU: minicpm3-4b (MLA + MLP, `scan`), mamba2-370m
+(SSM blocks only, tied embeddings, `scan`), hymba-1.5b (parallel GQA
 with a window of 16 on layer 1 and SSM heads, then the MLP, `unroll`),
-with the reference's weights carried across by `models/convert.py`.
+granite-moe-3b-a800m and dbrx-132b (GQA, then an MoE FFN of 4 experts,
+top 2, cf 8: no drops, so prefill + decode equals the full forward), with
+the reference's weights carried across by `models/convert.py`.
 
 Prefill and decode logits and the full forward against the reference's
 (1e-4), `generate`'s tokens equal to the reference's, prefill + decode
@@ -24,7 +26,8 @@ from repro_torch.serve import serve_step as tserve
 
 torch.set_num_threads(1)
 
-FAMILIES = ["minicpm3-4b", "mamba2-370m", "hymba-1.5b"]
+FAMILIES = ["minicpm3-4b", "mamba2-370m", "hymba-1.5b",
+            "granite-moe-3b-a800m", "dbrx-132b"]
 
 
 @pytest.fixture(scope="module")

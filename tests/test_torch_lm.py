@@ -6,7 +6,8 @@ models (phi3-mini-3.8b: SwiGLU, MHA; starcoder2-15b: GELU, GQA reduced to
 MQA) with the reference's weights carried across by `models/convert.py`;
 the carry-across, the port's own init and the full-size shapes of every
 family served (MLA, SSM and hybrid included; their layers and models are
-held in `test_torch_{mla,ssm,families}.py`). Inputs are made with numpy
+held in `test_torch_{mla,ssm,families}.py`; MoE's and the encoder's in
+`test_torch_{moe,encoder}.py`). Inputs are made with numpy
 from a seed and go through both packages; tolerances are `_torch_lm`'s.
 The `cuda` tests hold the model on the card against the CPU and skip here.
 """
@@ -30,7 +31,7 @@ from repro_torch.models import attention as tattn
 from repro_torch.models import convert
 from repro_torch.models import layers as tlayers
 from repro_torch.models import ssm as tssm
-from repro_torch.models.model import LM, unsupported_reason
+from repro_torch.models.model import LM
 from repro_torch.serve import serve_step as tserve
 
 torch.set_num_threads(1)
@@ -38,6 +39,8 @@ torch.set_num_threads(1)
 SERVED = ["phi3-mini-3.8b", "starcoder2-15b"]
 # the families of MLA, the SSM and the hybrid block
 NEW_FAMILIES = ["minicpm3-4b", "mamba2-370m", "hymba-1.5b"]
+# MoE and the encoder with its audio frontend
+MOE_AND_ENCODER = ["granite-moe-3b-a800m", "dbrx-132b", "hubert-xlarge"]
 
 
 @pytest.fixture(scope="module")
@@ -289,7 +292,7 @@ def test_convert_refuses_fused_weights(J):
 
 @pytest.mark.parametrize("name", ["phi3-mini-3.8b", "starcoder2-15b",
                                   "internlm2-20b", "chameleon-34b"]
-                         + NEW_FAMILIES)
+                         + NEW_FAMILIES + MOE_AND_ENCODER)
 def test_full_size_shapes_equal_reference(J, name):
     """At the published widths (on the meta device: nothing allocated),
     every parameter of the port has the shape of the reference's."""
@@ -373,15 +376,27 @@ def test_own_init_draws_the_reference_distributions(J):
     assert torch.equal(sd["layers.1.ssm_norm"], torch.ones(256))
     assert sd["layers.1.ssm.conv_b"].shape == (conv_dim,)
 
+    # MoE: granite at d_model 256, 16 experts of d_ff 512
+    ecfg = dataclasses.replace(
+        tconfigs.get_arch("granite-moe-3b-a800m").reduced(), d_model=256,
+        d_ff=512, n_experts=16)
+    sd = LM(ecfg, generator=torch.Generator().manual_seed(3),
+            device="cpu").state_dict()
+    for name, std in {"layers.0.mlp.router": 256 ** -0.5,
+                      "layers.0.mlp.wi": 256 ** -0.5,
+                      "layers.0.mlp.wg": 256 ** -0.5,
+                      "layers.1.mlp.wo": 512 ** -0.5}.items():
+        assert abs(float(sd[name].std()) / std - 1) < 0.05, name
+    assert sd["layers.0.mlp.wi"].shape == (16, 256, 512)
+    assert sd["layers.0.mlp.wo"].shape == (16, 512, 256)
 
-@pytest.mark.parametrize("name", ["dbrx-132b", "granite-moe-3b-a800m",
-                                  "hubert-xlarge"])
-def test_unported_families_raise(name):
-    cfg = tconfigs.get_arch(name).reduced()
-    assert unsupported_reason(cfg) is not None
-    with pytest.raises(NotImplementedError,
-                       match="Queue 1, \"The rest of the LM stack\""):
-        LM(cfg, device="meta")
+    # the audio frontend: hubert's projection of 512 features
+    acfg = dataclasses.replace(tconfigs.get_arch("hubert-xlarge").reduced(),
+                               feat_dim=512)
+    sd = LM(acfg, generator=torch.Generator().manual_seed(4),
+            device="cpu").state_dict()
+    assert sd["frontend.proj"].shape == (512, acfg.d_model)
+    assert abs(float(sd["frontend.proj"].std()) / 512 ** -0.5 - 1) < 0.05
 
 
 def test_lm_needs_a_generator_or_a_device():
@@ -430,18 +445,34 @@ def _cuda_reduced(name):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", SERVED + NEW_FAMILIES)
+@pytest.mark.parametrize("name", SERVED + NEW_FAMILIES + MOE_AND_ENCODER)
 def test_cuda_model_matches_cpu(cuda_device, name):
+    """generate and its steps' logits (an encode for the encoder), card
+    against CPU; a prefill and each decode step make one rank launch per
+    MoE layer."""
     cfg = _cuda_reduced(name)
     cpu_model = LM(cfg, generator=torch.Generator().manual_seed(7),
                    device="cpu")
     gpu_model = LM(cfg, device=cuda_device)
     gpu_model.load_state_dict(cpu_model.state_dict())
+    if cfg.is_encoder:
+        feats = torch.randn((2, 150, cfg.feat_dim),
+                            generator=torch.Generator().manual_seed(8))
+        ops.reset_launch_counts()
+        got = gpu_model.encode(feats.to(cuda_device))
+        counts = ops.launch_counts()
+        assert counts["flash_attention"] == sum(counts.values()) == \
+            cfg.n_layers
+        torch.testing.assert_close(got.cpu(), cpu_model.encode(feats),
+                                   atol=MODEL_TOL, rtol=MODEL_TOL)
+        return
     toks = torch.from_numpy(_tokens(cfg.vocab_size, 2, 150))
     ops.reset_launch_counts()
     got = tserve.generate(gpu_model, toks, 4, 160)
     assert ops.launch_counts()["flash_attention"] == (
         cfg.n_layers if cfg.has_attention else 0)
+    assert ops.launch_counts()["radix_hist"] == (
+        4 * cfg.n_layers if cfg.is_moe else 0)
     assert torch.equal(got.cpu(), tserve.generate(cpu_model, toks, 4, 160))
     want = _step_logits(cpu_model, toks, 4, 160)
     got = _step_logits(gpu_model, toks.to(cuda_device), 4, 160)

@@ -199,9 +199,9 @@ def test_hybrid_block_train_matches_reference(J, hymba, layer, s):
     want, _, _ = J.model._block(cfg, _jtree(J, params["layers"][layer]),
                                 J.jnp.asarray(x), J.jnp.asarray(pos),
                                 window=window, mode="train")
-    got, _ = model.layers[layer].run(tcfg, torch.from_numpy(x),
-                                     torch.from_numpy(pos),
-                                     model.windows[layer], "train")
+    got, _, _ = model.layers[layer].run(tcfg, torch.from_numpy(x),
+                                        torch.from_numpy(pos),
+                                        model.windows[layer], "train")
     close(got, want, MODEL_TOL)
 
 
@@ -220,8 +220,9 @@ def test_hybrid_block_prefill_and_decode_match_reference(J, hymba):
     want, jc, _ = J.model._block(cfg, p1, J.jnp.asarray(x[:, :s0]),
                                  J.jnp.asarray(pos), window=16,
                                  mode="prefill", cache=jc)
-    got, tc = model.layers[1].run(tcfg, torch.from_numpy(x[:, :s0]),
-                                  torch.from_numpy(pos), 16, "prefill", tc)
+    got, tc, _ = model.layers[1].run(tcfg, torch.from_numpy(x[:, :s0]),
+                                     torch.from_numpy(pos), 16, "prefill",
+                                     tc)
     close(got, want, MODEL_TOL, "prefill")
     for i in range(s0, s0 + steps):
         xi = x[:, i:i + 1]
@@ -229,8 +230,8 @@ def test_hybrid_block_prefill_and_decode_match_reference(J, hymba):
             cfg, p1, J.jnp.asarray(xi),
             J.jnp.full((b, 1), i, J.jnp.int32), window=16, mode="decode",
             cache=jc, pos=J.jnp.int32(i))
-        got, tc = model.layers[1].run(tcfg, torch.from_numpy(xi), None, 16,
-                                      "decode", tc, i)
+        got, tc, _ = model.layers[1].run(tcfg, torch.from_numpy(xi), None,
+                                         16, "decode", tc, i)
         close(got, want, MODEL_TOL, f"decode at {i}")
     close(tc["attn"]["k"], jc["attn"]["k"], MODEL_TOL, "ring k")
     assert np.array_equal(tc["attn"]["pos"].numpy(),
