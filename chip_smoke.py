@@ -112,7 +112,25 @@ Phases, in order; any failed check exits non-zero:
      the mma.sync route and no other kernel, the median encode ms, the
      device time by kernel kind, peak memory, and the bf16 logits
      against an fp32 encode of the same weights, rel. L2 <= 5e-2);
-  7. engines: the reference's other engines of `lgrass_sparsify` on the
+  7. train: the flash attention backward (`csrc/flash_attention_bwd.cu`,
+     three kernels a call) against the plain backward (autograd of the
+     plain version) at the families' flash shapes, Sq != Sk and -1
+     padding with rows that see no key, in fp32 (max abs <= 1e-4 x max
+     |grad| per tensor) and bf16 (rel. L2 <= 1e-2 per tensor against the
+     fp32 plain backward on the same inputs), two runs bit-equal, timed
+     at the families' shapes beside the plain backward, SDPA's backward
+     and the bound; a CUDA `ops.flash_attention` output's grad_fn; one
+     train step at full width and depth 2 in fp32, card against CPU, for
+     phi3, minicpm3, mamba2, hymba, granite (cf = E / k and 1.25) and
+     hubert's masked loss (loss, grad_norm, every moment and parameter,
+     launches); phi3-mini-3.8b (16 of 32 layers) and
+     granite-moe-3b-a800m (8 of 32) trained at full width, B = 4 x 2,048,
+     bf16 activations, float32 state, remat on, 1 + 4 steps (ms a step,
+     tokens/s, peak memory, busy share, device time by kind, launches a
+     step: flash forward 2 x layers, backward 1 x layers, rank 2 x MoE
+     layers); the `Trainer` on phi3's reduced config, 12 steps, a failure
+     at step 9 (one restart, equal replayed losses);
+  8. engines: the reference's other engines of `lgrass_sparsify` on the
      card, on case1-3 and feeder4k: bfs_engine="levels", recovery="host",
      auto_lift_bound=True, use_euler_lca=False (the kernels' lifting
      engine) and schedule="scan", parallel=True (lockstep, no MARK kernel),
@@ -121,7 +139,7 @@ Phases, in order; any failed check exits non-zero:
      to the baseline's, each call's wrapper launches counted, its wall and
      the scan engines' steps printed; then the quickstart twin
      (`repro_torch.examples.quickstart`);
-  8. batch: `lgrass_sparsify_batch` over [case1, case2, case3, feeder4k]
+  9. batch: `lgrass_sparsify_batch` over [case1, case2, case3, feeder4k]
      at the exact bucket and at the pow2 bucket (16,384, 65,536), and over
      [n = 160,000, case3], in both recovery modes: each lane's mask equal
      to its single-graph mask and the baseline's, launches per lane (mark
@@ -129,7 +147,7 @@ Phases, in order; any failed check exits non-zero:
      batch's wall beside the sum of its single calls;
      `recover_device_batched` from `phase1_device_batched` outputs; REC's
      device time on case3 alone and on its two padded lanes;
-  9. service: the serving plane, `SparsifyService`, on a stream of 24
+ 10. service: the serving plane, `SparsifyService`, on a stream of 24
      requests over 9 graphs (case1-3, feeder4k, a 1,600-node grid,
      random graphs of 3,000, 9,000 and 40,000 nodes, the last in the
      (65,536, 131,072) bucket past the reference's BFS and Euler switch
@@ -152,7 +170,7 @@ Phases, in order; any failed check exits non-zero:
      `phase1_device`'s, 1 + 4 MARK launches a call (its unsharded phase
      1, then one a shard), on case3 REC over its outputs equal to the
      baseline, its wall beside `phase1_device`'s;
- 10. walls, last (a CPU+CUDA torch.profiler session disturbs the device
+ 11. walls, last (a CPU+CUDA torch.profiler session disturbs the device
      times of later sessions): the case3 wall and device busy share with
      the MARK/REC kernels and with their plain loops on the card, in
      turns; one graph of n = 160,000 against its numpy baseline, with its
@@ -175,8 +193,13 @@ also carry `launches_engines_path`, `launches_batch_path` and
 calls, and mark `launches_sharded_path`, over the sharded phase 1's two
 timed calls; radix_hist also `launches_moe_path`, the rank launches of
 each MoE model's prefill, decode step and `generate` call, and
-`rank_entry_moe`, the rank entry's times at the MoE shapes. Each phase
-prints its wall time. Imports nothing of JAX or of `repro`.
+`rank_entry_moe`, the rank entry's times at the MoE shapes; flash_attention
+and radix_hist also `launches_train_path`, their launches a step of each
+full-width training run. `flash_attention_bwd` (no Pallas counterpart:
+its `replaces` names the reference's plain attention that jax.grad
+differentiates) counts its calls over phi3's five full-width steps, with
+`launches_per_train_step` per model and 3 CUDA kernels a launch. Each
+phase prints its wall time. Imports nothing of JAX or of `repro`.
 """
 from __future__ import annotations
 
@@ -2577,7 +2600,8 @@ def _profile(fn):
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    kinds = {"flash": 0.0, "gemm": 0.0, "radix": 0.0, "other": 0.0}
+    kinds = {"flash": 0.0, "flash_bwd": 0.0, "gemm": 0.0, "radix": 0.0,
+             "other": 0.0}
     launches = 0
     for e in prof.key_averages():
         if e.key == "cudaLaunchKernel":
@@ -2585,7 +2609,9 @@ def _profile(fn):
         if e.device_type != DeviceType.CUDA or e.is_user_annotation:
             continue
         key = e.key.lower()
-        if "flash_attention_" in key:
+        if "fa_bwd_" in key:
+            kind = "flash_bwd"
+        elif "flash_attention_" in key:
             kind = "flash"
         elif "radix_" in key:
             kind = "radix"
@@ -3218,6 +3244,515 @@ def phase_lm(dev):
                      encode=enc_numbers)), radix_moe
 
 
+# ------------------------------------------------------------------ train
+# the flash shapes on which the backward kernel is checked, each in fp32
+# and in bf16 (the case's own dtype is replaced): phi3, granite, dbrx,
+# hubert (bidirectional, d = 80), hymba's window and global layers,
+# minicpm3 (v zero-padded), Sq != Sk, -1 padding with rows that see no key
+BWD_CASES = ("phi3 prefill bf16", "granite prefill bf16",
+             "dbrx prefill bf16", "hubert encode bf16",
+             "hymba prefill bf16 window 1024", "hymba prefill bf16 global",
+             "minicpm3 prefill bf16", "ragged Sq=1000 Sk=1537 fp32",
+             "padding, empty rows bf16")
+BWD_TIMED = BWD_CASES[:7]   # the families' shapes, timed in bf16
+BWD_F32_TOL = 1e-4          # fp32: max abs err <= this x max |grad|
+BWD_BF16_REL_L2 = 1e-2      # bf16: per tensor, against the fp32 plain
+SDPA_BWD_KERNELS = ("flash_bwd", "fmha", "efficient_attention", "cudnn",
+                    "sdpa", "attention_backward")
+
+
+def _bwd_inputs(dev, name, dtype, seed):
+    """A flash case's q, k, v in `dtype`, its positions and mask, and an
+    output gradient (zero past FLASH_V_DIM, as MLA's slice gives it)."""
+    q, k, v, qp, kp, causal, window = _flash_inputs(dev, name, seed)
+    q, k, v = (x.to(dtype) for x in (q, k, v))
+    dout = torch.randn(q.shape, generator=torch.Generator(dev).manual_seed(
+        seed + 1), device=dev).to(dtype)
+    if name in FLASH_V_DIM:
+        dout[..., FLASH_V_DIM[name]:] = 0
+    return q, k, v, qp, kp, causal, window, dout
+
+
+def _flash_bwd_bound(q, k, v, qpos, kpos, causal, window) -> tuple:
+    """Bytes: q, k, v, out and dout read once, dq, dk and dv written once;
+    operations: the gradient's five products (S, dP, dV, dK, dQ) over the
+    visible (query, key) pairs of this run's positions, 10·d FLOP per pair
+    and query head, at the dtype's peak rate. The row-stats kernel's
+    recomputed S is not the function's work and is left out."""
+    from repro_torch.kernels import flash_attention as fa
+
+    b, _, h, d = q.shape
+    visible = int(fa.visible_mask(qpos, kpos, causal, window).sum())
+    n_bytes = 4 * (q.numel() + k.numel()) * q.element_size()
+    rate = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else FP32_OPS_PER_S
+    return bound_ms(n_bytes, 10 * d * b * h * visible, rate)
+
+
+def _check_flash_bwd(dev) -> dict:
+    """The backward kernel against the plain backward on the card at every
+    BWD_CASES shape: fp32 within BWD_F32_TOL x max |grad| per tensor,
+    bf16 within a relative L2 of BWD_BF16_REL_L2 per tensor against the
+    plain backward in fp32 on the same bf16 inputs; two runs bit-equal.
+    Returns {case dtype: max abs error}."""
+    from repro_torch.kernels import flash_attention as fa
+
+    errors = {}
+    for i, name in enumerate(BWD_CASES):
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v, qp, kp, causal, window, dout = _bwd_inputs(
+                dev, name, dt, 300 + i)
+            out = fa.flash_attention_cuda(q, k, v, qp, kp, causal, window)
+            got = fa.flash_attention_backward_cuda(dout, q, k, v, out, qp,
+                                                   kp, causal, window)
+            again = fa.flash_attention_backward_cuda(dout, q, k, v, out, qp,
+                                                     kp, causal, window)
+            torch.cuda.synchronize()
+            tag = f"{name.replace(' bf16', '').replace(' fp32', '')} " \
+                  f"{'fp32' if dt == torch.float32 else 'bf16'}"
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"flash backward: two runs differ at {tag}")
+            del again
+            want = fa.flash_attention_backward_plain(
+                dout.float(), q.float(), k.float(), v.float(), qp, kp,
+                causal, window)
+            parts, worst = [], 0.0
+            for tname, a, w in zip(("dq", "dk", "dv"), got, want):
+                diff = (a.float() - w).abs()
+                err, top = float(diff.max()), float(w.abs().max())
+                worst = max(worst, err)
+                if dt == torch.float32:
+                    ok = err <= BWD_F32_TOL * top
+                    parts.append(f"{tname} max abs {err:.3e} (max |grad| "
+                                 f"{top:.3e}, limit {BWD_F32_TOL:g} x)")
+                else:
+                    rel = float(torch.linalg.vector_norm(diff)
+                                / torch.linalg.vector_norm(w))
+                    ok = rel <= BWD_BF16_REL_L2
+                    parts.append(f"{tname} rel L2 {rel:.3e} (limit "
+                                 f"{BWD_BF16_REL_L2:g}), max abs {err:.3e}")
+                check(ok and bool(torch.isfinite(a).all()),
+                      f"flash backward {tag}: {tname} off its plain "
+                      f"backward: {parts[-1]}")
+            errors[tag] = worst
+            print(f"flash_attention_bwd {tag}: {'; '.join(parts)}; two "
+                  f"runs bit-equal")
+            del got, want, out, q, k, v, dout
+            torch.cuda.empty_cache()
+    return errors
+
+
+def _time_flash_bwd(dev, name) -> dict:
+    """The backward kernel at one case in bf16: CUDA-event and device time
+    (each of its three kernels too) beside the plain backward, SDPA's
+    backward alone on the same function (GQA by `enable_gqa`, a window as a
+    boolean mask, no mask where bidirectional) and the bound."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v, qp, kp, causal, window, dout = _bwd_inputs(
+        dev, name, torch.bfloat16, seed=9)
+    check(torch.equal(qp, kp), "the SDPA yardstick takes a square case")
+    out = fa.flash_attention_cuda(q, k, v, qp, kp, causal, window)
+    run = lambda: fa.flash_attention_backward_cuda(  # noqa: E731
+        dout, q, k, v, out, qp, kp, causal, window)
+    if window is not None:
+        how = dict(attn_mask=fa.visible_mask(qp, kp, causal, window))
+    else:
+        how = dict(is_causal=True) if causal else {}
+    if k.shape[2] != q.shape[2]:
+        how["enable_gqa"] = True
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                  for x in (q, k, v))
+    o = F.scaled_dot_product_attention(qt, kt, vt, **how)
+    gt = dout.transpose(1, 2)
+    sdpa_bwd = lambda: torch.autograd.grad(  # noqa: E731
+        o, (qt, kt, vt), gt, retain_graph=True)
+    b_ms, b_by = _flash_bwd_bound(q, k, v, qp, kp, causal, window)
+    t = dict(
+        ms=time_cuda(run, iters=10),
+        plain_ms=time_cuda(lambda: fa.flash_attention_backward_plain(
+            dout, q, k, v, qp, kp, causal, window), iters=2, warmup=1),
+        library_ms=time_cuda(sdpa_bwd, iters=10),
+        bound_ms=b_ms, bound_by=b_by,
+        at=f"B={q.shape[0]} S={q.shape[1]} H={q.shape[2]} Kv={k.shape[2]} "
+           f"d={q.shape[3]} bfloat16 "
+           + ("causal" if causal else "bidirectional")
+           + ("" if window is None else f" window {window}"),
+        library_call=("backward of F.scaled_dot_product_attention("
+                      + ", ".join(sorted(how) or ["no mask"]) + ")"))
+    t["device_ms"], by_kernel = device_profile(run, fa.BWD_KERNELS, iters=10)
+    t["device_ms_by_kernel"] = by_kernel
+    t["library_device_ms"], lib_kernels = device_profile(
+        sdpa_bwd, SDPA_BWD_KERNELS, iters=10, required=False)
+    t["library_kernels"] = sorted(lib_kernels)
+    del o
+    return t
+
+
+def _check_grad_fn(dev) -> None:
+    """A CUDA `ops.flash_attention` output whose inputs require grad has a
+    grad_fn, and its backward reaches q, k and v through the kernel."""
+    from repro_torch.kernels import ops
+
+    g = torch.Generator(dev).manual_seed(5)
+    q, k, v = (torch.randn((2, 96, 4, 64), generator=g, device=dev)
+               .to(torch.bfloat16).requires_grad_(True) for _ in range(3))
+    before = ops.launch_counts()["flash_attention_bwd"]
+    out = ops.flash_attention(q, k, v, causal=True)
+    check(out.grad_fn is not None, "a CUDA flash output has no grad_fn")
+    out.float().square().sum().backward()
+    check(ops.launch_counts()["flash_attention_bwd"] == before + 1,
+          "the CUDA flash output's backward did not launch the kernel")
+    check(all(x.grad is not None and float(x.grad.float().abs().max()) > 0
+              for x in (q, k, v)), "zero gradient through CUDA flash")
+    print(f"flash_attention grad_fn on the card: "
+          f"{type(out.grad_fn).__name__}; q, k, v gradients non-zero")
+
+
+# the card-vs-CPU train step: families at full width and depth 2, fp32
+# (granite at cf = E / k, where no pair drops, and at its own 1.25)
+TRAIN_PARITY = (("phi3-mini-3.8b", {}), ("minicpm3-4b", {}),
+                ("mamba2-370m", {}), ("hymba-1.5b", {}),
+                ("granite-moe-3b-a800m", {"capacity_factor": "E/k"}),
+                ("granite-moe-3b-a800m", {}), ("hubert-xlarge", {}))
+TRAIN_PARITY_BATCH, TRAIN_PARITY_SEQ = 2, 128
+# card vs CPU, fp32: the loss at rtol 1e-4 (the lm parity's); grad_norm,
+# mu and nu within TRAIN_GRAD_TOL of their leaf's max (cuBLAS and the
+# CPU sum the full-width products in other orders, and the backward
+# adds those of two more products per matmul); params within the
+# gradient tolerance carried through AdamW's first step (see
+# _close_params)
+TRAIN_GRAD_TOL = 1e-3
+TRAIN_OPT = dict(peak_lr=1e-3, warmup_steps=1, total_steps=10)
+# the full-width training runs: layers kept of each model
+TRAIN_DEPTH = {"phi3-mini-3.8b": 16, "granite-moe-3b-a800m": 8}
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_WARMUP, TRAIN_TIMED = 4, 2048, 1, 4
+
+
+def _path_counts(cfg) -> dict:
+    """The kernel launches one train step must make with cfg.remat on:
+    the flash forward twice per attention layer (the forward and its
+    recompute), its backward once, the rank kernel twice per MoE layer."""
+    attn = cfg.n_layers if cfg.has_attention else 0
+    moe_layers = cfg.n_layers if cfg.is_moe else 0
+    k = 2 if cfg.remat else 1
+    return dict(flash_attention=k * attn, flash_attention_bwd=attn,
+                radix_hist=k * moe_layers)
+
+
+def _check_step_counts(arch, counts, cfg, what):
+    want = _path_counts(cfg)
+    got = {k: counts[k] for k in want}
+    check(got == want, f"train {arch} {what}: launches {got}, not {want}")
+    check(sum(counts.values()) == sum(want.values()),
+          f"train {arch} {what}: another kernel of the port launched: "
+          f"{counts}")
+
+
+def _close_leaves(got, want, what) -> float:
+    """Each leaf within TRAIN_GRAD_TOL of its max (compared on got's
+    device); returns the worst |diff| / max over leaves."""
+    worst = 0.0
+    for name, w in want.items():
+        g = got[name].detach().float()
+        w = w.to(g.device)
+        top = float(w.abs().max())
+        err = float((g - w).abs().max())
+        worst = max(worst, err / max(top, 1e-30))
+        check(err <= TRAIN_GRAD_TOL * top + 1e-9,
+              f"{what} {name}: max abs diff {err:.3e} of max {top:.3e}")
+    return worst
+
+
+def _close_params(got, want, mu, lr, b1=0.9, eps=1e-8) -> int:
+    """Params after one step from zero moments: within 1e-6 + 1e-4·lr +
+    lr·swing, swing being the most that AdamW's first-step mhat /
+    sqrt(vhat) = g / (|g| + eps) moves over [g - δ, g + δ] (g the CPU's
+    clipped gradient, mu / (1 - b1); δ = TRAIN_GRAD_TOL (max |g| + |g|)):
+    an entry with |g| near eps may move by up to 2·lr. Compared on got's
+    device. Returns how many entries moved by more than 1e-6 + 1e-4·lr."""
+    swung = 0
+    for name, w in want.items():
+        g = got[name].detach()
+        gc = mu[name].detach().to(g.device).double() / (1 - b1)
+        top = float(gc.abs().max())
+        delta = TRAIN_GRAD_TOL * (top + gc.abs())
+        r = lambda x: x / (x.abs() + eps)  # noqa: E731
+        swing = torch.maximum((r(gc + delta) - r(gc)).abs(),
+                              (r(gc - delta) - r(gc)).abs())
+        diff = (g.double() - w.detach().to(g.device).double()).abs()
+        check(bool((diff <= 1e-6 + 1e-4 * lr + lr * swing).all()),
+              f"train parity params {name}: max abs diff "
+              f"{float(diff.max()):.3e}")
+        swung += int((diff > 1e-6 + 1e-4 * lr).sum())
+    return swung
+
+
+def _train_parity(dev, arch, changes) -> dict:
+    """One train step of `arch` at full width and depth 2 in fp32 on the
+    card against the same step on the CPU (weights drawn on a CPU
+    generator, the batch from the port's pipeline): the loss, grad_norm,
+    lr and every parameter and moment after the step, and the card's
+    launches (remat on there, off on the CPU, where it changes nothing)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import LM
+    from repro_torch.optim.optimizer import OptConfig
+    from repro_torch.train.train_step import make_train_state, make_train_step
+
+    base = get_arch(arch)
+    if changes.get("capacity_factor") == "E/k":
+        changes = dict(capacity_factor=base.n_experts / base.moe_top_k)
+    cfg = dataclasses.replace(base, n_layers=2, dtype="float32", **changes)
+    tag = arch + "".join(f" {k}={v:g}" for k, v in changes.items())
+    t0 = time.perf_counter()
+    cpu = LM(dataclasses.replace(cfg, remat=False),
+             generator=torch.Generator().manual_seed(0), device="cpu",
+             param_dtype=torch.float32)
+    gpu = LM(cfg, device=dev, param_dtype=torch.float32)
+    gpu.load_state_dict(cpu.state_dict())
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_PARITY_SEQ,
+                      global_batch=TRAIN_PARITY_BATCH, seed=11,
+                      is_encoder=cfg.is_encoder, feat_dim=cfg.feat_dim)
+    opt = OptConfig(**TRAIN_OPT)
+    s_gpu = make_train_state(gpu)
+    batch = TokenPipeline(data, device=dev).batch(0)
+    ops.reset_launch_counts()
+    s_gpu, m_gpu = make_train_step(gpu, opt)(s_gpu, batch)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    _check_step_counts(tag, counts, cfg, "parity step")
+    s_cpu = make_train_state(cpu)
+    s_cpu, m_cpu = make_train_step(cpu, opt)(
+        s_cpu, TokenPipeline(data, device="cpu").batch(0))
+    loss_c, loss_g = float(m_cpu["loss"]), float(m_gpu["loss"])
+    gn_c, gn_g = float(m_cpu["grad_norm"]), float(m_gpu["grad_norm"])
+    check(abs(loss_g - loss_c) <= 1e-4 * abs(loss_c),
+          f"train parity {tag}: loss {loss_g} on the card, {loss_c} on the "
+          f"CPU")
+    check(abs(gn_g - gn_c) <= TRAIN_GRAD_TOL * gn_c,
+          f"train parity {tag}: grad_norm {gn_g} vs {gn_c}")
+    check(float(m_gpu["lr"]) == float(m_cpu["lr"]), "train parity: lr")
+    worst = max(_close_leaves(s_gpu["opt"][k], s_cpu["opt"][k], k)
+                for k in ("mu", "nu"))
+    swung = _close_params(s_gpu["params"], s_cpu["params"],
+                          s_cpu["opt"]["mu"], float(m_cpu["lr"]))
+    n = sum(p.numel() for p in cpu.parameters())
+    wall = time.perf_counter() - t0
+    print(f"train parity {tag} depth 2 fp32 B={TRAIN_PARITY_BATCH} "
+          f"S={TRAIN_PARITY_SEQ}: loss card {loss_g:.6f} CPU {loss_c:.6f}, "
+          f"grad_norm {gn_g:.6f} vs {gn_c:.6f}, mu/nu worst diff / max "
+          f"{worst:.3e} (limit {TRAIN_GRAD_TOL:g}), params past 1e-4 lr: "
+          f"{swung} of {n} (all within the carried tolerance); launches "
+          f"per step {counts}; {wall:.1f} s")
+    del cpu, gpu, s_cpu, s_gpu
+    torch.cuda.empty_cache()
+    return dict(loss=loss_g, loss_cpu=loss_c, grad_norm=gn_g,
+                grad_norm_cpu=gn_c, moment_worst_rel=worst,
+                params_swung=swung, params=n, launches_per_step=counts)
+
+
+def _train_full(dev, arch) -> dict:
+    """`arch` at full width, cut to TRAIN_DEPTH layers, bf16 activations,
+    float32 state, remat on: TRAIN_WARMUP + TRAIN_TIMED steps of
+    TRAIN_BATCH x TRAIN_SEQ tokens through make_train_state /
+    make_train_step, each step's launches checked; then one step under
+    the profiler. Returns the run's numbers."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import LM
+    from repro_torch.optim.optimizer import OptConfig
+    from repro_torch.train.train_step import make_train_state, make_train_step
+
+    full = get_arch(arch)
+    cfg = dataclasses.replace(full, n_layers=TRAIN_DEPTH[arch])
+    check(cfg.remat and cfg.dtype == "bfloat16",
+          f"{arch}: the training run wants remat and bf16 activations")
+    cut = f"{cfg.n_layers} of {full.n_layers} layers"
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = LM(cfg, generator=torch.Generator(dev).manual_seed(0),
+               device=dev, param_dtype=torch.float32)
+    state = make_train_state(model)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n = sum(p.numel() for p in model.parameters())
+    state_gb = 16 * n / 1e9   # params, grads, mu, nu: float32 each
+    print(f"train {arch}: depth cut to {cut} (full width), {n / 1e9:.3f} B "
+          f"params, {state_gb:.1f} GB of float32 params, grads and "
+          f"moments; built in {init_s:.1f} s")
+    step = make_train_step(model, OptConfig(peak_lr=3e-4, warmup_steps=2,
+                                            total_steps=100))
+    data = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size,
+                                    seq_len=TRAIN_SEQ,
+                                    global_batch=TRAIN_BATCH, seed=5),
+                         device=dev)
+    walls, losses, norms, counts = [], [], [], None
+    for i in range(TRAIN_WARMUP + TRAIN_TIMED):
+        batch = data.batch(i)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        counts = ops.launch_counts()
+        _check_step_counts(arch, counts, cfg, f"step {i}")
+        check(np.isfinite(loss), f"train {arch}: loss {loss} at step {i}")
+        check(np.isfinite(gnorm) and gnorm > 0,
+              f"train {arch}: grad_norm {gnorm} at step {i}")
+        losses.append(loss)
+        norms.append(gnorm)
+    timed = walls[TRAIN_WARMUP:]
+    step_ms = statistics.median(timed)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    batch = data.batch(TRAIN_WARMUP + TRAIN_TIMED)
+    prof = _profile(lambda: step(state, batch))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # matmul FLOP of the step from the shapes: 6·N·tokens (forward and
+    # backward) plus 2·N·tokens for the recompute, N the non-embedding
+    # params of the layers and the lm head
+    layer_params = n - cfg.vocab_size * cfg.d_model * (
+        1 if cfg.tie_embeddings else 2)
+    head = cfg.vocab_size * cfg.d_model
+    if cfg.is_moe:
+        d, f, e, k = cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.moe_top_k
+        per_expert = (3 if cfg.act == "swiglu" else 2) * d * f
+        layer_params -= cfg.n_layers * (e - k) * per_expert  # active only
+    gemm_flop = 8 * layer_params * tokens + 6 * head * tokens
+    numbers = dict(
+        arch=arch, cut=cut, params=n, state_gb=state_gb, batch=TRAIN_BATCH,
+        seq=TRAIN_SEQ, init_s=init_s, step_ms=step_ms, step_ms_runs=walls,
+        tokens_per_s=tokens / step_ms * 1e3, losses=losses,
+        grad_norms=norms, peak_memory_gb=peak_gb,
+        busy_share=prof["busy_share"], profile_ms=prof,
+        launches_per_step=counts, gemm_flop_per_step=gemm_flop,
+        gemm_tflop_per_s_of_step=gemm_flop / step_ms / 1e9)
+    print(f"train {arch} B={TRAIN_BATCH} S={TRAIN_SEQ} ({cut}): step "
+          f"{step_ms:.1f} ms (median of {TRAIN_TIMED}; warm-up "
+          f"{walls[0]:.1f} ms), {numbers['tokens_per_s']:.0f} tokens/s, "
+          f"peak memory {peak_gb:.2f} GB, busy share "
+          f"{prof['busy_share']:.3f}, device ms by kind: gemm "
+          f"{prof['gemm']:.1f}, flash fwd {prof['flash']:.1f}, flash bwd "
+          f"{prof['flash_bwd']:.1f}, rank {prof['radix']:.1f}, other "
+          f"{prof['other']:.1f}; launches per step {counts}; losses "
+          f"{[round(x, 4) for x in losses]}")
+    del model, state, step
+    torch.cuda.empty_cache()
+    return numbers
+
+
+def _train_trainer(dev) -> dict:
+    """The fault-tolerant Trainer on the card at phi3-mini-3.8b's reduced
+    config: 12 steps, a checkpoint every 4, a failure injected at step 9:
+    one restart from step 8, and the replayed steps' losses equal to the
+    first run's within 1e-4."""
+    import tempfile
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.ft.elastic import FailureInjector, FaultConfig
+    from repro_torch.models.model import LM
+    from repro_torch.optim.optimizer import OptConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = get_arch("phi3-mini-3.8b").reduced()
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        model = LM(cfg, device=dev, param_dtype=torch.float32)
+        data = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size,
+                                        seq_len=16, global_batch=4, seed=1),
+                             device=dev)
+        t0 = time.perf_counter()
+        out = Trainer(
+            model, data, OptConfig(peak_lr=5e-3, warmup_steps=3,
+                                   total_steps=12),
+            TrainerConfig(total_steps=12, log_every=100), ckpt_dir,
+            fault_cfg=FaultConfig(ckpt_every=4, max_restarts=3),
+            failure_injector=FailureInjector((9,))).run()
+        wall = time.perf_counter() - t0
+    steps = [h["step"] for h in out["history"]]
+    check(out["restarts"] == 1, f"trainer: {out['restarts']} restarts")
+    check(steps == list(range(9)) + list(range(8, 12)),
+          f"trainer: steps {steps}")
+    by_step = {}
+    for h in out["history"]:
+        by_step.setdefault(h["step"], []).append(h["loss"])
+    replay = {s: ls for s, ls in by_step.items() if len(ls) > 1}
+    diff = max(abs(ls[0] - ls[1]) for ls in replay.values())
+    check(diff < 1e-4, f"trainer: replayed losses differ by {diff}")
+    print(f"train Trainer {cfg.name} reduced on the card: 12 steps, "
+          f"checkpoint every 4, failure at step 9: restarts "
+          f"{out['restarts']}, steps {steps}, replayed step 8 losses "
+          f"{replay[8]} (max diff {diff:.3e}), {wall:.2f} s")
+    return dict(restarts=out["restarts"], steps=steps,
+                replay_max_diff=diff, wall_s=wall)
+
+
+def phase_train(dev) -> tuple:
+    """The training path on the card: the flash backward against its plain
+    backward at every BWD_CASES shape and timed at the families' shapes,
+    a CUDA flash output's grad_fn; the card-vs-CPU train step of each
+    TRAIN_PARITY family; the full-width runs of TRAIN_DEPTH; the reduced
+    Trainer with a restart. Returns the flash_attention_bwd entry of the
+    kernels line and the train-path launches that the flash_attention and
+    radix_hist entries gain."""
+    from repro_torch.kernels import flash_attention as fa
+
+    t0 = time.perf_counter()
+    _check_grad_fn(dev)
+    errors = _check_flash_bwd(dev)
+    timings = {}
+    for name in BWD_TIMED:
+        timings[name] = _time_flash_bwd(dev, name)
+        print(f"flash_attention_bwd timings {name} "
+              f"{timings[name]['at']}: {json.dumps(timings[name])}")
+    print(f"train backward checks and timings: "
+          f"{time.perf_counter() - t0:.1f} s")
+    parity = {}
+    for arch, changes in TRAIN_PARITY:
+        res = _train_parity(dev, arch, changes)
+        parity[arch + "".join(f" {k}" for k in changes)] = res
+    runs = {arch: _train_full(dev, arch) for arch in TRAIN_DEPTH}
+    trainer = _train_trainer(dev)
+    print(f"train numbers: {json.dumps(dict(runs=runs, parity=parity, trainer=trainer))}")
+    at = timings["phi3 prefill bf16"]
+    per_step = {a: r["launches_per_step"] for a, r in runs.items()}
+    main = "phi3-mini-3.8b"
+    entry = dict(
+        name="flash_attention_bwd", route="cuda",
+        source="src/repro_torch/csrc/flash_attention_bwd.cu",
+        replaces="src/repro/models/attention.py:144",
+        replaces_note="no Pallas counterpart: the reference differentiates "
+                      "its plain jnp attention (gqa_attention's "
+                      "use_flash=False path) with jax.grad",
+        cuda_kernels=list(fa.BWD_KERNELS), cuda_kernels_per_launch=3,
+        launches=(TRAIN_WARMUP + TRAIN_TIMED)
+        * per_step[main]["flash_attention_bwd"],
+        launches_per_train_step={a: c["flash_attention_bwd"]
+                                 for a, c in per_step.items()},
+        max_abs_err=max(e for n, e in errors.items() if "bf16" in n),
+        max_abs_err_fp32=max(e for n, e in errors.items() if "fp32" in n),
+        max_abs_err_per_case=errors,
+        ms=at["ms"], device_ms=at["device_ms"], plain_ms=at["plain_ms"],
+        bound_ms=at["bound_ms"], bound_by=at["bound_by"],
+        library_ms=at["library_ms"], library_call=at["library_call"],
+        at=at["at"], family_shapes=timings)
+    gains = dict(
+        flash_attention={a: c["flash_attention"]
+                         for a, c in per_step.items()},
+        radix_hist={a: c["radix_hist"] for a, c in per_step.items()})
+    return entry, gains
+
+
 def phase_profile(dev, graphs, out_dir):
     """One profiled lgrass_sparsify call per graph (name -> graph): the
     busy share and each stage's host and device time; the table goes to
@@ -3330,6 +3865,11 @@ def main(argv) -> int:
     flash_entry, radix_moe = phase_lm(dev)
     report["radix_hist"].update(radix_moe)
     print(f"phase lm: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    bwd_entry, train_gains = phase_train(dev)
+    flash_entry["launches_train_path"] = train_gains["flash_attention"]
+    report["radix_hist"]["launches_train_path"] = train_gains["radix_hist"]
+    print(f"phase train: {time.perf_counter() - t0:.1f} s")
     masks = {k: b.edge_mask for k, b in base.items()}
     t0 = time.perf_counter()
     eng_counts, eng_rows = phase_engines(dev, graphs, masks, big, big_oracle)
@@ -3369,7 +3909,7 @@ def main(argv) -> int:
     print(f"card: {card}")
     print(json.dumps({"kernels": [report["radix_hist"], report["tree_dist"],
                                   report["mark"], report["rec"], spmv_entry,
-                                  bit_entry, flash_entry]}))
+                                  bit_entry, flash_entry, bwd_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -27,7 +27,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("radix_hist.cu", "tree_dist.cu", "spmv.cu",
            "bitmap_intersect.cu", "flash_attention.cu",
-           "flash_attention_sm90.cu", "mark.cu", "recover.cu")
+           "flash_attention_sm90.cu", "flash_attention_bwd.cu", "mark.cu",
+           "recover.cu")
 # included by the sources, hashed with them
 HEADERS = ("smem_limit.cuh", "tree_dist.cuh", "euler_lca.cuh",
            "ball_pair.cuh")
@@ -52,6 +53,8 @@ SIGNATURES = {
                               + (_I, _I, _F, _P),
     "flash_attention_wgmma_launch": (_P,) * 6 + (_I,) * 6 + (_LL,) * 9
                                     + (_I, _I, _F, _P),
+    "flash_attention_bwd_launch": (_P,) * 12 + (_I,) * 7 + (_LL,) * 15
+                                  + (_I, _I, _F, _P),
     "mark_scratch_bytes": (_I,),
     "mark_launch": (_I,) + (_P,) * 5 + (_I, _I) + (_P,) * 8 + (_I,) * 3
                    + (_P,) * 5,

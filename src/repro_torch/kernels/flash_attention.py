@@ -33,6 +33,17 @@ Two executions of the one function:
 `bf16_agreement` is the bound that the checks hold a bfloat16 output to.
 
 `kernels/ops.py` picks between them by the tensors' device.
+
+The gradient. `FlashAttention` is the autograd function of the CUDA
+path: its forward is `flash_attention_cuda`, unchanged, and its backward
+`flash_attention_backward_cuda`, three hand-written kernels of
+`csrc/flash_attention_bwd.cu` (row stats, dK/dV, dQ) in one call,
+counted in `bwd_launches`. It takes the forward's dtypes and head dims,
+and raises on any other; there is no fallback. The plain version needs
+no such function, since autograd differentiates it;
+`flash_attention_backward_plain` is that gradient, for the checks.
+Above `_banded_swa`'s condition the plain version computes a causal
+window banded, as the reference's CPU path does.
 """
 from __future__ import annotations
 
@@ -58,6 +69,10 @@ BF16_MAX_ABS = 3e-2  # the reference's own bf16 tolerance, kept as a ceiling
 
 # CUDA launches since the last reset (kernels/ops.py), by route
 launches = dict.fromkeys(ROUTES, 0)
+# the backward's CUDA kernels, launched in this order by one call
+BWD_KERNELS = ("fa_bwd_stats", "fa_bwd_dkv", "fa_bwd_dq")
+# backward calls since the last reset (three CUDA kernels each)
+bwd_launches = 0
 
 
 def cuda_route(dtype: torch.dtype, d: int) -> str:
@@ -97,13 +112,60 @@ def _attend_plain(q, k, v, qpos, kpos, causal, window):
     return out.reshape(b, sq, h, d).to(q.dtype)
 
 
+def _banded_swa(q, k, v, window: int):
+    """Causal sliding-window attention over positions 0..S-1 as a banded
+    two-block computation, the reference's `_banded_swa`
+    (repro.models.attention:113-141): each window-sized query chunk
+    attends only to [the previous, its own] key chunks, O(S·2w) scores
+    instead of O(S²). Exact where S % w == 0; fp32 scores and P·V in
+    fp32, as `_attend_plain`."""
+    b, s, h, d = q.shape
+    kvh = k.shape[2]
+    g, w = h // kvh, window
+    nw = s // w
+    kc = k.reshape(b, nw, w, kvh, d).to(torch.float32)
+    vc = v.reshape(b, nw, w, kvh, d).to(torch.float32)
+    k2 = torch.cat([torch.roll(kc, 1, dims=1), kc], dim=2)
+    v2 = torch.cat([torch.roll(vc, 1, dims=1), vc], dim=2)
+    pq = torch.arange(s, device=q.device).reshape(nw, w)
+    # chunk 0 has no previous chunk: its rolled positions are invalid
+    prev = torch.roll(pq, 1, dims=0)
+    prev[0] = -1
+    pk = torch.cat([prev, pq], dim=1)                       # (nw, 2w)
+    qg = q.reshape(b, nw, w, kvh, g, d).to(torch.float32)
+    sc = torch.einsum("bnwkgd,bntkd->bnkgwt", qg, k2) * (d ** -0.5)
+    qi, kj = pq[:, None, None, :, None], pk[:, None, None, None, :]
+    mask = (kj >= 0) & (kj <= qi) & (kj > qi - w)
+    sc = torch.where(mask, sc, torch.full((), NEG_INF, dtype=sc.dtype,
+                                          device=sc.device))
+    p = torch.softmax(sc, dim=-1)
+    out = torch.einsum("bnkgwt,bntkd->bnwkgd", p, v2)
+    return out.reshape(b, s, h, d).to(q.dtype)
+
+
+def _banded(q, k, qpos, kpos, causal, window) -> bool:
+    """The reference's condition for `_banded_swa` (causal, a window,
+    S % w == 0, S >= 2w), on self-attention over positions 0..S-1."""
+    s = q.shape[1]
+    if not (causal and window is not None and k.shape[1] == s
+            and s % window == 0 and s >= 2 * window):
+        return False
+    pos = torch.arange(s, device=qpos.device)
+    return bool(torch.equal(qpos.to(pos.dtype), pos)
+                and torch.equal(kpos.to(pos.dtype), pos))
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           qpos: torch.Tensor, kpos: torch.Tensor,
                           causal: bool = True,
                           window: Optional[int] = None) -> torch.Tensor:
     """Plain version: q (B, Sq, H, d), k/v (B, Sk, Kv, d) → (B, Sq, H, d)
     in q's dtype; the query heads of a group share their kv head by a
-    reshape, not a copy."""
+    reshape, not a copy. A causal window over positions 0..S-1 under the
+    reference's condition goes banded (`_banded_swa`), the same function
+    at O(S·2w) memory."""
+    if _banded(q, k, qpos, kpos, causal, window):
+        return _banded_swa(q, k, v, window)
     sq = q.shape[1]
     if sq <= CHUNK_THRESHOLD:
         return _attend_plain(q, k, v, qpos, kpos, causal, window)
@@ -244,3 +306,93 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
     launches[route] += 1
     return out
+
+
+def flash_attention_backward_plain(dout: torch.Tensor, q: torch.Tensor,
+                                   k: torch.Tensor, v: torch.Tensor,
+                                   qpos: torch.Tensor, kpos: torch.Tensor,
+                                   causal: bool = True,
+                                   window: Optional[int] = None) -> tuple:
+    """(dq, dk, dv) of the plain version at (q, k, v) for the output
+    gradient dout, by torch.autograd.grad under torch.enable_grad(): the
+    yardstick of the backward kernel (not valid under inference_mode)."""
+    with torch.enable_grad():
+        leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        out = flash_attention_plain(*leaves, qpos, kpos, causal, window)
+        return torch.autograd.grad(out, leaves, dout)
+
+
+def flash_attention_backward_cuda(dout: torch.Tensor, q: torch.Tensor,
+                                  k: torch.Tensor, v: torch.Tensor,
+                                  out: torch.Tensor, qpos: torch.Tensor,
+                                  kpos: torch.Tensor, causal: bool = True,
+                                  window: Optional[int] = None) -> tuple:
+    """The gradient of `flash_attention_cuda` by the three kernels of
+    `csrc/flash_attention_bwd.cu`, launched in order on the current stream
+    of q's device: dout and out (B, Sq, H, d) beside the forward's inputs,
+    each read through its strides (a tensor they cannot read in place is
+    copied). Returns contiguous (dq, dk, dv) in q's dtype. A dtype or head
+    dim the kernels do not take raises ValueError."""
+    dev = q.device
+    for name, x in (("dout", dout), ("q", q), ("k", k), ("v", v),
+                    ("out", out), ("qpos", qpos), ("kpos", kpos)):
+        if x.device != dev or dev.type != "cuda":
+            raise ValueError(f"{name} must be on q's CUDA device, got "
+                             f"{x.device}")
+    check_kernel_args(q, k, v, qpos, kpos, window)
+    if (out.shape != q.shape or dout.shape != q.shape
+            or out.dtype != q.dtype or dout.dtype != q.dtype):
+        raise ValueError(f"out {tuple(out.shape)} {out.dtype} and dout "
+                         f"{tuple(dout.shape)} {dout.dtype} must have q's "
+                         f"shape and dtype, {tuple(q.shape)} {q.dtype}")
+    q, k, v, out, dout = (x if _readable(x) else x.clone(
+        memory_format=torch.contiguous_format)
+        for x in (q, k, v, out, dout))
+    qpos = qpos.to(torch.int32).contiguous()
+    kpos = kpos.to(torch.int32).contiguous()
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=dev)
+    dk = torch.empty((b, sk, kvh, d), dtype=q.dtype, device=dev)
+    dv = torch.empty((b, sk, kvh, d), dtype=q.dtype, device=dev)
+    if dq.numel() == 0 or dk.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
+    from repro_torch.kernels._build import library
+
+    strides = [st for x in (q, k, v, out, dout) for st in x.stride()[:3]]
+    with torch.cuda.device(dev):
+        err = library().flash_attention_bwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), qpos.data_ptr(), kpos.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), DTYPES[q.dtype], b, h, kvh, sq, sk, d, *strides,
+            int(causal), 0 if window is None else int(window),
+            float(d ** -0.5), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention backward launch failed: CUDA "
+                           f"error {err}")
+    global bwd_launches
+    bwd_launches += 1
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """`flash_attention_cuda` with its gradient: the forward kernel as it
+    is, and `flash_attention_backward_cuda` from the saved q, k, v, out and
+    positions."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, qpos, kpos, causal, window):
+        out = flash_attention_cuda(q, k, v, qpos, kpos, causal, window)
+        ctx.save_for_backward(q, k, v, out, qpos, kpos)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, qpos, kpos = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward_cuda(
+            dout, q, k, v, out, qpos, kpos, ctx.causal, ctx.window)
+        return dq, dk, dv, None, None, None, None

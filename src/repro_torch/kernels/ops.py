@@ -26,6 +26,7 @@ _COUNTERS = {
     "arc_sum": (spmv, "arc_sum_launches"),
     "bitmap_intersect": (bitmap_intersect, "launches"),
     "flash_attention": (fa, "launches"),
+    "flash_attention_bwd": (fa, "bwd_launches"),
 }
 
 
@@ -142,13 +143,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     kpos: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q: (B, Sq, H, d); k/v: (B, Sk, Kv, d), query head h reading kv
     head h // (H / Kv). qpos (Sq,) / kpos (Sk,) default to 0..S-1; -1
-    marks padding. Returns (B, Sq, H, d) in q's dtype."""
+    marks padding. Returns (B, Sq, H, d) in q's dtype. On a CUDA tensor
+    the output carries the kernel's gradient (`fa.FlashAttention`); on a
+    CPU tensor autograd differentiates the plain version."""
     if qpos is None:
         qpos = torch.arange(q.shape[1], dtype=torch.int32, device=q.device)
     if kpos is None:
         kpos = torch.arange(k.shape[1], dtype=torch.int32, device=k.device)
     if _route(q) == "cuda":
-        return fa.flash_attention_cuda(q, k, v, qpos, kpos, causal, window)
+        return fa.FlashAttention.apply(q, k, v, qpos, kpos, causal, window)
     return fa.flash_attention_plain(q, k, v, qpos, kpos, causal, window)
 
 

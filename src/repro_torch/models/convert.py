@@ -22,6 +22,11 @@ anything `np.asarray` reads) into the state dict of
     optimisation) are refused: the port has the unfused layout only.
 
 `from_reference(cfg, params, device)` builds the port's `LM` from them.
+`from_reference_train_state(cfg, state)` carries a train state across:
+the reference's {"params", "opt": {"mu", "nu", "step"}, ["err"]} (as
+numpy arrays: a restored checkpoint, or `jax.device_get` of a live
+state) becomes the port's (`train/train_step.make_train_state`), every
+leaf float32, keyed by the port's parameter names, from either layout.
 The tests use this, not the port's own init, for parity with the
 reference: the port's init draws the same distributions from a
 `torch.Generator`, whose bits differ from `jax.random`'s.
@@ -68,23 +73,48 @@ def _layers(cfg: ArchConfig, layers: Any) -> Iterator[Tuple[int, Any]]:
             yield i, dict(_leaves(tree, ""))
 
 
-def reference_state_dict(cfg: ArchConfig,
-                         params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """The port's state dict of the reference's params (see above)."""
-    dt = act_dtype(cfg.dtype)
-
-    def tensor(name: str, x) -> torch.Tensor:
-        if name.rsplit(".", 1)[-1] in FUSED:
-            raise ValueError(f"{name}: fused weights are not ported; build "
-                             f"the reference without 'fused_qkv'")
-        t = torch.from_numpy(np.array(x, dtype=np.float32))
-        return t.to(leaf_dtype(name, dt))
-
+def float32_leaves(cfg: ArchConfig,
+                    params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """Each leaf of a params-shaped tree as a float32 tensor under the
+    port's name, layers unstacked (scan) or taken from the list (unroll);
+    fused weights refused."""
     flat = {name: x for name, x in _leaves(
         {k: v for k, v in params.items() if k != "layers"}, "")}
     for i, layer in _layers(cfg, params["layers"]):
         flat.update({f"layers.{i}.{name}": x for name, x in layer.items()})
-    return {name: tensor(name, x) for name, x in flat.items()}
+    for name in flat:
+        if name.rsplit(".", 1)[-1] in FUSED:
+            raise ValueError(f"{name}: fused weights are not ported; build "
+                             f"the reference without 'fused_qkv'")
+    return {name: torch.from_numpy(np.array(x, dtype=np.float32))
+            for name, x in flat.items()}
+
+
+def reference_state_dict(cfg: ArchConfig,
+                         params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The port's state dict of the reference's params (see above)."""
+    dt = act_dtype(cfg.dtype)
+    return {name: t.to(leaf_dtype(name, dt))
+            for name, t in float32_leaves(cfg, params).items()}
+
+
+def from_reference_train_state(cfg: ArchConfig,
+                               state: Dict[str, Any]) -> Dict[str, Any]:
+    """The port's train state of the reference's: {"params": {name: float32
+    tensor}, "opt": {"mu": ..., "nu": ..., "step": int32 scalar}} and, where
+    the reference's has it (compression's error feedback), "err", each
+    params-shaped tree keyed by the port's parameter names (the
+    reference's pytree paths). CPU tensors; `train_step.load_train_state`
+    copies them into a model's train state."""
+    opt = state["opt"]
+    out = {"params": float32_leaves(cfg, state["params"]),
+           "opt": {"mu": float32_leaves(cfg, opt["mu"]),
+                   "nu": float32_leaves(cfg, opt["nu"]),
+                   "step": torch.tensor(int(np.asarray(opt["step"])),
+                                        dtype=torch.int32)}}
+    if "err" in state:
+        out["err"] = float32_leaves(cfg, state["err"])
+    return out
 
 
 def from_reference(cfg: ArchConfig, params: Dict[str, Any],

@@ -6,8 +6,8 @@ tensors: each takes its weights as arguments, in the reference's layouts
 activation's dtype at use as the reference does (a no-op for the port's
 own parameters, which `models/model.py` keeps in that dtype already).
 The reference's `ParamSet` becomes the `nn.Module` parameters of
-`models/model.py`; `init_normal` draws its distributions. Training's
-`cross_entropy` waits for the training slice.
+`models/model.py`; `init_normal` draws its distributions.
+`cross_entropy` is training's loss, `LM.loss_fn`'s.
 """
 from __future__ import annotations
 
@@ -110,3 +110,26 @@ def act_dtype(dtype_name: str) -> torch.dtype:
 def rms_scale(dim: int, device=None) -> torch.Tensor:
     """A norm scale at its init value: ones in float32."""
     return torch.ones((dim,), dtype=torch.float32, device=device)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None,
+                  real_vocab: int = 0) -> torch.Tensor:
+    """Mean CE in float32, the reference's `cross_entropy`: padded vocab
+    columns (past `real_vocab`) get -1e9 added (not set), then logsumexp
+    minus the gold logit (a gather); with `mask`, the masked mean over
+    max(Σ mask, 1)."""
+    logits = logits.to(torch.float32)
+    v = logits.shape[-1]
+    if real_vocab and real_vocab < v:
+        # + 0 leaves the real columns as they are
+        pad = torch.zeros((v,), dtype=torch.float32, device=logits.device)
+        pad[real_vocab:] = -1e9
+        logits = logits + pad
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.to(torch.int64)[..., None])[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        mask = mask.to(torch.float32)
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)

@@ -13,12 +13,15 @@ frame features). Its surface:
     LM(cfg, generator=g, device=d)  weights drawn from g, placed on d
     LM(cfg, device=d)               empty weights on d, for
                                     `load_state_dict` (`models/convert.py`)
+    LM(cfg, ..., param_dtype=torch.float32)
+                                    float32 leaves, for training
     forward(tokens)                 -> logits (B, S, V), the full sequence
     init_caches(batch, max_len)     -> caches (one dict per layer)
     prefill(tokens, caches)         -> (last logits (B, V), caches)
     decode_step(tok, pos, caches)   -> (logits (B, V), caches)
     run_layers(x, positions)        -> (x, the MoE aux loss), the layers
     encode(features)                -> logits (B, T, V)     [encoder]
+    loss_fn(batch)                  -> (loss, metrics)      [train]
 
 The four decoder entries raise ValueError on an encoder, whose config
 has no decode step (`supports_decode`); `encode` raises on a decoder.
@@ -32,10 +35,14 @@ dtype; what the reference reads in float32 (norm scales, A_log,
 dt_bias) stays float32. The reference's `scan` and `unroll` layouts are
 both a `ModuleList` of layers; what the layout still decides is the
 reference's window rule (`scan` gives every layer `cfg.sliding_window`;
-hymba, the one config with a window, is `unroll`). Training's loss
-waits for the training slice; `run_layers` already returns the MoE aux
-loss it adds, the reference's `_run_layers_train` (the mean over layers
-of each MoE layer's loss).
+hymba, the one config with a window, is `unroll`). `run_layers` is the
+reference's `_run_layers_train`: it returns the MoE aux loss (the mean
+over layers of each MoE layer's loss) and, where `cfg.remat` is set and
+autograd records, wraps each layer in `torch.utils.checkpoint`
+(non-reentrant) as the reference wraps its layer body in
+`jax.checkpoint`: the backward runs the layer's forward again, its flash
+and rank kernels included. `loss_fn` is the reference's: CE + aux for a
+decoder, the masked CE over `labels` and `mask` for the encoder.
 
 The model lives on the CUDA device unless `device` asks for another
 (`core.sparsify.resolve_device`): without a card the default raises, and
@@ -48,14 +55,16 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.sparsify import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import moe, ssm
-from repro_torch.models.layers import (act_dtype, embed_tokens, init_mlp,
-                                       init_normal, lm_logits, mlp, rms_scale,
-                                       rmsnorm)
+from repro_torch.models.layers import (act_dtype, cross_entropy,
+                                       embed_tokens, init_mlp, init_normal,
+                                       lm_logits, mlp, rms_scale, rmsnorm)
+
 
 def layer_window(cfg: ArchConfig, idx: int) -> Optional[int]:
     """The reference's `_layer_window`: no window on global layers."""
@@ -165,7 +174,8 @@ class LM(nn.Module):
     """An LM of any family (see the module docstring)."""
 
     def __init__(self, cfg: ArchConfig,
-                 generator: Optional[torch.Generator] = None, device=None):
+                 generator: Optional[torch.Generator] = None, device=None,
+                 param_dtype: Optional[torch.dtype] = None):
         super().__init__()
         if generator is None and device is None:
             raise ValueError("LM needs a generator to draw its weights, or "
@@ -174,19 +184,21 @@ class LM(nn.Module):
         target = resolve_device(device)
         self.cfg = cfg
         self.dtype = act_dtype(cfg.dtype)
+        # the dtype of the leaves that are not float32 by nature
+        pdt = self.dtype if param_dtype is None else param_dtype
         dev = generator.device if generator is not None else target
         v, d = cfg.vocab_size, cfg.d_model
-        self.embedding = _param(init_normal((v, d), 0.02, self.dtype,
-                                            generator, dev))
+        self.embedding = _param(init_normal((v, d), 0.02, pdt, generator,
+                                            dev))
         if not cfg.tie_embeddings:
-            self.lm_head = _param(init_normal((v, d), d ** -0.5, self.dtype,
+            self.lm_head = _param(init_normal((v, d), d ** -0.5, pdt,
                                               generator, dev))
         self.final_norm = _param(rms_scale(d, dev))
         if cfg.frontend == "audio":
             self.frontend = _params({"proj": init_normal(
-                (cfg.feat_dim, d), cfg.feat_dim ** -0.5, self.dtype,
-                generator, dev)})
-        self.layers = nn.ModuleList([Block(cfg, self.dtype, generator, dev)
+                (cfg.feat_dim, d), cfg.feat_dim ** -0.5, pdt, generator,
+                dev)})
+        self.layers = nn.ModuleList([Block(cfg, pdt, generator, dev)
                                      for _ in range(cfg.n_layers)])
         # the reference's scan layout gives every layer the config's window
         self.windows = [cfg.sliding_window if cfg.layout == "scan"
@@ -261,13 +273,46 @@ class LM(nn.Module):
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
         """The layers in 'train' mode, the reference's `_run_layers_train`:
         (x, the MoE aux loss summed over layers over n_layers; 0 without
-        MoE layers)."""
+        MoE layers). With `cfg.remat`, while autograd records, each layer
+        is a non-reentrant `torch.utils.checkpoint`: its activations are
+        recomputed in the backward."""
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        remat = self.cfg.remat and torch.is_grad_enabled()
         for blk, window in zip(self.layers, self.windows):
-            x, _, a = blk.run(self.cfg, x, positions, window, "train")
+            if remat:
+                x, a = checkpoint(self._train_layer, blk, x, positions,
+                                  window, use_reentrant=False)
+            else:
+                x, a = self._train_layer(blk, x, positions, window)
             if a is not None:
                 aux = aux + a
         return x, aux / max(self.cfg.n_layers, 1)
+
+    def _train_layer(self, blk: Block, x: torch.Tensor,
+                     positions: torch.Tensor, window: Optional[int]):
+        x, _, a = blk.run(self.cfg, x, positions, window, "train")
+        return x, a
+
+    # ---------- train ----------
+    def loss_fn(self, batch: Dict[str, torch.Tensor]
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The reference's `loss_fn`. A decoder's batch holds `tokens` and
+        `labels` (B, S) and may hold a `mask`: (CE + aux, {loss, ce,
+        aux}). The encoder's holds `features` (B, T, feat_dim), `labels`
+        and `mask`: (the masked CE over the real vocab, {loss})."""
+        cfg = self.cfg
+        if cfg.is_encoder:
+            logits = self.encode(batch["features"])
+            loss = cross_entropy(logits, batch["labels"], batch["mask"],
+                                 cfg.real_vocab_size)
+            return loss, {"loss": loss}
+        x, positions = self._embed_inputs(batch["tokens"])
+        x, aux = self.run_layers(x, positions)
+        x = rmsnorm(x, self.final_norm, cfg.norm_eps)
+        ce = cross_entropy(self._logits(x), batch["labels"],
+                           batch.get("mask"), cfg.real_vocab_size)
+        loss = ce + aux
+        return loss, {"loss": loss, "ce": ce, "aux": aux}
 
     # ---------- encoder ----------
     def encode(self, features: torch.Tensor) -> torch.Tensor:

@@ -154,8 +154,9 @@ def moe_ffn(params: Dict, cfg: ArchConfig, x: torch.Tensor,
 
 
 class MoE(nn.ParameterDict):
-    """An MoE layer's weights (`init_moe`, frozen) as a module whose call
-    is `moe_ffn(self, cfg, x, with_aux)`."""
+    """An MoE layer's weights (`init_moe`; no gradient unless a train
+    state sets one) as a module whose call is `moe_ffn(self, cfg, x,
+    with_aux)`."""
 
     __call__ = nn.Module.__call__   # a ParameterDict refuses calls
 

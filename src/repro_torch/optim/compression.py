@@ -1,0 +1,64 @@
+"""Gradient compression with error feedback: the port of
+`repro.optim.compression`.
+
+Two schemes, each re-injecting its compression error next step:
+
+  * top-k sparsification: keep the entries of g + err whose |value| is at
+    least the k-th largest (k = max(1, ⌊n·frac⌋)), so ties at the
+    threshold are all kept, as the reference's `>=` keeps them;
+  * int8 row-wise quantisation: absmax per row of the leaf's first axis
+    over 127 (at least 1e-12), values rounded half to even and clipped to
+    ±127.
+
+The reference's `compressed_psum` (an int8 all-reduce across devices)
+waits for the port's sharding (`models/sharding.py`).
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+
+
+def topk_compress(g: torch.Tensor, frac: float, err: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Keep the top `frac` of entries (by |value|) of g + err; the rest
+    feeds err. Returns (sent in g's dtype, new err in float32)."""
+    acc = g.to(torch.float32) + err
+    flat = acc.reshape(-1)
+    k = max(1, int(flat.shape[0] * frac))
+    thresh = torch.topk(torch.abs(flat), k).values[-1]
+    sent = torch.where(torch.abs(acc) >= thresh, acc,
+                       torch.zeros((), dtype=acc.dtype, device=acc.device))
+    return sent.to(g.dtype), acc - sent
+
+
+def int8_quantize(g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Row-wise absmax int8. Returns (q (rows, cols) int8, scale (rows, 1))."""
+    g32 = g.to(torch.float32)
+    flat = g32.reshape(g32.shape[0], -1) if g32.dim() > 1 else g32[None, :]
+    scale = torch.amax(torch.abs(flat), dim=-1, keepdim=True) / 127.0
+    scale = torch.clamp(scale, min=1e-12)
+    q = torch.clamp(torch.round(flat / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def int8_dequantize(q: torch.Tensor, scale: torch.Tensor,
+                    shape) -> torch.Tensor:
+    return (q.to(torch.float32) * scale).reshape(shape)
+
+
+def int8_roundtrip(g: torch.Tensor, err: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """g + err through int8 and back. Returns (sent in g's dtype, new err)."""
+    acc = g.to(torch.float32) + err
+    q, s = int8_quantize(acc)
+    deq = int8_dequantize(q, s, acc.shape)
+    return deq.to(g.dtype), acc - deq
+
+
+def init_error_state(params: Dict[str, torch.Tensor]
+                     ) -> Dict[str, torch.Tensor]:
+    """Zero float32 error feedback for each parameter."""
+    return {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+            for k, p in params.items()}

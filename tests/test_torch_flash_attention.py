@@ -604,3 +604,213 @@ def test_cuda_wgmma_reads_strided_and_transposed_inputs(cuda_device, d):
     want = ops.flash_attention(*(x.contiguous() for x in views), causal=True)
     assert torch.equal(ops.flash_attention(*views, causal=True), want)
     assert torch.equal(ops.flash_attention(*bhsd, causal=True), want)
+
+
+# -- the gradient: the plain backward, the banded window, the kernel --------
+# The plain version's gradient (`flash_attention_backward_plain`, autograd
+# through it) against jax.vjp of the reference's oracle and of its model
+# path `_masked_softmax_attend`, in float32: atol = rtol = BWD_TOL (each
+# gradient sums up to 128 products in another order, on top of the
+# forward's 2e-5). `_masked_softmax_attend` has no key padding, so it
+# takes the cases without -1 positions.
+BWD_TOL = 5e-5
+
+
+def _bwd_cases():
+    """(b, sq, sk, h, kv, d, qpos, kpos, causal, window) per name."""
+    qpad, kpad = _padded_positions(96, 96)
+    return {
+        "causal": (2, 64, 64, 4, 4, 16, None, None, True, None),
+        "bidirectional": (2, 48, 48, 2, 2, 32, None, None, False, None),
+        "window": (1, 96, 96, 4, 2, 16, None, None, True, 24),
+        "GQA 6/2": (1, 64, 64, 6, 2, 16, None, None, True, None),
+        "MQA 4/1 window": (2, 64, 64, 4, 1, 16, None, None, True, 16),
+        "Sq != Sk": (2, 40, 104, 4, 2, 16, np.arange(64, 104), None, True,
+                     None),
+        "padding, empty rows": (2, 96, 96, 4, 2, 16, qpad, kpad, True,
+                                None),
+        "padding, window": (1, 96, 96, 2, 2, 16, qpad, kpad, True, 20),
+    }
+
+
+def _bwd_inputs(name):
+    b, sq, sk, h, kv, d, qpos, kpos, causal, window = _bwd_cases()[name]
+    q, k, v = _qkv(len(name), b, sq, sk, h, kv, d)
+    dout = np.random.default_rng(len(name) + 1).standard_normal(
+        q.shape).astype(np.float32)
+    qpos = np.arange(sq) if qpos is None else qpos
+    kpos = np.arange(sk) if kpos is None else kpos
+    return q, k, v, dout, qpos, kpos, causal, window
+
+
+def _jax_vjp(J, fn, q, k, v, dout):
+    import jax
+
+    _, vjp = jax.vjp(fn, *(J.jnp.asarray(x) for x in (q, k, v)))
+    return [np.asarray(g) for g in vjp(J.jnp.asarray(dout))]
+
+
+def _plain_grads(q, k, v, dout, qpos, kpos, causal, window):
+    return [g.numpy() for g in fa.flash_attention_backward_plain(
+        _t(dout), _t(q), _t(k), _t(v), _t(qpos, torch.int32),
+        _t(kpos, torch.int32), causal, window)]
+
+
+@pytest.mark.parametrize("case", sorted(_bwd_cases()))
+def test_plain_backward_matches_jax_vjp_of_oracle(J, case):
+    q, k, v, dout, qpos, kpos, causal, window = _bwd_inputs(case)
+    b, sq, h, d = q.shape
+    g = h // k.shape[2]
+    jnp = J.jnp
+
+    def oracle(q, k, v):
+        kr, vr = jnp.repeat(k, g, axis=2), jnp.repeat(v, g, axis=2)
+        bhsd = lambda x: x.transpose(0, 2, 1, 3).reshape(  # noqa: E731
+            b * h, x.shape[1], d)
+        o = J.ref.flash_attention_ref(
+            bhsd(q), bhsd(kr), bhsd(vr), jnp.asarray(qpos, jnp.int32),
+            jnp.asarray(kpos, jnp.int32), causal=causal, window=window)
+        return o.reshape(b, h, sq, d).transpose(0, 2, 1, 3)
+
+    want = _jax_vjp(J, oracle, q, k, v, dout)
+    got = _plain_grads(q, k, v, dout, qpos, kpos, causal, window)
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(a, w, atol=BWD_TOL, rtol=BWD_TOL,
+                                   err_msg=name)
+    if "empty" in case:  # rows with no visible key give dq = 0
+        empty = ~fa.visible_mask(_t(qpos, torch.int32),
+                                 _t(kpos, torch.int32), causal,
+                                 window).any(-1).numpy()
+        assert empty.any() and not got[0][:, empty].any()
+
+
+@pytest.mark.parametrize("case", [c for c in sorted(_bwd_cases())
+                                  if "padding" not in c])
+def test_plain_backward_matches_jax_vjp_of_model_path(J, case):
+    from repro.models.attention import _masked_softmax_attend
+
+    q, k, v, dout, qpos, kpos, causal, window = _bwd_inputs(case)
+    b, kv, d = q.shape[0], k.shape[2], q.shape[3]
+    jq = J.jnp.broadcast_to(J.jnp.asarray(qpos), (b, len(qpos)))
+    jk = J.jnp.broadcast_to(J.jnp.asarray(kpos), (b, len(kpos)))
+    want = _jax_vjp(J, lambda q, k, v: _masked_softmax_attend(
+        q, k, v, kv, d ** -0.5, jq, jk, causal, window), q, k, v, dout)
+    got = _plain_grads(q, k, v, dout, qpos, kpos, causal, window)
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(a, w, atol=BWD_TOL, rtol=BWD_TOL,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("b,s,h,kv,d,w", [
+    (2, 128, 4, 2, 16, 32),
+    (1, 96, 2, 1, 8, 16),
+    (2, 64, 4, 4, 32, 32),
+    (1, 256, 8, 2, 8, 64),
+])
+def test_banded_swa_matches_reference(J, b, s, h, kv, d, w):
+    """The plain version's windowed branch takes the reference's banded
+    path (tests/test_attention_paths.py:18's shapes) and equals the
+    reference's `_banded_swa` and its gradient (atol = rtol = 2e-5 and
+    BWD_TOL), and the dense plain version."""
+    from repro.models.attention import _banded_swa
+
+    q, k, v = _qkv(s + w, b, s, s, h, kv, d)
+    pos = np.arange(s)
+    tpos = _t(pos, torch.int32)
+    assert fa._banded(_t(q), _t(k), tpos, tpos, True, w)
+    got = fa.flash_attention_plain(_t(q), _t(k), _t(v), tpos, tpos, True, w)
+    jpos = J.jnp.broadcast_to(J.jnp.asarray(pos), (b, s))
+    fn = lambda q, k, v: _banded_swa(  # noqa: E731
+        q, k, v, jpos, kv, d ** -0.5, w)
+    want = np.asarray(fn(*(J.jnp.asarray(x) for x in (q, k, v))))
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-5, rtol=2e-5)
+    dense = fa._attend_plain(_t(q), _t(k), _t(v), tpos, tpos, True, w)
+    np.testing.assert_allclose(got.numpy(), dense.numpy(), atol=2e-5,
+                               rtol=2e-5)
+    dout = np.random.default_rng(s).standard_normal(q.shape).astype(
+        np.float32)
+    for name, a, wg in zip(("dq", "dk", "dv"),
+                           _plain_grads(q, k, v, dout, pos, pos, True, w),
+                           _jax_vjp(J, fn, q, k, v, dout)):
+        np.testing.assert_allclose(a, wg, atol=BWD_TOL, rtol=BWD_TOL,
+                                   err_msg=name)
+
+
+def test_banded_condition_is_the_references():
+    """Banded only for causal self-attention over 0..S-1 with S % w == 0
+    and S >= 2w; anything else takes the dense plain version."""
+    q, k, _ = (_t(x) for x in _qkv(1, 1, 64, 64, 2, 2, 8))
+    pos = torch.arange(64, dtype=torch.int32)
+    assert fa._banded(q, k, pos, pos, True, 32)
+    assert not fa._banded(q, k, pos, pos, True, 48)    # S % w != 0
+    assert not fa._banded(q, k, pos, pos, True, 64)    # S < 2w
+    assert not fa._banded(q, k, pos, pos, False, 16)   # bidirectional
+    assert not fa._banded(q, k, pos, pos, True, None)
+    assert not fa._banded(q, k, pos + 1, pos + 1, True, 16)
+    assert not fa._banded(q[:, :32], k, pos[:32], pos, True, 16)
+
+
+def test_cpu_autograd_differentiates_the_plain_version():
+    """On a CPU tensor `ops.flash_attention` is the plain version, which
+    autograd differentiates (no kernel, no count)."""
+    q, k, v, dout, qpos, kpos, causal, window = _bwd_inputs("GQA 6/2")
+    ops.reset_launch_counts()
+    leaves = [_t(x).requires_grad_(True) for x in (q, k, v)]
+    out = ops.flash_attention(*leaves, causal=causal)
+    out.backward(_t(dout))
+    want = _plain_grads(q, k, v, dout, qpos, kpos, causal, window)
+    for x, w in zip(leaves, want):
+        np.testing.assert_array_equal(x.grad.numpy(), w)
+    assert ops.launch_counts()["flash_attention_bwd"] == 0
+
+
+def test_backward_kernel_refuses_what_it_does_not_take():
+    """The CUDA backward's checks run before any launch: CPU tensors, a
+    head dim outside HEAD_DIMS, mismatched out / dout."""
+    q, k, v = (_t(x) for x in _qkv(2, 1, 8, 8, 2, 2, 16))
+    pos = torch.arange(8, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        fa.flash_attention_backward_cuda(q, q, k, v, q, pos, pos)
+    meta = [x.to("meta") for x in (q, k, v)]
+    with pytest.raises(ValueError):
+        fa.flash_attention_backward_cuda(meta[0], *meta, meta[0],
+                                         pos.to("meta"), pos.to("meta"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(_bwd_cases()))
+def test_cuda_backward_kernel_equals_plain(cuda_device, case, dtype):
+    """The backward kernel against the plain backward on the card: fp32
+    at 1e-4 x max |grad|, bf16 at a relative L2 of 1e-2 against the fp32
+    plain backward on the same bf16 inputs; two runs bit-equal; one
+    launch counted per backward through `ops.flash_attention`."""
+    q, k, v, dout, qpos, kpos, causal, window = _bwd_inputs(case)
+    dt = getattr(torch, dtype)
+    q, k, v, dout = (_t(x, dt).to(cuda_device) for x in (q, k, v, dout))
+    qpos, kpos = (_t(x, torch.int32).to(cuda_device) for x in (qpos, kpos))
+    out = fa.flash_attention_cuda(q, k, v, qpos, kpos, causal, window)
+    got = fa.flash_attention_backward_cuda(dout, q, k, v, out, qpos, kpos,
+                                           causal, window)
+    again = fa.flash_attention_backward_cuda(dout, q, k, v, out, qpos, kpos,
+                                             causal, window)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = fa.flash_attention_backward_plain(
+        dout.float(), q.float(), k.float(), v.float(), qpos, kpos, causal,
+        window)
+    for a, w in zip(got, want):
+        diff = (a.float() - w).abs()
+        if dt == torch.float32:
+            assert float(diff.max()) <= 1e-4 * float(w.abs().max())
+        else:
+            assert float(torch.linalg.vector_norm(diff)
+                         / torch.linalg.vector_norm(w)) <= 1e-2
+    leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    before = ops.launch_counts()["flash_attention_bwd"]
+    res = ops.flash_attention(*leaves, causal=causal, window=window,
+                              qpos=qpos, kpos=kpos)
+    assert res.grad_fn is not None
+    res.backward(dout)
+    assert ops.launch_counts()["flash_attention_bwd"] == before + 1
+    for x, a in zip(leaves, got):
+        assert torch.equal(x.grad, a)

@@ -95,7 +95,7 @@ def test_ops_route_by_device_and_never_count_cpu_calls():
     assert ops.launch_counts() == {
         "radix_hist": 0, "tree_dist": 0, "mark": 0, "rec": 0,
         "laplacian_spmv": 0, "arc_sum": 0, "bitmap_intersect": 0,
-        "flash_attention": 0}
+        "flash_attention": 0, "flash_attention_bwd": 0}
     with pytest.raises(ValueError):
         ops.bucket_rank_hist(torch.zeros(10, dtype=torch.int32,
                                          device="meta"))
