@@ -291,10 +291,10 @@ PROFILE_PAD_S = 0.005    # idle host time at each end of a traced window
 
 def _traced_kernels(fn, prefixes, iters: int) -> tuple:
     """One torch.profiler trace of `iters` calls of fn: (busy us, {name:
-    ms per call}) of the CUDA kernels whose names contain a prefix. The
-    window is padded with idle host time at both ends, so that a kernel
-    whose device timestamps sit a little off the host's clock still lands
-    inside the trace's capture window."""
+    ms per call}, {name: records}) of the CUDA kernels whose names contain
+    a prefix. The window is padded with idle host time at both ends, so
+    that a kernel whose device timestamps sit a little off the host's
+    clock still lands inside the trace's capture window."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -304,7 +304,7 @@ def _traced_kernels(fn, prefixes, iters: int) -> tuple:
             fn()
         torch.cuda.synchronize()
         time.sleep(PROFILE_PAD_S)
-    spans, by_kernel = [], {}
+    spans, by_kernel, records = [], {}, {}
     for e in prof.events():
         hit = [p for p in prefixes if p in e.name]
         if e.device_type != DeviceType.CUDA or not hit:
@@ -313,15 +313,16 @@ def _traced_kernels(fn, prefixes, iters: int) -> tuple:
         spans.append((t0, t1))
         name = e.name[e.name.index(hit[0]):].split("(")[0]
         by_kernel[name] = by_kernel.get(name, 0.0) + (t1 - t0) / iters / 1e3
+        records[name] = records.get(name, 0) + 1
     busy_us, end = 0.0, float("-inf")
     for t0, t1 in sorted(spans):
         busy_us += max(0.0, t1 - max(t0, end))
         end = max(end, t1)
-    return busy_us, by_kernel
+    return busy_us, by_kernel, records
 
 
 def device_profile(fn, kernel_prefix, iters: int = 20,
-                   required: bool = True) -> tuple:
+                   required: bool = True, every_call: bool = False) -> tuple:
     """Device time of `iters` calls of fn, from a torch.profiler trace,
     for the CUDA kernels (and memsets) whose names contain
     `kernel_prefix` (a string, or a tuple of them): the card's own time,
@@ -331,18 +332,26 @@ def device_profile(fn, kernel_prefix, iters: int = 20,
     interval}). With required=False, (None, {}) when no such kernel ran.
 
     A trace can come back without the kernels that ran in it (CUPTI
-    delivered none of their records): a required one is traced again, up
-    to PROFILE_TRIES times, and after that the CUDA-event time of the
-    same calls is returned with {} and a line saying so. Whether the
-    kernel ran at all is the launch counters' and the output checks'
-    business, not this timer's."""
+    delivered none of their records), or, late in a full run, with only
+    some of them (seen as a tenth of the time, one call's records of
+    ten): a required one is traced again, up to PROFILE_TRIES times, and
+    after that the CUDA-event time of the same calls is returned with {}
+    and a line saying so. `every_call`, where each of fn's kernels runs
+    the same number of times in every call, makes a trace that holds a
+    kernel's records a number of times not a multiple of `iters` a
+    failed one, traced again up to PROFILE_TRIES times even where not
+    required. Whether the kernel ran at all is the launch counters' and
+    the output checks' business, not this timer's."""
     prefixes = (kernel_prefix,) if isinstance(kernel_prefix, str) \
         else kernel_prefix
     fn()
     torch.cuda.synchronize()
-    for attempt in range(1, PROFILE_TRIES + 1 if required else 2):
-        busy_us, by_kernel = _traced_kernels(fn, prefixes, iters)
-        if busy_us > 0:
+    tries = PROFILE_TRIES if required or every_call else 1
+    for attempt in range(1, tries + 1):
+        busy_us, by_kernel, records = _traced_kernels(fn, prefixes, iters)
+        whole = not every_call or all(n % iters == 0
+                                      for n in records.values())
+        if busy_us > 0 and whole:
             if attempt > 1:
                 print(f"device_profile {kernel_prefix}: traced on try "
                       f"{attempt} of {PROFILE_TRIES}")
@@ -352,14 +361,16 @@ def device_profile(fn, kernel_prefix, iters: int = 20,
     ms = (time_cold(fn.after_flush, iters=iters, warmup=1)
           if hasattr(fn, "after_flush") else time_cuda(fn, iters=iters,
                                                        warmup=1))
-    print(f"device_profile {kernel_prefix}: no device time in "
-          f"{PROFILE_TRIES} traces; CUDA-event time {ms:.4f} ms used")
+    print(f"device_profile {kernel_prefix}: no whole trace in "
+          f"{PROFILE_TRIES}; CUDA-event time {ms:.4f} ms used")
     return ms, {}
 
 
-def device_ms(fn, kernel_prefix, iters: int = 20) -> float:
+def device_ms(fn, kernel_prefix, iters: int = 20,
+              every_call: bool = False) -> float:
     """The device ms of one call (device_profile's busy time)."""
-    return device_profile(fn, kernel_prefix, iters)[0]
+    return device_profile(fn, kernel_prefix, iters,
+                          every_call=every_call)[0]
 
 
 def bound_ms(n_bytes: float, n_ops: float,
@@ -2404,12 +2415,18 @@ def _flash_bound(q, k, v, qpos, kpos, causal, window) -> tuple:
     return bound_ms(n_bytes, 4 * d * b * h * visible, rate)
 
 
+LSE_TOL = 1e-4  # atol = rtol of the forward's LSE against its plain one
+
+
 def _check_flash(dev):
     """The kernel its route picks against the plain version on the card at
-    every case; returns {case: max abs error}."""
+    every case, and the LSE it writes when asked against
+    `flash_attention_lse_plain` (within LSE_TOL, +inf exactly where a row
+    sees no key, the output unchanged); returns ({case: max abs error},
+    {case: the LSE's max abs error})."""
     from repro_torch.kernels import flash_attention as fa
 
-    errors = {}
+    errors, lse_errors = {}, {}
     for i, (name, case) in enumerate(_flash_cases().items()):
         args = _flash_inputs(dev, name, seed=100 + i)
         route = fa.cuda_route(case[6], case[5])
@@ -2434,7 +2451,23 @@ def _check_flash(dev):
         check(ok, f"flash_attention differs from its plain version at {name}")
         check(torch.equal(got, fa.flash_attention_cuda(*args)),
               f"flash_attention: two launches differ at {name}")
-    return errors
+        with_lse, lse = fa.flash_attention_cuda(*args, return_lse=True)
+        want = fa.flash_attention_lse_plain(*args[:2], *args[3:])
+        fin = torch.isfinite(want)
+        lse_errors[name] = float((lse[fin] - want[fin]).abs().max()) \
+            if fin.any() else 0.0
+        empty = int((~fin).sum())
+        print(f"flash_attention lse {name} ({fa.ROUTES[route]}): max abs err "
+              f"{lse_errors[name]:.3e} (atol = rtol = {LSE_TOL:g}), "
+              f"{empty} rows +inf")
+        check(torch.equal(with_lse, got),
+              f"flash_attention: writing the LSE changed the output at {name}")
+        check(torch.equal(torch.isinf(lse), ~fin) and torch.allclose(
+            lse[fin], want[fin], atol=LSE_TOL, rtol=LSE_TOL),
+              f"flash_attention: the LSE differs from its plain version at "
+              f"{name}")
+        del with_lse, lse, want
+    return errors, lse_errors
 
 
 def _time_flash(dev, name):
@@ -2465,7 +2498,8 @@ def _time_flash(dev, name):
     t = dict(
         # CUDA-event time first: a profiler session skews later ones
         ms=time_cuda(run, iters=10),
-        device_ms=device_ms(run, fa.ROUTES[route], iters=10),
+        device_ms=device_ms(run, fa.ROUTES[route], iters=10,
+                            every_call=True),
         plain_ms=time_cuda(lambda: fa.flash_attention_plain(*args), iters=3,
                            warmup=1),
         library_ms=time_cuda(sdpa, iters=10),
@@ -2482,8 +2516,26 @@ def _time_flash(dev, name):
     # kernel) by the same method; None where the trace names none
     t["library_device_ms"], lib_kernels = device_profile(
         sdpa, ("sdpa", "flash_fwd", "fmha", "efficient_attention"),
-        iters=10, required=False)
+        iters=10, required=False, every_call=True)
     t["library_kernels"] = sorted(lib_kernels)
+    return t
+
+
+def _time_flash_lse(dev, name) -> dict:
+    """The forward at one case without and with its LSE written, in turns
+    (without, with, with, without): the CUDA-event and device ms of each
+    turn."""
+    from repro_torch.kernels import flash_attention as fa
+
+    args = _flash_inputs(dev, name, seed=7)
+    kernel = fa.ROUTES[fa.cuda_route(args[0].dtype, args[0].shape[3])]
+    runs = {"no_lse": lambda: fa.flash_attention_cuda(*args),
+            "lse": lambda: fa.flash_attention_cuda(*args, return_lse=True)}
+    t = {}
+    for key in ("no_lse", "lse", "lse", "no_lse"):
+        t.setdefault(f"{key}_ms", []).append(time_cuda(runs[key], iters=10))
+        t.setdefault(f"{key}_device_ms", []).append(
+            device_ms(runs[key], kernel, iters=10, every_call=True))
     return t
 
 
@@ -2660,7 +2712,8 @@ def _flash_on_path_inputs(model, prompt, max_len):
     args, kwargs = seen[0]
     with torch.inference_mode():
         ms, by_kernel = device_profile(lambda: wrapped(*args, **kwargs),
-                                       "flash_attention_", iters=10)
+                                       "flash_attention_", iters=10,
+                                       every_call=True)
     return dict(isolated_device_ms=ms, cuda_kernels=sorted(by_kernel),
                 strides=[list(x.stride()) for x in args[:3]])
 
@@ -3123,8 +3176,8 @@ def _flash_build_report() -> list:
             spill = (int(m.group(1)), int(m.group(2)))
             continue
         m = re.search(r"Used (\d+) registers(.*)", line)
-        k = name and re.search(r"(flash_attention_\w+?_kernel)ILi(\d+)E",
-                               name)
+        k = name and re.search(
+            r"(flash_attention_\w+?_kernel|fa_bwd_\w+?)ILi(\d+)E", name)
         if m and k:
             smem = re.search(r"(\d+) bytes smem", m.group(2))
             rows.append(dict(kernel=f"{k.group(1)}<{k.group(2)}>",
@@ -3138,14 +3191,19 @@ def _flash_build_report() -> list:
         if "wgmma" in row["kernel"]:
             check(row["spill_stores"] == row["spill_loads"] == 0,
                   f"{row['kernel']} spills registers")
-    check(sum("wgmma" in r["kernel"] for r in rows) == 3,
+    check(sum("flash_attention_wgmma" in r["kernel"] for r in rows) == 3,
           "the build report lists no wgmma kernel for d = 64, 96, 128")
+    check(sum(r["kernel"].startswith(fa_bwd) for r in rows
+              for fa_bwd in ("fa_bwd_dq_wgmma<", "fa_bwd_dkv_wgmma<")) == 8,
+          "the build report lists no wgmma backward for d = 64, 80, 96, "
+          "128")
     return rows
 
 
 def _flash_sass() -> dict:
     """HGMMA (wgmma) and UTMALDG (TMA load) instructions in the wgmma
-    kernels' SASS, from cuobjdump of the built library."""
+    kernels' SASS (the forward's, and the backward's two), from cuobjdump
+    of the built library."""
     from repro_torch.kernels import _build
 
     tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
@@ -3154,12 +3212,18 @@ def _flash_sass() -> dict:
                           timeout=120).stdout
     counts = {}
     for fn in sass.split("Function : ")[1:]:
-        if "flash_attention_wgmma_kernel" in fn.splitlines()[0]:
-            for op in ("HGMMA", "UTMALDG"):
-                counts[op] = counts.get(op, 0) + fn.count(op)
+        head = fn.splitlines()[0]
+        for kind in ("flash_attention_wgmma_kernel", "fa_bwd_dq_wgmma",
+                     "fa_bwd_dkv_wgmma"):
+            if kind in head:
+                got = counts.setdefault(kind, {})
+                for op in ("HGMMA", "UTMALDG"):
+                    got[op] = got.get(op, 0) + fn.count(op)
     print(f"cuobjdump -sass, wgmma kernels: {counts}")
-    check(counts.get("HGMMA", 0) > 0 and counts.get("UTMALDG", 0) > 0,
-          "the wgmma kernels' SASS holds no HGMMA or no UTMALDG")
+    check(len(counts) == 3 and all(
+        c.get("HGMMA", 0) > 0 and c.get("UTMALDG", 0) > 0
+        for c in counts.values()),
+          "a wgmma kernel's SASS holds no HGMMA or no UTMALDG")
     return counts
 
 
@@ -3174,11 +3238,14 @@ def phase_lm(dev):
 
     build_report = _flash_build_report()
     sass = _flash_sass()
-    errors = _check_flash(dev)
+    errors, lse_errors = _check_flash(dev)
     timing = _time_flash(dev, "phi3 prefill bf16")
     timing32 = _time_flash(dev, "phi3 prefill fp32")
     print(f"flash_attention timings {timing['at']}: {timing}")
     print(f"flash_attention timings {timing32['at']}: {timing32}")
+    lse_timing = _time_flash_lse(dev, "phi3 prefill bf16")
+    print(f"flash_attention with and without the LSE, phi3 prefill bf16: "
+          f"{json.dumps(lse_timing)}")
     t0 = time.perf_counter()
     family_timings = {}
     for name in FAMILY_FLASH_CASES:
@@ -3233,7 +3300,8 @@ def phase_lm(dev):
         launches_per_prefill=per_prefill,
         cuda_kernels_per_launch=1, max_abs_err=max(bf16_errs),
         max_abs_err_fp32=max(e for n, e in errors.items() if "fp32" in n),
-        max_abs_err_per_case=errors, **timing, fp32=timing32,
+        max_abs_err_per_case=errors, max_abs_err_lse_per_case=lse_errors,
+        lse_timing=lse_timing, **timing, fp32=timing32,
         family_shapes=family_timings,
         parity_depth2_max_abs_diff=parity_diff,
         parity_depth2_launches=parity_launches, serve=numbers,
@@ -3277,8 +3345,9 @@ def _flash_bwd_bound(q, k, v, qpos, kpos, causal, window) -> tuple:
     """Bytes: q, k, v, out and dout read once, dq, dk and dv written once;
     operations: the gradient's five products (S, dP, dV, dK, dQ) over the
     visible (query, key) pairs of this run's positions, 10·d FLOP per pair
-    and query head, at the dtype's peak rate. The row-stats kernel's
-    recomputed S is not the function's work and is left out."""
+    and query head, at the dtype's peak rate. The products that the
+    kernels compute twice (S and dP, in the dQ and the dK/dV kernel) are
+    not the function's work and are left out (`_flash_bwd_floor`)."""
     from repro_torch.kernels import flash_attention as fa
 
     b, _, h, d = q.shape
@@ -3286,6 +3355,17 @@ def _flash_bwd_bound(q, k, v, qpos, kpos, causal, window) -> tuple:
     n_bytes = 4 * (q.numel() + k.numel()) * q.element_size()
     rate = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else FP32_OPS_PER_S
     return bound_ms(n_bytes, 10 * d * b * h * visible, rate)
+
+
+def _flash_bwd_floor(q, k, qpos, kpos, causal, window) -> float:
+    """The two-kernel design's own floor in ms: its seven products (S and
+    dP in both kernels, dQ, dK, dV), 14·d FLOP per visible pair and query
+    head, at the bf16 tensor-core rate."""
+    from repro_torch.kernels import flash_attention as fa
+
+    b, _, h, d = q.shape
+    visible = int(fa.visible_mask(qpos, kpos, causal, window).sum())
+    return 14 * d * b * h * visible / BF16_OPS_PER_S * 1e3
 
 
 def _check_flash_bwd(dev) -> dict:
@@ -3301,12 +3381,19 @@ def _check_flash_bwd(dev) -> dict:
         for dt in (torch.float32, torch.bfloat16):
             q, k, v, qp, kp, causal, window, dout = _bwd_inputs(
                 dev, name, dt, 300 + i)
-            out = fa.flash_attention_cuda(q, k, v, qp, kp, causal, window)
+            out, lse = fa.flash_attention_cuda(q, k, v, qp, kp, causal,
+                                               window, return_lse=True)
+            route = fa.cuda_bwd_route(dt, q.shape[3])
+            before = fa.bwd_launches[route]
             got = fa.flash_attention_backward_cuda(dout, q, k, v, out, qp,
-                                                   kp, causal, window)
+                                                   kp, causal, window,
+                                                   lse=lse)
             again = fa.flash_attention_backward_cuda(dout, q, k, v, out, qp,
-                                                     kp, causal, window)
+                                                     kp, causal, window,
+                                                     lse=lse)
             torch.cuda.synchronize()
+            check(fa.bwd_launches[route] == before + 2,
+                  f"flash backward: not counted under its route {route}")
             tag = f"{name.replace(' bf16', '').replace(' fp32', '')} " \
                   f"{'fp32' if dt == torch.float32 else 'bf16'}"
             check(all(torch.equal(a, b) for a, b in zip(got, again)),
@@ -3334,18 +3421,21 @@ def _check_flash_bwd(dev) -> dict:
                       f"flash backward {tag}: {tname} off its plain "
                       f"backward: {parts[-1]}")
             errors[tag] = worst
-            print(f"flash_attention_bwd {tag}: {'; '.join(parts)}; two "
-                  f"runs bit-equal")
-            del got, want, out, q, k, v, dout
+            print(f"flash_attention_bwd {tag} ({route}: "
+                  f"{', '.join(fa.BWD_ROUTES[route])}): {'; '.join(parts)}; "
+                  f"two runs bit-equal")
+            del got, want, out, lse, q, k, v, dout
             torch.cuda.empty_cache()
     return errors
 
 
 def _time_flash_bwd(dev, name) -> dict:
-    """The backward kernel at one case in bf16: CUDA-event and device time
-    (each of its three kernels too) beside the plain backward, SDPA's
-    backward alone on the same function (GQA by `enable_gqa`, a window as a
-    boolean mask, no mask where bidirectional) and the bound."""
+    """The backward kernels at one case in bf16, the LSE from the forward:
+    CUDA-event and device time (each of its kernels too, which must be the
+    route's and no other: no row-stats pass) beside the plain backward,
+    SDPA's backward alone on the same function (GQA by `enable_gqa`, a
+    window as a boolean mask, no mask where bidirectional), the bound and
+    the seven-product floor."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
@@ -3353,9 +3443,10 @@ def _time_flash_bwd(dev, name) -> dict:
     q, k, v, qp, kp, causal, window, dout = _bwd_inputs(
         dev, name, torch.bfloat16, seed=9)
     check(torch.equal(qp, kp), "the SDPA yardstick takes a square case")
-    out = fa.flash_attention_cuda(q, k, v, qp, kp, causal, window)
+    out, lse = fa.flash_attention_cuda(q, k, v, qp, kp, causal, window,
+                                       return_lse=True)
     run = lambda: fa.flash_attention_backward_cuda(  # noqa: E731
-        dout, q, k, v, out, qp, kp, causal, window)
+        dout, q, k, v, out, qp, kp, causal, window, lse=lse)
     if window is not None:
         how = dict(attn_mask=fa.visible_mask(qp, kp, causal, window))
     else:
@@ -3375,16 +3466,24 @@ def _time_flash_bwd(dev, name) -> dict:
             dout, q, k, v, qp, kp, causal, window), iters=2, warmup=1),
         library_ms=time_cuda(sdpa_bwd, iters=10),
         bound_ms=b_ms, bound_by=b_by,
+        floor7_ms=_flash_bwd_floor(q, k, qp, kp, causal, window),
         at=f"B={q.shape[0]} S={q.shape[1]} H={q.shape[2]} Kv={k.shape[2]} "
            f"d={q.shape[3]} bfloat16 "
            + ("causal" if causal else "bidirectional")
            + ("" if window is None else f" window {window}"),
         library_call=("backward of F.scaled_dot_product_attention("
                       + ", ".join(sorted(how) or ["no mask"]) + ")"))
-    t["device_ms"], by_kernel = device_profile(run, fa.BWD_KERNELS, iters=10)
+    t["device_ms"], by_kernel = device_profile(run, "fa_bwd_", iters=10,
+                                               every_call=True)
     t["device_ms_by_kernel"] = by_kernel
+    names = fa.BWD_ROUTES[fa.cuda_bwd_route(q.dtype, q.shape[3])]
+    check(not by_kernel or sorted(n.split("<")[0] for n in by_kernel)
+          == sorted(names),
+          f"flash backward at {name}: kernels {sorted(by_kernel)}, not "
+          f"{names}")
     t["library_device_ms"], lib_kernels = device_profile(
-        sdpa_bwd, SDPA_BWD_KERNELS, iters=10, required=False)
+        sdpa_bwd, SDPA_BWD_KERNELS, iters=10, required=False,
+        every_call=True)
     t["library_kernels"] = sorted(lib_kernels)
     del o
     return t
@@ -3729,12 +3828,17 @@ def phase_train(dev) -> tuple:
     main = "phi3-mini-3.8b"
     entry = dict(
         name="flash_attention_bwd", route="cuda",
-        source="src/repro_torch/csrc/flash_attention_bwd.cu",
+        source="src/repro_torch/csrc/flash_attention_bwd_sm90.cu",
+        sources=["src/repro_torch/csrc/flash_attention_bwd_sm90.cu",
+                 "src/repro_torch/csrc/flash_attention_bwd.cu",
+                 "src/repro_torch/csrc/sm90.cuh"],
         replaces="src/repro/models/attention.py:144",
         replaces_note="no Pallas counterpart: the reference differentiates "
                       "its plain jnp attention (gqa_attention's "
                       "use_flash=False path) with jax.grad",
-        cuda_kernels=list(fa.BWD_KERNELS), cuda_kernels_per_launch=3,
+        cuda_kernels=list(fa.BWD_KERNELS),
+        cuda_kernels_per_launch=len(fa.BWD_KERNELS),
+        cuda_kernels_by_route={r: list(n) for r, n in fa.BWD_ROUTES.items()},
         launches=(TRAIN_WARMUP + TRAIN_TIMED)
         * per_step[main]["flash_attention_bwd"],
         launches_per_train_step={a: c["flash_attention_bwd"]
@@ -3744,6 +3848,8 @@ def phase_train(dev) -> tuple:
         max_abs_err_per_case=errors,
         ms=at["ms"], device_ms=at["device_ms"], plain_ms=at["plain_ms"],
         bound_ms=at["bound_ms"], bound_by=at["bound_by"],
+        floor7_ms=at["floor7_ms"], device_ms_by_kernel=at[
+            "device_ms_by_kernel"],
         library_ms=at["library_ms"], library_call=at["library_call"],
         at=at["at"], family_shapes=timings)
     gains = dict(

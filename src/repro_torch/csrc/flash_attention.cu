@@ -15,7 +15,9 @@
 //                && (!window || kpos_j > qpos_i - window);
 //   s_ij = -1e30 where not visible;
 //   online softmax over the key tiles: m, l = sum of fp32 p, acc += P V with
-//   p rounded to v's dtype first; out_i = acc_i / max(l_i, 1e-30) in q's dtype.
+//   p rounded to v's dtype first; out_i = acc_i / max(l_i, 1e-30) in q's dtype;
+//   where asked (for the gradient), lse_i = m_i + log l_i, +inf for a row
+//   with no visible key.
 //
 // A row with no visible key sees -1e30 everywhere, so every p is exp(0) = 1
 // and the row is the mean of v over all Sk keys, as in the reference (kernel
@@ -81,6 +83,7 @@ struct Params {
   const int* qpos;
   const int* kpos;
   void* out;
+  float* lse;  // (B, H, Sq) float32, or null: no LSE written
   int h, kv, sq, sk;
   long long qsb, qss, qsh;  // element strides of q: batch, seq, head
   long long ksb, kss, ksh;
@@ -292,6 +295,9 @@ __global__ void __launch_bounds__(THREADS)
   for (int i = 0; i < 4; ++i) {
     const int r = ty + 16 * i;
     if (r >= nrows) continue;
+    if (p.lse != nullptr && tx == 0)
+      p.lse[((long long)b * p.h + h) * p.sq + q0 + r] =
+          m[i] == MASKED ? INFINITY : m[i] + logf(l[i]);
     const float inv_l = 1.f / fmaxf(l[i], 1e-30f);
     float* o = out + (((long long)b * p.sq + q0 + r) * p.h + h) * D;
 #pragma unroll
@@ -673,6 +679,9 @@ __global__ void __launch_bounds__(MMA_THREADS)
   for (int r = 0; r < 2; ++r) {
     const int row = r0 + 8 * r;
     if (row >= nrows) continue;
+    if (p.lse != nullptr && t == 0)
+      p.lse[((long long)b * p.h + h) * p.sq + q0 + row] =
+          m[r] == MASKED ? INFINITY : m[r] + logf(l[r]);
     const float inv_l = 1.f / fmaxf(l[r], 1e-30f);
     bf16* orow = out + (((long long)b * p.sq + q0 + row) * p.h + h) * D;
 #pragma unroll
@@ -724,22 +733,24 @@ cudaError_t launch(const Params& p, int dtype, int bh, cudaStream_t s) {
 
 // q: (B, Sq, H, d), k and v: (B, Sk, Kv, d), each with unit stride on d and
 // the element strides given (batch, seq, head); qpos (Sq,), kpos (Sk,) int32,
-// -1 = padding; out: contiguous (B, Sq, H, d). dtype 0 = float32 with d in
+// -1 = padding; out: contiguous (B, Sq, H, d); lse: (B, H, Sq) float32 or
+// null, each row's LSE of its scaled scores (m + log l, natural log units;
+// +inf for a row with no visible key). dtype 0 = float32 with d in
 // {16, 32, 64, 80, 96, 128}, 1 = bfloat16 with d in {16, 32, 80} (q, k, v
 // and out alike). window <= 0 means no window. Launches on `stream`; returns
 // the CUDA error of the launch (cudaErrorInvalidValue for a d or dtype it
 // does not take).
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, const int* qpos,
-    const int* kpos, void* out, int dtype, int b, int h, int kv, int sq,
-    int sk, int d, long long qsb, long long qss, long long qsh, long long ksb,
-    long long kss, long long ksh, long long vsb, long long vss, long long vsh,
-    int causal, int window, float scale, void* stream) {
+    const int* kpos, void* out, float* lse, int dtype, int b, int h, int kv,
+    int sq, int sk, int d, long long qsb, long long qss, long long qsh,
+    long long ksb, long long kss, long long ksh, long long vsb, long long vss,
+    long long vsh, int causal, int window, float scale, void* stream) {
   if (b <= 0 || sq <= 0) return 0;
   if (h <= 0 || kv <= 0 || h % kv != 0) return cudaErrorInvalidValue;
-  Params p{q,   k,   v,   qpos, kpos, out, h,   kv,     sq,          sk,
-           qsb, qss, qsh, ksb,  kss,  ksh, vsb, vss,    vsh,         causal,
-           window > 0 ? 1 : 0,    window > 0 ? window : 0, scale};
+  Params p{q,   k,   v,   qpos, kpos, out, lse, h,   kv,     sq,
+           sk,  qsb, qss, qsh,  ksb,  kss, ksh, vsb, vss,    vsh,
+           causal, window > 0 ? 1 : 0, window > 0 ? window : 0, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (d) {

@@ -27,12 +27,16 @@
 // key (the forward's mean of v): it gives 1/Sk dO_i to every dV_j, and
 // nothing to dQ or dK (dS = 0 on every masked entry).
 //
-// Three kernels, launched in order by one call:
+// P comes from the forward's LSE (lse_i = m_i + log l_i in natural log
+// units, +inf for a row with no visible key), written by the forward kernel
+// itself: P_ij = exp(s_ij - lse_i). Nothing here recomputes it.
 //
-//   1. row stats, one block per (b, h, 64-query tile): recompute the
-//      forward's m and l over the visible keys (an online max and sum over
-//      the key tiles) and write LSE = m + log l, or +inf for a row with no
-//      visible key; and Delta = dO . o in fp32 from the given o;
+// This file serves float32 at every head dim and bfloat16 at d = 16 and 32;
+// bfloat16 at d = 64, 80, 96 and 128 is csrc/flash_attention_bwd_sm90.cu's
+// (wgmma and TMA). Three kernels, launched in order by one call:
+//
+//   1. Delta, one block per (b, h, 64-query tile): Delta = dO . o in fp32
+//      from the given o;
 //   2. dK / dV, one block per (b, kv head, 64-key tile): loop over the G
 //      query heads of the group and over the query tiles that may see the
 //      tile (by the ranges of positions, as the forward skips tiles; a
@@ -47,22 +51,20 @@
 //
 // bfloat16 runs on the tensor cores (mma.sync m16n8k16, fp32 accumulators),
 // with the forward's mma.sync helpers (csrc/flash_attention.cu) copied here:
-// four warps own 16 rows each (query rows in kernels 1 and 3, key rows in
-// kernel 2); the score-shaped products keep their first operand in
-// registers and read the second from shared memory by ldmatrix; P and dS go
-// from the score fragments to the next product's A fragments in registers,
-// rounded to bf16 as the forward rounds P. Tiles move by plain 16-byte
-// loads, not cp.async or TMA: a simple kernel first. float32 runs on the
-// CUDA cores in full fp32 (no TF32): 16 x 16 threads over 64 x 64 tiles in
-// shared memory, for the parity checks against the plain backward.
+// four warps own 16 rows each (query rows in kernel 3, key rows in kernel
+// 2); the score-shaped products keep their first operand in registers and
+// read the second from shared memory by ldmatrix; P and dS go from the
+// score fragments to the next product's A fragments in registers, rounded
+// to bf16 as the forward rounds P. Tiles move by plain 16-byte loads.
+// float32 runs on the CUDA cores in full fp32 (no TF32): 16 x 16 threads
+// over 64 x 64 tiles in shared memory, for the parity checks against the
+// plain backward.
 //
-// What bounds it: at phi3's training shape (B*H = 128, S = 2048, d = 96,
-// causal) the work is five products over the visible pairs (S and dP twice:
-// in kernels 2 and 3; dV, dK, dQ once), 2.6e11 FLOP, against 0.2 GB of q, k,
-// v, o, dO, dq, dk, dv: the tensor cores' 989 TFLOP/s (0.26 ms) before HBM.
-// Kernel 1 adds one more product. This version recomputes S in all three
-// kernels and reads its tiles synchronously; what it leaves (the forward
-// emitting LSE, wgmma with TMA, a pipelined ring) is work for a later PR.
+// What bounds it: the work is five products over the visible pairs (S and
+// dP twice: in kernels 2 and 3; dV, dK, dQ once) against q, k, v, o, dO,
+// dq, dk, dv read or written once: at the shapes it serves (d 16 and 32 in
+// bf16, checks in fp32) the tensor cores or, in fp32, the CUDA cores'
+// 67 TFLOP/s.
 
 #include <climits>
 #include <cmath>
@@ -84,8 +86,8 @@ struct Params {
   const void* dout;
   const int* qpos;
   const int* kpos;
-  float* lse;    // (B, H, Sq)
-  float* delta;  // (B, H, Sq)
+  const float* lse;  // (B, H, Sq): the forward's, +inf for an empty row
+  float* delta;      // (B, H, Sq)
   void* dq;      // contiguous (B, Sq, H, d)
   void* dk;      // contiguous (B, Sk, Kv, d)
   void* dv;      // contiguous (B, Sk, Kv, d)
@@ -141,6 +143,14 @@ __device__ __forceinline__ void row_delta(const Params& p, int b, int h,
   acc += __shfl_xor_sync(0xffffffffu, acc, 1);
   if (row < nrows && half == 0)
     p.delta[((long long)b * p.h + h) * p.sq + q0 + row] = acc;
+}
+
+// Delta for 64 rows of one (b, h): 128 threads, two a row.
+template <typename T, int D>
+__global__ void __launch_bounds__(128) fa_bwd_delta_kernel(const Params p) {
+  const int bh = blockIdx.x, b = bh / p.h, h = bh - b * p.h;
+  const int q0 = blockIdx.y * 64;
+  row_delta<T, D>(p, b, h, q0, min(64, p.sq - q0));
 }
 
 // The min and max of the valid positions among n entries of pos (shared
@@ -211,106 +221,6 @@ __device__ __forceinline__ void load_f32(float* dst, const float* src,
     const int r = i / D, c = i - r * D;
     dst[r * (D + 1) + c] = r < n ? src[(long long)r * ld + c] : 0.f;
   }
-}
-
-template <int D>
-constexpr int stats_f32_smem() {
-  return (2 * T32 * (D + 1)) * 4 + 2 * T32 * 4;
-}
-
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-    fa_bwd_stats_f32_kernel(const Params p) {
-  extern __shared__ float smem[];
-  constexpr int LD = D + 1;
-  float* Qs = smem;
-  float* Ks = Qs + T32 * LD;
-  int* kp_s = reinterpret_cast<int*>(Ks + T32 * LD);
-  int* qp_s = kp_s + T32;
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int bh = blockIdx.x, b = bh / p.h, h = bh - b * p.h;
-  const int hk = h / (p.h / p.kv);
-  const int q0 = blockIdx.y * T32, nrows = min(T32, p.sq - q0);
-  const float* q = static_cast<const float*>(p.q) + b * p.qsb + h * p.qsh;
-  const float* k = static_cast<const float*>(p.k) + b * p.ksb + hk * p.ksh;
-
-  load_f32<D>(Qs, q + (long long)q0 * p.qss, p.qss, nrows);
-  for (int i = tid; i < T32; i += THREADS)
-    qp_s[i] = i < nrows ? p.qpos[q0 + i] : 0;
-  __syncthreads();
-  int qmin = INT_MAX, qmax = INT_MIN;
-  for (int i = 0; i < nrows; ++i) {
-    qmin = min(qmin, qp_s[i]);
-    qmax = max(qmax, qp_s[i]);
-  }
-  int qp[4];
-  float m[4], l[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    qp[i] = qp_s[ty + 16 * i];
-    m[i] = MASKED;
-    l[i] = 0.f;
-  }
-  for (int k0 = 0; k0 < p.sk; k0 += T32) {
-    const int nk = min(T32, p.sk - k0);
-    __syncthreads();  // the previous tile is read
-    for (int i = tid; i < T32; i += THREADS)
-      kp_s[i] = i < nk ? p.kpos[k0 + i] : -1;
-    __syncthreads();
-    int kmin, kmax;
-    pos_range(kp_s, nk, kmin, kmax);
-    if (!may_see(p, qmin, qmax, kmin, kmax)) continue;
-    load_f32<D>(Ks, k + (long long)k0 * p.kss, p.kss, nk);
-    __syncthreads();
-    float s[4][4] = {};
-#pragma unroll 8
-    for (int c = 0; c < D; ++c) {
-      float qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = Qs[(ty + 16 * i) * LD + c];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = Ks[(tx + 16 * j) * LD + c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kk = tx + 16 * j;
-        float sc = -INFINITY;  // not a key
-        if (kk < nk)
-          sc = visible(p, kp_s[kk], qp[i]) ? s[i][j] * p.scale : MASKED;
-        s[i][j] = sc;
-        mx = fmaxf(mx, sc);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) rs += expf(s[i][j] - m_new);
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        rs += __shfl_xor_sync(0xffffffffu, rs, off);
-      l[i] = l[i] * expf(m[i] - m_new) + rs;
-      m[i] = m_new;
-    }
-  }
-  if (tx == 0) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty + 16 * i;
-      if (r < nrows)
-        p.lse[((long long)b * p.h + h) * p.sq + q0 + r] =
-            m[i] == MASKED ? INFINITY : m[i] + logf(l[i]);
-    }
-  }
-  row_delta<float, D>(p, b, h, q0, nrows);
 }
 
 template <int D>
@@ -580,7 +490,7 @@ __global__ void __launch_bounds__(THREADS)
 constexpr int MMA_WARPS = 4;
 constexpr int MMA_THREADS = 32 * MMA_WARPS;
 constexpr int MB = 16 * MMA_WARPS;  // rows a block owns: 64
-constexpr int KT = 64;              // keys per tile of kernels 1 and 3
+constexpr int KT = 64;              // keys per tile of kernel 3
 constexpr int QT = 32;              // queries per tile of kernel 2
 
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
@@ -697,100 +607,6 @@ __device__ __forceinline__ void mma_xb(float (&acc)[D / 8][4],
       mma_bf16(acc[j + 1], a, bb[2], bb[3]);
     }
   }
-}
-
-template <int D>
-constexpr int stats_bf16_smem() {
-  return (MB + KT) * (D + 8) * 2 + (MB + KT) * 4;
-}
-
-template <int D>
-__global__ void __launch_bounds__(MMA_THREADS)
-    fa_bwd_stats_mma_kernel(const Params p) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr int LD = D + 8;
-  using bf16 = __nv_bfloat16;
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Ks = Qs + MB * LD;
-  int* kp_s = reinterpret_cast<int*>(Ks + KT * LD);
-  int* qp_s = kp_s + KT;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int bh = blockIdx.x, b = bh / p.h, h = bh - b * p.h;
-  const int hk = h / (p.h / p.kv);
-  const int q0 = blockIdx.y * MB, nrows = min(MB, p.sq - q0);
-  const bf16* q = static_cast<const bf16*>(p.q) + b * p.qsb + h * p.qsh;
-  const bf16* k = static_cast<const bf16*>(p.k) + b * p.ksb + hk * p.ksh;
-
-  load_tile<D>(Qs, q + (long long)q0 * p.qss, p.qss, MB, nrows);
-  for (int i = tid; i < MB; i += MMA_THREADS)
-    qp_s[i] = i < nrows ? p.qpos[q0 + i] : 0;
-  __syncthreads();
-  int qmin = INT_MAX, qmax = INT_MIN;
-  for (int i = 0; i < nrows; ++i) {
-    qmin = min(qmin, qp_s[i]);
-    qmax = max(qmax, qp_s[i]);
-  }
-  const int r0 = warp * 16;
-  const int qp[2] = {qp_s[r0 + g], qp_s[r0 + g + 8]};
-  uint32_t qf[D / 16][4];
-#pragma unroll
-  for (int kt = 0; kt < D / 16; ++kt) a_frag<LD>(qf[kt], Qs, r0, kt);
-  float m[2] = {MASKED, MASKED}, l[2] = {0.f, 0.f};
-  for (int k0 = 0; k0 < p.sk; k0 += KT) {
-    const int nk = min(KT, p.sk - k0);
-    __syncthreads();  // the previous tile is read
-    if (tid < KT) kp_s[tid] = tid < nk ? p.kpos[k0 + tid] : -1;
-    __syncthreads();
-    int kmin, kmax;
-    pos_range(kp_s, nk, kmin, kmax);
-    if (!may_see(p, qmin, qmax, kmin, kmax)) continue;
-    load_tile<D>(Ks, k + (long long)k0 * p.kss, p.kss, KT, nk);
-    __syncthreads();
-    float s[KT / 8][4] = {};
-    mma_abt<D, KT>(s, qf, Ks, 0);
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int nt = 0; nt < KT / 8; ++nt)
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int kk = nt * 8 + 2 * t + c;
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          float sc = -INFINITY;  // not a key
-          if (kk < nk)
-            sc = visible(p, kp_s[kk], qp[r]) ? s[nt][2 * r + c] * p.scale
-                                             : MASKED;
-          s[nt][2 * r + c] = sc;
-          mx[r] = fmaxf(mx[r], sc);
-        }
-      }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m[r], mx[r]);
-      float rs = 0.f;
-#pragma unroll
-      for (int nt = 0; nt < KT / 8; ++nt)
-#pragma unroll
-        for (int c = 0; c < 2; ++c) rs += __expf(s[nt][2 * r + c] - m_new);
-      rs += __shfl_xor_sync(0xffffffffu, rs, 1);
-      rs += __shfl_xor_sync(0xffffffffu, rs, 2);
-      l[r] = l[r] * __expf(m[r] - m_new) + rs;
-      m[r] = m_new;
-    }
-  }
-  if (t == 0) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = r0 + g + 8 * r;
-      if (row < nrows)
-        p.lse[((long long)b * p.h + h) * p.sq + q0 + row] =
-            m[r] == MASKED ? INFINITY : m[r] + __logf(l[r]);
-    }
-  }
-  row_delta<bf16, D>(p, b, h, q0, nrows);
 }
 
 template <int D>
@@ -1030,43 +846,49 @@ cudaError_t launch_one(K kernel, int bytes, bool (&raised)[MAX_DEVICES],
 
 template <int D>
 cudaError_t launch(const Params& p, int dtype, int b, cudaStream_t s) {
-  static bool raised[6][MAX_DEVICES] = {};
+  static bool raised[4][MAX_DEVICES] = {};
   const dim3 gq(b * p.h, (p.sq + 63) / 64), gk(b * p.kv, (p.sk + 63) / 64);
   cudaError_t err;
   if (dtype == 0) {
-    err = launch_one(fa_bwd_stats_f32_kernel<D>, stats_f32_smem<D>(),
-                     raised[0], gq, THREADS, p, s);
+    fa_bwd_delta_kernel<float, D><<<gq, 128, 0, s>>>(p);
+    err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    err = launch_one(fa_bwd_dkv_f32_kernel<D>, dkv_f32_smem<D>(), raised[1],
+    err = launch_one(fa_bwd_dkv_f32_kernel<D>, dkv_f32_smem<D>(), raised[0],
                      gk, THREADS, p, s);
     if (err != cudaSuccess) return err;
-    return launch_one(fa_bwd_dq_f32_kernel<D>, dq_f32_smem<D>(), raised[2],
+    return launch_one(fa_bwd_dq_f32_kernel<D>, dq_f32_smem<D>(), raised[1],
                       gq, THREADS, p, s);
   }
-  if (dtype != 1) return cudaErrorInvalidValue;
-  err = launch_one(fa_bwd_stats_mma_kernel<D>, stats_bf16_smem<D>(),
-                   raised[3], gq, MMA_THREADS, p, s);
-  if (err != cudaSuccess) return err;
-  err = launch_one(fa_bwd_dkv_mma_kernel<D>, dkv_bf16_smem<D>(), raised[4],
-                   gk, MMA_THREADS, p, s);
-  if (err != cudaSuccess) return err;
-  return launch_one(fa_bwd_dq_mma_kernel<D>, dq_bf16_smem<D>(), raised[5],
-                    gq, MMA_THREADS, p, s);
+  // bf16 at d = 64, 80, 96, 128 is csrc/flash_attention_bwd_sm90.cu's
+  if constexpr (D == 16 || D == 32) {
+    if (dtype == 1) {
+      fa_bwd_delta_kernel<__nv_bfloat16, D><<<gq, 128, 0, s>>>(p);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return err;
+      err = launch_one(fa_bwd_dkv_mma_kernel<D>, dkv_bf16_smem<D>(),
+                       raised[2], gk, MMA_THREADS, p, s);
+      if (err != cudaSuccess) return err;
+      return launch_one(fa_bwd_dq_mma_kernel<D>, dq_bf16_smem<D>(),
+                        raised[3], gq, MMA_THREADS, p, s);
+    }
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // q, o, dout: (B, Sq, H, d); k, v: (B, Sk, Kv, d); each with unit stride on
 // d and the element strides given (batch, seq, head); qpos (Sq,), kpos (Sk,)
-// int32, -1 = padding. lse and delta: (B, H, Sq) float32 scratch. dq:
-// contiguous (B, Sq, H, d); dk, dv: contiguous (B, Sk, Kv, d), all in the
-// inputs' dtype. dtype 0 = float32, 1 = bfloat16; d in {16, 32, 64, 80, 96,
-// 128}. window <= 0 means no window. Launches the three kernels on `stream`
-// in order; returns the first CUDA error (cudaErrorInvalidValue for a d or
-// dtype it does not take).
+// int32, -1 = padding. lse: (B, H, Sq) float32, the forward's (natural log
+// units, +inf for a row with no visible key); delta: (B, H, Sq) float32
+// scratch. dq: contiguous (B, Sq, H, d); dk, dv: contiguous (B, Sk, Kv, d),
+// all in the inputs' dtype. dtype 0 = float32 with d in {16, 32, 64, 80, 96,
+// 128}, 1 = bfloat16 with d in {16, 32}. window <= 0 means no window.
+// Launches the three kernels on `stream` in order; returns the first CUDA
+// error (cudaErrorInvalidValue for a d or dtype it does not take).
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
-    const void* dout, const int* qpos, const int* kpos, float* lse,
+    const void* dout, const int* qpos, const int* kpos, const float* lse,
     float* delta, void* dq, void* dk, void* dv, int dtype, int b, int h,
     int kv, int sq, int sk, int d, long long qsb, long long qss,
     long long qsh, long long ksb, long long kss, long long ksh,

@@ -3,8 +3,8 @@
 // A kernel that takes more than 48 KiB of dynamic shared memory needs
 // cudaFuncSetAttribute before its first launch on each device. The call
 // costs host time, so the launchers make it once per (kernel, device), not
-// on every launch. Included by flash_attention.cu and
-// flash_attention_sm90.cu.
+// on every launch. Included by the flash attention sources
+// (flash_attention*.cu).
 #pragma once
 
 #include <cuda_runtime.h>

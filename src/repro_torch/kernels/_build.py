@@ -27,10 +27,10 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("radix_hist.cu", "tree_dist.cu", "spmv.cu",
            "bitmap_intersect.cu", "flash_attention.cu",
-           "flash_attention_sm90.cu", "flash_attention_bwd.cu", "mark.cu",
-           "recover.cu")
+           "flash_attention_sm90.cu", "flash_attention_bwd.cu",
+           "flash_attention_bwd_sm90.cu", "mark.cu", "recover.cu")
 # included by the sources, hashed with them
-HEADERS = ("smem_limit.cuh", "tree_dist.cuh", "euler_lca.cuh",
+HEADERS = ("smem_limit.cuh", "sm90.cuh", "tree_dist.cuh", "euler_lca.cuh",
            "ball_pair.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -49,12 +49,14 @@ SIGNATURES = {
     "spmv_csr_launch": (_P, _P, _P, _P, _I, _I, _P, _P),
     "arc_sum_launch": (_P, _P, _I, _P, _I, _I, _I, _P, _P),
     "bitmap_intersect_launch": (_P, _P, _LL, _I, _I, _P, _P),
-    "flash_attention_launch": (_P,) * 6 + (_I,) * 7 + (_LL,) * 9
+    "flash_attention_launch": (_P,) * 7 + (_I,) * 7 + (_LL,) * 9
                               + (_I, _I, _F, _P),
-    "flash_attention_wgmma_launch": (_P,) * 6 + (_I,) * 6 + (_LL,) * 9
+    "flash_attention_wgmma_launch": (_P,) * 7 + (_I,) * 6 + (_LL,) * 9
                                     + (_I, _I, _F, _P),
     "flash_attention_bwd_launch": (_P,) * 12 + (_I,) * 7 + (_LL,) * 15
                                   + (_I, _I, _F, _P),
+    "flash_attention_bwd_wgmma_launch": (_P,) * 13 + (_I,) * 6
+                                        + (_LL,) * 15 + (_I, _I, _F, _P),
     "mark_scratch_bytes": (_I,),
     "mark_launch": (_I,) + (_P,) * 5 + (_I, _I) + (_P,) * 8 + (_I,) * 3
                    + (_P,) * 5,

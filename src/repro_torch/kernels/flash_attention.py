@@ -35,15 +35,22 @@ Two executions of the one function:
 `kernels/ops.py` picks between them by the tensors' device.
 
 The gradient. `FlashAttention` is the autograd function of the CUDA
-path: its forward is `flash_attention_cuda`, unchanged, and its backward
-`flash_attention_backward_cuda`, three hand-written kernels of
-`csrc/flash_attention_bwd.cu` (row stats, dK/dV, dQ) in one call,
-counted in `bwd_launches`. It takes the forward's dtypes and head dims,
-and raises on any other; there is no fallback. The plain version needs
-no such function, since autograd differentiates it;
-`flash_attention_backward_plain` is that gradient, for the checks.
-Above `_banded_swa`'s condition the plain version computes a causal
-window banded, as the reference's CPU path does.
+path: its forward is `flash_attention_cuda`, which also writes each
+row's LSE of the scaled scores (natural log units, +inf for a row with
+no visible key) when an input needs a gradient, and its backward
+`flash_attention_backward_cuda`, which takes that LSE (a missing one
+raises: nothing recomputes it). `cuda_bwd_route` picks the backward's
+kernels: bfloat16 at d in `WGMMA_BWD_HEAD_DIMS` runs
+`csrc/flash_attention_bwd_sm90.cu` (dQ, then dK/dV, on wgmma with TMA
+rings), bfloat16 at d 16 and 32 and float32 at every d
+`csrc/flash_attention_bwd.cu` (Delta, dK/dV, dQ; mma.sync, or the CUDA
+cores in fp32). Calls are counted by route in `bwd_launches`. It takes
+the forward's dtypes and head dims, and raises on any other; there is
+no fallback. The plain version needs no such function, since autograd
+differentiates it; `flash_attention_backward_plain` is that gradient and
+`flash_attention_lse_plain` that LSE, for the checks. Above
+`_banded_swa`'s condition the plain version computes a causal window
+banded, as the reference's CPU path does.
 """
 from __future__ import annotations
 
@@ -69,10 +76,19 @@ BF16_MAX_ABS = 3e-2  # the reference's own bf16 tolerance, kept as a ceiling
 
 # CUDA launches since the last reset (kernels/ops.py), by route
 launches = dict.fromkeys(ROUTES, 0)
-# the backward's CUDA kernels, launched in this order by one call
-BWD_KERNELS = ("fa_bwd_stats", "fa_bwd_dkv", "fa_bwd_dq")
-# backward calls since the last reset (three CUDA kernels each)
-bwd_launches = 0
+# the backward's routes -> the CUDA kernels one call launches, in order
+WGMMA_BWD_HEAD_DIMS = (64, 80, 96, 128)
+BWD_ROUTES = {"wgmma": ("fa_bwd_dq_wgmma", "fa_bwd_dkv_wgmma"),
+              "mma": ("fa_bwd_delta_kernel", "fa_bwd_dkv_mma_kernel",
+                      "fa_bwd_dq_mma_kernel"),
+              "fp32": ("fa_bwd_delta_kernel", "fa_bwd_dkv_f32_kernel",
+                       "fa_bwd_dq_f32_kernel")}
+# the kernels of the bf16 backward at the served head dims
+BWD_KERNELS = BWD_ROUTES["wgmma"]
+# backward calls since the last reset, by route
+bwd_launches = dict.fromkeys(BWD_ROUTES, 0)
+# query rows of the wgmma backward's tile summaries (its int4 scratch)
+QTILE = 64
 
 
 def cuda_route(dtype: torch.dtype, d: int) -> str:
@@ -83,6 +99,18 @@ def cuda_route(dtype: torch.dtype, d: int) -> str:
     if dtype == torch.float32:
         return "fp32"
     return "wgmma" if d in WGMMA_HEAD_DIMS else "mma"
+
+
+def cuda_bwd_route(dtype: torch.dtype, d: int) -> str:
+    """Which CUDA kernels compute the gradient at (dtype, head dim d): a
+    key of BWD_ROUTES. bf16 at WGMMA_BWD_HEAD_DIMS takes the wgmma
+    kernels; bf16 at 16 and 32 the mma.sync ones; float32 the CUDA
+    cores'."""
+    if dtype not in DTYPES or d not in HEAD_DIMS:
+        raise ValueError(f"no CUDA backward for {dtype} at head_dim {d}")
+    if dtype == torch.float32:
+        return "fp32"
+    return "wgmma" if d in WGMMA_BWD_HEAD_DIMS else "mma"
 
 
 def visible_mask(qpos: torch.Tensor, kpos: torch.Tensor, causal: bool,
@@ -174,6 +202,26 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       for i in range(0, sq, CHUNK)], dim=1)
 
 
+def flash_attention_lse_plain(q: torch.Tensor, k: torch.Tensor,
+                              qpos: torch.Tensor, kpos: torch.Tensor,
+                              causal: bool = True,
+                              window: Optional[int] = None) -> torch.Tensor:
+    """(B, H, Sq) float32: each row's log-sum-exp, in natural log units,
+    of the plain version's scores (fp32 q·k scaled by d**-0.5, −1e30 where
+    not visible); +inf for a row with no visible key, the marker that
+    the kernels write."""
+    b, sq, h, d = q.shape
+    kvh = k.shape[2]
+    qg = q.reshape(b, sq, kvh, h // kvh, d).float()
+    s = torch.einsum("bqkgd,btkd->bkgqt", qg, k.float()) * (d ** -0.5)
+    mask = visible_mask(qpos, kpos, causal, window)
+    s = torch.where(mask, s, torch.full((), NEG_INF, dtype=s.dtype,
+                                        device=s.device))
+    lse = torch.where(mask.any(-1), torch.logsumexp(s, dim=-1),
+                      torch.full((), float("inf"), device=s.device))
+    return lse.reshape(b, h, sq)
+
+
 def bf16_agreement(out: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
                    v: torch.Tensor, qpos: torch.Tensor, kpos: torch.Tensor,
                    causal: bool = True,
@@ -259,12 +307,15 @@ def _strides(x: torch.Tensor) -> tuple:
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          qpos: torch.Tensor, kpos: torch.Tensor,
                          causal: bool = True,
-                         window: Optional[int] = None) -> torch.Tensor:
+                         window: Optional[int] = None,
+                         return_lse: bool = False):
     """Launch the kernel that `cuda_route(q.dtype, d)` picks on the
     current stream of q's device. q (B, Sq, H, d), k/v (B, Sk, Kv, d), any
     strides with a unit stride on d (a tensor the kernel cannot read in
     place is copied); qpos (Sq,), kpos (Sk,) integer positions. Returns a
-    contiguous (B, Sq, H, d) tensor."""
+    contiguous (B, Sq, H, d) tensor; with return_lse, also the kernel's
+    (B, H, Sq) float32 LSE of each row's scaled scores (natural log units,
+    +inf for a row with no visible key; `flash_attention_lse_plain`)."""
     dev = q.device
     for name, x in (("q", q), ("k", k), ("v", v), ("qpos", qpos),
                     ("kpos", kpos)):
@@ -280,13 +331,16 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, sq, h, d = q.shape
     sk, kvh = k.shape[1], k.shape[2]
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     if out.numel() == 0:
-        return out
+        return (out, lse) if return_lse else out
     from repro_torch.kernels._build import library
 
     lib = library()
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), qpos.data_ptr(),
-            kpos.data_ptr(), out.data_ptr())
+            kpos.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr())
     sizes = (b, h, kvh, sq, sk, d)
     tail = (int(causal), 0 if window is None else int(window),
             float(d ** -0.5), torch.cuda.current_stream(dev).cuda_stream)
@@ -305,7 +359,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
     launches[route] += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 def flash_attention_backward_plain(dout: torch.Tensor, q: torch.Tensor,
@@ -326,73 +380,104 @@ def flash_attention_backward_cuda(dout: torch.Tensor, q: torch.Tensor,
                                   k: torch.Tensor, v: torch.Tensor,
                                   out: torch.Tensor, qpos: torch.Tensor,
                                   kpos: torch.Tensor, causal: bool = True,
-                                  window: Optional[int] = None) -> tuple:
-    """The gradient of `flash_attention_cuda` by the three kernels of
-    `csrc/flash_attention_bwd.cu`, launched in order on the current stream
-    of q's device: dout and out (B, Sq, H, d) beside the forward's inputs,
-    each read through its strides (a tensor they cannot read in place is
-    copied). Returns contiguous (dq, dk, dv) in q's dtype. A dtype or head
-    dim the kernels do not take raises ValueError."""
+                                  window: Optional[int] = None,
+                                  lse: Optional[torch.Tensor] = None) -> tuple:
+    """The gradient of `flash_attention_cuda` by the kernels that
+    `cuda_bwd_route(q.dtype, d)` picks, launched in order on the current
+    stream of q's device: dout and out (B, Sq, H, d) and the forward's
+    (B, H, Sq) float32 `lse` (`flash_attention_cuda(..., return_lse=True)`)
+    beside the forward's inputs, each read through its strides (a tensor
+    they cannot read in place is copied). Returns contiguous (dq, dk, dv)
+    in q's dtype. A missing lse, or a dtype or head dim the kernels do
+    not take, raises ValueError: nothing recomputes the LSE."""
+    if lse is None:
+        raise ValueError("flash_attention backward needs the forward's lse "
+                         "(flash_attention_cuda(..., return_lse=True))")
     dev = q.device
     for name, x in (("dout", dout), ("q", q), ("k", k), ("v", v),
-                    ("out", out), ("qpos", qpos), ("kpos", kpos)):
+                    ("out", out), ("lse", lse), ("qpos", qpos),
+                    ("kpos", kpos)):
         if x.device != dev or dev.type != "cuda":
             raise ValueError(f"{name} must be on q's CUDA device, got "
                              f"{x.device}")
     check_kernel_args(q, k, v, qpos, kpos, window)
+    b, sq, h, d = q.shape
     if (out.shape != q.shape or dout.shape != q.shape
             or out.dtype != q.dtype or dout.dtype != q.dtype):
         raise ValueError(f"out {tuple(out.shape)} {out.dtype} and dout "
                          f"{tuple(dout.shape)} {dout.dtype} must have q's "
                          f"shape and dtype, {tuple(q.shape)} {q.dtype}")
+    if lse.shape != (b, h, sq) or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be ({b}, {h}, {sq}) float32, got "
+                         f"{tuple(lse.shape)} {lse.dtype}")
+    route = cuda_bwd_route(q.dtype, d)
     q, k, v, out, dout = (x if _readable(x) else x.clone(
         memory_format=torch.contiguous_format)
         for x in (q, k, v, out, dout))
+    lse = lse.contiguous()
     qpos = qpos.to(torch.int32).contiguous()
     kpos = kpos.to(torch.int32).contiguous()
-    b, sq, h, d = q.shape
     sk, kvh = k.shape[1], k.shape[2]
     dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=dev)
     dk = torch.empty((b, sk, kvh, d), dtype=q.dtype, device=dev)
     dv = torch.empty((b, sk, kvh, d), dtype=q.dtype, device=dev)
     if dq.numel() == 0 or dk.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    lse = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
     delta = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
     from repro_torch.kernels._build import library
 
-    strides = [st for x in (q, k, v, out, dout) for st in x.stride()[:3]]
-    with torch.cuda.device(dev):
-        err = library().flash_attention_bwd_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             dout.data_ptr(), qpos.data_ptr(), kpos.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), DTYPES[q.dtype], b, h, kvh, sq, sk, d, *strides,
-            int(causal), 0 if window is None else int(window),
+            lse.data_ptr(), delta.data_ptr()]
+    outs = (dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
+    tail = (int(causal), 0 if window is None else int(window),
             float(d ** -0.5), torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):
+        if route == "wgmma":
+            # the kernels' int4 summaries of each 64-row query tile
+            qtiles = torch.empty((b, h, -(-sq // QTILE), 4),
+                                 dtype=torch.int32, device=dev)
+            strides = [st for x in (q, k, v, out, dout) for st in _strides(x)]
+            err = library().flash_attention_bwd_wgmma_launch(
+                *ptrs, qtiles.data_ptr(), *outs, b, h, kvh, sq, sk, d,
+                *strides, *tail)
+        else:
+            strides = [st for x in (q, k, v, out, dout)
+                       for st in x.stride()[:3]]
+            err = library().flash_attention_bwd_launch(
+                *ptrs, *outs, DTYPES[q.dtype], b, h, kvh, sq, sk, d,
+                *strides, *tail)
+    if err == -1:
+        raise RuntimeError("flash_attention backward: cuTensorMapEncodeTiled "
+                           "refused a tensor map of q, k, v or dout")
     if err != 0:
         raise RuntimeError(f"flash_attention backward launch failed: CUDA "
                            f"error {err}")
-    global bwd_launches
-    bwd_launches += 1
+    bwd_launches[route] += 1
     return dq, dk, dv
 
 
 class FlashAttention(torch.autograd.Function):
-    """`flash_attention_cuda` with its gradient: the forward kernel as it
-    is, and `flash_attention_backward_cuda` from the saved q, k, v, out and
-    positions."""
+    """`flash_attention_cuda` with its gradient: the forward kernel, which
+    writes each row's LSE only when q, k or v needs a gradient (serving
+    writes none), and `flash_attention_backward_cuda` from the saved q, k,
+    v, out, LSE and positions."""
 
     @staticmethod
     def forward(ctx, q, k, v, qpos, kpos, causal, window):
-        out = flash_attention_cuda(q, k, v, qpos, kpos, causal, window)
-        ctx.save_for_backward(q, k, v, out, qpos, kpos)
+        if any(ctx.needs_input_grad[:3]):
+            out, lse = flash_attention_cuda(q, k, v, qpos, kpos, causal,
+                                            window, return_lse=True)
+        else:
+            out, lse = flash_attention_cuda(q, k, v, qpos, kpos, causal,
+                                            window), None
+        ctx.save_for_backward(q, k, v, out, lse, qpos, kpos)
         ctx.causal, ctx.window = causal, window
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out, qpos, kpos = ctx.saved_tensors
+        q, k, v, out, lse, qpos, kpos = ctx.saved_tensors
         dq, dk, dv = flash_attention_backward_cuda(
-            dout, q, k, v, out, qpos, kpos, ctx.causal, ctx.window)
+            dout, q, k, v, out, qpos, kpos, ctx.causal, ctx.window, lse=lse)
         return dq, dk, dv, None, None, None, None

@@ -21,8 +21,12 @@ the wgmma kernel's 128-query blocks as two 64-row halves, 128-key tiles
 and tiles that every row of a half sees taken without a mask), with the
 skip rule from each tile's positions and the second pass for rows with no
 visible key, in PyTorch, so each design is checked here against the plain
-version. The `cuda` tests hold the kernels themselves against the plain
-version on the card and skip here.
+version. `_emulate_backward` does the same for the wgmma backward's two
+kernels (dQ over 128-key tiles, dK/dV over 64-query tiles of each head of
+a GQA group; skips from positions; a query tile holding a row whose LSE is
++inf never skipped; P from the given LSE in log2 units; P and dS rounded
+to bf16 where asked). The `cuda` tests hold the kernels themselves against
+the plain version on the card and skip here.
 """
 import types
 
@@ -584,7 +588,8 @@ def test_cuda_wgmma_kernel_serves_bf16_at_its_head_dims(cuda_device, d):
     out = torch.empty_like(q)
     err = library().flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
-        pos.data_ptr(), out.data_ptr(), fa.DTYPES[torch.bfloat16], 2, 4, 2,
+        pos.data_ptr(), out.data_ptr(), None, fa.DTYPES[torch.bfloat16], 2, 4,
+        2,
         333, 333, d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], 1, 0,
         float(d ** -0.5), torch.cuda.current_stream().cuda_stream)
     assert err == 1  # cudaErrorInvalidValue
@@ -769,12 +774,346 @@ def test_backward_kernel_refuses_what_it_does_not_take():
     head dim outside HEAD_DIMS, mismatched out / dout."""
     q, k, v = (_t(x) for x in _qkv(2, 1, 8, 8, 2, 2, 16))
     pos = torch.arange(8, dtype=torch.int32)
+    lse = torch.zeros(1, 2, 8)
     with pytest.raises(ValueError):
-        fa.flash_attention_backward_cuda(q, q, k, v, q, pos, pos)
+        fa.flash_attention_backward_cuda(q, q, k, v, q, pos, pos, lse=lse)
     meta = [x.to("meta") for x in (q, k, v)]
     with pytest.raises(ValueError):
         fa.flash_attention_backward_cuda(meta[0], *meta, meta[0],
-                                         pos.to("meta"), pos.to("meta"))
+                                         pos.to("meta"), pos.to("meta"),
+                                         lse=lse.to("meta"))
+
+
+def test_backward_refuses_a_missing_lse():
+    """The backward takes the forward's LSE; nothing recomputes it, so a
+    call without one raises before any other check."""
+    q, k, v = (_t(x) for x in _qkv(3, 1, 8, 8, 2, 2, 64))
+    pos = torch.arange(8, dtype=torch.int32)
+    with pytest.raises(ValueError, match="lse"):
+        fa.flash_attention_backward_cuda(q, q, k, v, q, pos, pos)
+    with pytest.raises(ValueError, match="lse"):
+        fa.flash_attention_backward_cuda(q, q, k, v, q, pos, pos, True, None,
+                                         None)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+def test_cuda_bwd_route_by_dtype_and_head_dim(d, dtype):
+    """bf16 at d 64, 80, 96, 128 takes the wgmma backward (two kernels,
+    no row-stats pass); bf16 at 16 and 32 the mma.sync one; float32 the
+    CUDA cores'. A dtype or head dim without a kernel raises."""
+    dt = getattr(torch, dtype)
+    want = ("fp32" if dt == torch.float32
+            else "wgmma" if d in (64, 80, 96, 128) else "mma")
+    assert fa.cuda_bwd_route(dt, d) == want
+    assert fa.BWD_ROUTES["wgmma"] == fa.BWD_KERNELS == (
+        "fa_bwd_dq_wgmma", "fa_bwd_dkv_wgmma")
+    assert all(n.startswith("fa_bwd_") and "stats" not in n
+               for names in fa.BWD_ROUTES.values() for n in names)
+    for dt2, d2 in ((torch.bfloat16, 24), (torch.float16, 64)):
+        with pytest.raises(ValueError):
+            fa.cuda_bwd_route(dt2, d2)
+
+
+# -- the forward's LSE and the wgmma backward's loops, on the CPU ------------
+# `flash_attention_lse_plain` against jax.nn.logsumexp of the oracle's
+# scores: both sum the same fp32 exponentials, in another order, so at
+# F32_TOL; a row with no visible key is +inf (the kernels' marker).
+
+def _oracle_scores_lse(J, q, k, qpos, kpos, causal, window):
+    """jax.nn.logsumexp of the scores `repro.kernels.ref.
+    flash_attention_ref` forms, (B, H, Sq), with the kv heads repeated as
+    the reference's ops wrapper does."""
+    import jax
+
+    jnp = J.jnp
+    b, sq, h, d = q.shape
+    kr = np.repeat(k, h // k.shape[2], axis=2)
+    qb = jnp.asarray(q.transpose(0, 2, 1, 3).reshape(b * h, sq, d))
+    kb = jnp.asarray(kr.transpose(0, 2, 1, 3).reshape(b * h, -1, d))
+    s = jnp.einsum("bqd,bkd->bqk", qb, kb) * d ** -0.5
+    qp, kp = jnp.asarray(qpos, jnp.int32), jnp.asarray(kpos, jnp.int32)
+    mask = (kp >= 0)[None, None, :]
+    if causal:
+        mask = mask & (kp[None, None, :] <= qp[None, :, None])
+    if window is not None:
+        mask = mask & (kp[None, None, :] > qp[None, :, None] - window)
+    s = jnp.where(mask, s, J.ref.NEG_INF)
+    return np.asarray(jax.nn.logsumexp(s, axis=-1)).reshape(b, h, sq)
+
+
+@pytest.mark.parametrize("case", sorted(_bwd_cases()))
+def test_lse_plain_matches_jax_logsumexp(J, case):
+    q, k, _, _, qpos, kpos, causal, window = _bwd_inputs(case)
+    got = fa.flash_attention_lse_plain(_t(q), _t(k), _t(qpos, torch.int32),
+                                       _t(kpos, torch.int32), causal,
+                                       window).numpy()
+    want = _oracle_scores_lse(J, q, k, qpos, kpos, causal, window)
+    empty = ~fa.visible_mask(_t(qpos, torch.int32), _t(kpos, torch.int32),
+                             causal, window).any(-1).numpy()
+    assert got.shape == want.shape == (q.shape[0], q.shape[2], q.shape[1])
+    assert np.isposinf(got[:, :, empty]).all()
+    assert (want[:, :, empty] < -1e29).all()  # the oracle's -1e30 row
+    np.testing.assert_allclose(got[:, :, ~empty], want[:, :, ~empty],
+                               atol=F32_TOL, rtol=F32_TOL)
+    assert ("padding" in case) == bool(empty.any())
+
+
+# The wgmma backward's loops (csrc/flash_attention_bwd_sm90.cu): dQ per
+# 128-query item in two warpgroups of 64 rows over 128-key tiles; dK/dV per
+# 128-key item in two warpgroups of 64 keys over 64-query tiles of each
+# query head of the group in order. Tiles are skipped from position ranges
+# alone; a query tile holding a row whose LSE is +inf is never skipped by
+# dK/dV; a warpgroup takes a tile without a mask where positions show every
+# pair visible. P comes from the given LSE in log2 units.
+BWD_TILING = dict(dq_rows=128, dq_keys=128, dkv_keys=128, dkv_rows=64,
+                  groups=2)
+LOG2E = 1.4426950408889634
+
+
+def _bf16(x):
+    return x.to(torch.bfloat16).float()
+
+
+def _may_see(qmin, qmax, kmin, kmax, causal, window):
+    return (kmax is not None and not (causal and kmin > qmax)
+            and not (window is not None and kmax <= qmin - window))
+
+
+def _emulate_backward(q, k, v, dout, out, lse, qpos, kpos, causal, window,
+                      tiling=BWD_TILING, round_bf16=False, stats=None):
+    """The two kernels' loops in PyTorch on float32 tensors: returns
+    (dq, dk, dv). With round_bf16, P and dS are rounded to bf16 before
+    their products, as the kernels do. `stats`, a dict, counts the tiles
+    each kernel takes, skips, and takes without a mask, and the query
+    tiles dK/dV keeps only for a row with no visible key."""
+    t = tiling
+    stats = {} if stats is None else stats
+    for key in ("dq_tiles", "dq_skipped", "dq_unmasked", "dkv_tiles",
+                "dkv_skipped", "dkv_kept_for_empty", "dkv_unmasked"):
+        stats.setdefault(key, 0)
+    rnd = _bf16 if round_bf16 else (lambda x: x)
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    scale = d ** -0.5
+    qp, kp = qpos.long(), kpos.long()
+    delta = (dout.float() * out.float()).sum(-1).permute(0, 2, 1)  # b h sq
+    lse2 = lse * LOG2E
+    dq = torch.zeros(b, sq, h, d)
+    dk = torch.zeros(b, sk, kvh, d)
+    dv = torch.zeros(b, sk, kvh, d)
+
+    def vis(qrows, keys):
+        return fa.visible_mask(qp[qrows], kp[keys], causal, window)
+
+    def prange(pos):
+        valid = pos[pos >= 0]
+        if valid.numel() == 0:
+            return None, None
+        return int(valid.min()), int(valid.max())
+
+    # dQ: the items' rows, in two groups of 64, over 128-key tiles
+    for q0 in range(0, sq, t["dq_rows"]):
+        rows = torch.arange(q0, min(q0 + t["dq_rows"], sq))
+        qmin, qmax = int(qp[rows].min()), int(qp[rows].max())
+        for k0 in range(0, sk, t["dq_keys"]):
+            keys = torch.arange(k0, min(k0 + t["dq_keys"], sk))
+            kmin, kmax = prange(kp[keys])
+            if not _may_see(qmin, qmax, kmin, kmax, causal, window):
+                stats["dq_skipped"] += b * h
+                continue
+            stats["dq_tiles"] += b * h
+            every = (len(keys) == t["dq_keys"] and bool((kp[keys] >= 0).all()))
+            gsize = t["dq_rows"] // t["groups"]
+            for r0 in range(0, len(rows), gsize):
+                grows = rows[r0:r0 + gsize]
+                gmin, gmax = int(qp[grows].min()), int(qp[grows].max())
+                unmasked = every and (not causal or kmax <= gmin) and (
+                    window is None or kmin > gmax - window)
+                stats["dq_unmasked"] += b * h * unmasked
+                for hh in range(h):
+                    hk = hh // g
+                    s = torch.einsum("bqd,btd->bqt", q[:, grows, hh],
+                                     k[:, keys, hk])
+                    p = torch.exp2(s * (scale * LOG2E)
+                                   - lse2[:, hh, grows][..., None])
+                    if not unmasked:
+                        p = torch.where(vis(grows, keys), p, 0.0)
+                    dp = torch.einsum("bqd,btd->bqt", dout[:, grows, hh],
+                                      v[:, keys, hk])
+                    ds = rnd(p * (dp - delta[:, hh, grows][..., None]))
+                    dq[:, grows, hh] += torch.einsum("bqt,btd->bqd", ds,
+                                                     k[:, keys, hk])
+    dq *= scale
+
+    # dK/dV: 128-key items in two groups of 64 keys; 64-query tiles of each
+    # query head of the group, in order
+    nt = t["dkv_rows"]
+    for k0 in range(0, sk, t["dkv_keys"]):
+        keys = torch.arange(k0, min(k0 + t["dkv_keys"], sk))
+        kmin, kmax = prange(kp[keys])
+        for hk in range(kvh):
+            for hh in range(hk * g, hk * g + g):
+                for q0 in range(0, sq, nt):
+                    rows = torch.arange(q0, min(q0 + nt, sq))
+                    qmin, qmax = int(qp[rows].min()), int(qp[rows].max())
+                    empty_rows = torch.isinf(lse[:, hh, rows])  # (b, rows)
+                    empty = bool(empty_rows.any())
+                    if not _may_see(qmin, qmax, kmin, kmax, causal, window):
+                        if not empty:
+                            stats["dkv_skipped"] += b
+                            continue
+                        stats["dkv_kept_for_empty"] += b
+                    stats["dkv_tiles"] += b
+                    gsize = t["dkv_keys"] // t["groups"]
+                    for c0 in range(0, t["dkv_keys"], gsize):
+                        # the warpgroup's keys; those past Sk are no keys
+                        gk = torch.arange(k0 + c0, k0 + c0 + gsize)
+                        real = gk[gk < sk]
+                        gkp = torch.cat([kp[real], torch.full(
+                            (gsize - len(real),), -1, dtype=kp.dtype)])
+                        gmin, gmax = prange(gkp)
+                        unmasked = bool((gkp >= 0).all()) and not empty and (
+                            not causal or gmax <= qmin) and (
+                            window is None or gmin > qmax - window)
+                        stats["dkv_unmasked"] += b * unmasked
+                        if len(real) == 0:
+                            continue
+                        s = torch.einsum("btd,bqd->btq", k[:, real, hk],
+                                         q[:, rows, hh])
+                        p = torch.exp2(s * (scale * LOG2E)
+                                       - lse2[:, hh, rows][:, None, :])
+                        if not unmasked:
+                            m = fa.visible_mask(qp[rows], gkp[:len(real)],
+                                                causal, window).T
+                            p = torch.where(m, p, 0.0)
+                        # a row with no visible key: P = 1/Sk, dS = 0
+                        none = empty_rows[:, None, :]
+                        p = torch.where(none, 1.0 / sk, p)
+                        dp = torch.einsum("btd,bqd->btq", v[:, real, hk],
+                                          dout[:, rows, hh])
+                        ds = torch.where(
+                            none, 0.0,
+                            p * (dp - delta[:, hh, rows][:, None, :]))
+                        dv[:, real, hk] += torch.einsum(
+                            "btq,bqd->btd", rnd(p), dout[:, rows, hh])
+                        dk[:, real, hk] += torch.einsum(
+                            "btq,bqd->btd", rnd(ds), q[:, rows, hh])
+    dk *= scale
+    return dq, dk, dv
+
+
+def _bwd_inputs_at(name, d):
+    """`_bwd_inputs(name)` with head dim d (the same seeds)."""
+    b, sq, sk, h, kv, _, qpos, kpos, causal, window = _bwd_cases()[name]
+    q, k, v = _qkv(len(name), b, sq, sk, h, kv, d)
+    dout = np.random.default_rng(len(name) + 1).standard_normal(
+        q.shape).astype(np.float32)
+    qpos = np.arange(sq) if qpos is None else qpos
+    kpos = np.arange(sk) if kpos is None else kpos
+    return q, k, v, dout, qpos, kpos, causal, window
+
+
+def _emulated_grads(q, k, v, dout, qpos, kpos, causal, window, **kw):
+    q, k, v, dout = (_t(x) for x in (q, k, v, dout))
+    qp, kp = _t(qpos, torch.int32), _t(kpos, torch.int32)
+    if kw.get("round_bf16"):  # the kernels' bf16 inputs and output
+        q, k, v, dout = (_bf16(x) for x in (q, k, v, dout))
+        out = _bf16(fa.flash_attention_plain(q, k, v, qp, kp, causal, window))
+    else:
+        out = fa.flash_attention_plain(q, k, v, qp, kp, causal, window)
+    lse = fa.flash_attention_lse_plain(q, k, qp, kp, causal, window)
+    grads = _emulate_backward(q, k, v, dout, out, lse, qp, kp, causal,
+                              window, **kw)
+    return grads, (q, k, v, dout, qp, kp)
+
+
+@pytest.mark.parametrize("d", fa.WGMMA_BWD_HEAD_DIMS)
+@pytest.mark.parametrize("case", sorted(_bwd_cases()))
+def test_wgmma_backward_emulation_matches_plain_and_jax(J, case, d):
+    """The wgmma backward's loops against the plain backward and JAX's vjp
+    of the oracle: exact arithmetic (no rounding) at BWD_TOL; with P and
+    dS rounded to bf16 on bf16 inputs, within the card's bf16 bound (a
+    relative L2 of 1e-2 per tensor against the plain backward on the same
+    inputs)."""
+    args = _bwd_inputs_at(case, d)
+    q, k, v, dout, qpos, kpos, causal, window = args
+    got, _ = _emulated_grads(*args)
+    plain = _plain_grads(*args)
+    b, sq, h, _ = q.shape
+    g = h // k.shape[2]
+    jnp = J.jnp
+
+    def oracle(q, k, v):
+        kr, vr = jnp.repeat(k, g, axis=2), jnp.repeat(v, g, axis=2)
+        bhsd = lambda x: x.transpose(0, 2, 1, 3).reshape(  # noqa: E731
+            b * h, x.shape[1], d)
+        o = J.ref.flash_attention_ref(
+            bhsd(q), bhsd(kr), bhsd(vr), jnp.asarray(qpos, jnp.int32),
+            jnp.asarray(kpos, jnp.int32), causal=causal, window=window)
+        return o.reshape(b, h, sq, d).transpose(0, 2, 1, 3)
+
+    want = _jax_vjp(J, oracle, q, k, v, dout)
+    for name, a, p, w in zip(("dq", "dk", "dv"), got, plain, want):
+        np.testing.assert_allclose(a.numpy(), p, atol=BWD_TOL, rtol=BWD_TOL,
+                                   err_msg=name)
+        np.testing.assert_allclose(a.numpy(), w, atol=BWD_TOL, rtol=BWD_TOL,
+                                   err_msg=name)
+    rounded, (qb, kb, vb, gb, qp, kp) = _emulated_grads(*args,
+                                                        round_bf16=True)
+    exact = fa.flash_attention_backward_plain(gb, qb, kb, vb, qp, kp, causal,
+                                              window)
+    for name, a, w in zip(("dq", "dk", "dv"), rounded, exact):
+        rel = float(torch.linalg.vector_norm(a - w)
+                    / torch.linalg.vector_norm(w))
+        assert rel <= 1e-2, (name, rel)
+
+
+def _skip_case(name):
+    """A forward emulation case (`_emulation_cases`) at d = 64 with an
+    output gradient."""
+    b, sq, sk, h, kv, _, qpos, kpos, causal, window = \
+        _emulation_cases()[name]
+    q, k, v = _qkv(len(name), b, sq, sk, h, kv, 64)
+    dout = np.random.default_rng(len(name)).standard_normal(
+        q.shape).astype(np.float32)
+    qpos = np.arange(sq) if qpos is None else qpos
+    kpos = np.arange(sk) if kpos is None else kpos
+    return q, k, v, dout, qpos, kpos, causal, window
+
+
+@pytest.mark.parametrize("case,want", [
+    # 2 heads of 600 causal rows: dQ items 0..4 see 1..5 of the 5 key
+    # tiles (30 taken, 20 skipped); their warpgroups see 0, 2, 4, 6, 8
+    # whole earlier tiles; dK/dV key tiles 0..4 see 10, 8, 6, 4, 2 of the
+    # 10 query tiles (60 taken, 40 skipped), 45 warpgroup tiles a head
+    # whole (keys 0..575 in 9 groups of 64)
+    ("causal 600", dict(dq_tiles=30, dq_skipped=20, dq_unmasked=40,
+                        dkv_tiles=60, dkv_skipped=40, dkv_kept_for_empty=0,
+                        dkv_unmasked=90)),
+    # rows 0-4 see no key: query tile 0 is kept against key tile 1 (keys
+    # from 128), which no row of it sees; tile 1 (rows 64-127) is skipped;
+    # keys 64-127 are whole for query tiles 2 and 3, keys 128-191 for 3
+    ("padding", dict(dq_tiles=6, dq_skipped=2, dq_unmasked=0, dkv_tiles=14,
+                     dkv_skipped=2, dkv_kept_for_empty=2, dkv_unmasked=6)),
+    # reversed key positions: every tile's range overlaps, nothing skipped;
+    # keys 64-127 (positions 65 down to 2) are whole for query tile 2 alone
+    ("reversed keys", dict(dq_tiles=8, dq_skipped=0, dq_unmasked=0,
+                           dkv_tiles=12, dkv_skipped=0, dkv_kept_for_empty=0,
+                           dkv_unmasked=2)),
+])
+def test_wgmma_backward_skips_by_positions_and_keeps_empty_rows(case, want):
+    """The skip rules of both kernels, the keeping of a query tile that
+    holds a row with no visible key, and the tiles taken without a mask,
+    counted; the result still equals the plain backward at BWD_TOL."""
+    args = _skip_case(case)
+    stats = {}
+    got, _ = _emulated_grads(*args, stats=stats)
+    for name, a, w in zip(("dq", "dk", "dv"), got, _plain_grads(*args)):
+        np.testing.assert_allclose(a.numpy(), w, atol=BWD_TOL, rtol=BWD_TOL,
+                                   err_msg=name)
+    assert stats == want
 
 
 @pytest.mark.cuda
@@ -789,11 +1128,12 @@ def test_cuda_backward_kernel_equals_plain(cuda_device, case, dtype):
     dt = getattr(torch, dtype)
     q, k, v, dout = (_t(x, dt).to(cuda_device) for x in (q, k, v, dout))
     qpos, kpos = (_t(x, torch.int32).to(cuda_device) for x in (qpos, kpos))
-    out = fa.flash_attention_cuda(q, k, v, qpos, kpos, causal, window)
+    out, lse = fa.flash_attention_cuda(q, k, v, qpos, kpos, causal, window,
+                                       return_lse=True)
     got = fa.flash_attention_backward_cuda(dout, q, k, v, out, qpos, kpos,
-                                           causal, window)
+                                           causal, window, lse=lse)
     again = fa.flash_attention_backward_cuda(dout, q, k, v, out, qpos, kpos,
-                                             causal, window)
+                                             causal, window, lse=lse)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
     want = fa.flash_attention_backward_plain(
         dout.float(), q.float(), k.float(), v.float(), qpos, kpos, causal,
@@ -814,3 +1154,64 @@ def test_cuda_backward_kernel_equals_plain(cuda_device, case, dtype):
     assert ops.launch_counts()["flash_attention_bwd"] == before + 1
     for x, a in zip(leaves, got):
         assert torch.equal(x.grad, a)
+
+
+LSE_TOL = 1e-4  # atol = rtol: fp32 sums of exponentials in another order,
+                # and the wgmma kernel's approximate exp2 and log2 units
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(_cuda_cases()))
+def test_cuda_forward_lse_equals_plain(cuda_device, case, dtype):
+    """Every forward route writes each row's LSE, within LSE_TOL of
+    `flash_attention_lse_plain` on the same inputs and +inf exactly where
+    a row sees no key; asking for it leaves the output bit-equal."""
+    b, sq, sk, h, kv, d, qpos, kpos, causal, window = _cuda_cases()[case]
+    dt = getattr(torch, dtype)
+    q, k, v = (_t(x, dt).to(cuda_device)
+               for x in _qkv(len(case), b, sq, sk, h, kv, d))
+    qpos = _t(np.arange(sq) if qpos is None else qpos,
+              torch.int32).to(cuda_device)
+    kpos = _t(np.arange(sk) if kpos is None else kpos,
+              torch.int32).to(cuda_device)
+    out, lse = fa.flash_attention_cuda(q, k, v, qpos, kpos, causal, window,
+                                       return_lse=True)
+    assert torch.equal(out, fa.flash_attention_cuda(q, k, v, qpos, kpos,
+                                                    causal, window))
+    want = fa.flash_attention_lse_plain(q, k, qpos, kpos, causal, window)
+    assert lse.shape == want.shape == (b, h, sq)
+    assert torch.equal(torch.isinf(lse), torch.isinf(want))
+    fin = torch.isfinite(want)
+    torch.testing.assert_close(lse[fin], want[fin], atol=LSE_TOL,
+                               rtol=LSE_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 80, 96, 128])
+@pytest.mark.parametrize("case", sorted(_bwd_cases()))
+def test_cuda_wgmma_backward_at_its_head_dims(cuda_device, case, d):
+    """The bf16 backward at the wgmma head dims: within a relative L2 of
+    1e-2 per tensor of the fp32 plain backward on the same bf16 inputs,
+    two runs bit-equal, one call counted under the wgmma route."""
+    q, k, v, dout, qpos, kpos, causal, window = _bwd_inputs_at(case, d)
+    q, k, v, dout = (_t(x, torch.bfloat16).to(cuda_device)
+                     for x in (q, k, v, dout))
+    qpos, kpos = (_t(x, torch.int32).to(cuda_device) for x in (qpos, kpos))
+    out, lse = fa.flash_attention_cuda(q, k, v, qpos, kpos, causal, window,
+                                       return_lse=True)
+    before = dict(fa.bwd_launches)
+    got = fa.flash_attention_backward_cuda(dout, q, k, v, out, qpos, kpos,
+                                           causal, window, lse=lse)
+    assert fa.bwd_launches["wgmma"] == before["wgmma"] + 1
+    again = fa.flash_attention_backward_cuda(dout, q, k, v, out, qpos, kpos,
+                                             causal, window, lse=lse)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = fa.flash_attention_backward_plain(
+        dout.float(), q.float(), k.float(), v.float(), qpos, kpos, causal,
+        window)
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        assert torch.isfinite(a).all(), name
+        rel = float(torch.linalg.vector_norm(a.float() - w)
+                    / torch.linalg.vector_norm(w))
+        assert rel <= 1e-2, (name, rel)
