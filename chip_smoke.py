@@ -5,6 +5,11 @@
                                          # call on case3 and at n = 160,000
                                          # and one estimator call there, and
                                          # writes the tables to DIR
+    python3 chip_smoke.py --flash-ab TREE
+        # only the A/B: the flash forward at hubert's encode shape and
+        # hubert's encode, timed on the checkout unpacked at TREE and on
+        # this one in turns (TREE, this, this, TREE), each turn a process
+        # of its own (--flash-time SRC) that imports that tree's package
 
 Phases, in order; any failed check exits non-zero:
 
@@ -72,14 +77,16 @@ Phases, in order; any failed check exits non-zero:
   6. lm: the flash-attention kernels' registers and spills (`-Xptxas -v`)
      and the wgmma kernels' HGMMA and UTMALDG instructions (cuobjdump);
      each flash kernel against its plain version on the card, through the
-     route `flash_attention.cuda_route` picks (bf16 at d = 64, 96, 128:
-     `csrc/flash_attention_sm90.cu`, wgmma and TMA; bf16 at the other
-     head dims: `csrc/flash_attention.cu`'s mma.sync kernel; fp32: its
+     route `flash_attention.cuda_route` picks (bf16 at d = 64, 80, 96,
+     128: `csrc/flash_attention_sm90.cu`, wgmma and TMA; bf16 at d = 16
+     and 32: `csrc/flash_attention.cu`'s mma.sync kernel; fp32: its
      CUDA-core kernel) at the phi3-mini-3.8b prefill shape in bf16 and
      fp32, internlm2-20b's GQA ratio, granite's d = 64 GQA, hubert's
-     d = 80 (the mma.sync route), a window, ragged Sq != Sk, -1 padding
-     with query rows that see no key (also over more work items than
-     SMs), one query against a full and a ring cache, and the served
+     d = 80 (the wgmma route, 16-column slabs), a window, ragged
+     Sq != Sk, -1 padding with query rows that see no key (also over more
+     work items than SMs), one query against a full and a ring cache, bf16
+     at d = 32 with padding and a window and at d = 16 (the mma.sync
+     route), and the served
      families' prefill shapes (minicpm3: 40 heads at d = 96, v
      zero-padded from 64; hymba: 25/5 GQA at d = 64, with a window of
      1,024 and without; granite: 24/8 at d = 64; dbrx: 48/8 at d = 128;
@@ -109,7 +116,7 @@ Phases, in order; any failed check exits non-zero:
      then hubert-xlarge's encoder: a depth-2 fp32 encode, card against
      CPU, at 2 x 256 frames, then 48 layers in bf16 on 4 x 1,500 frames
      of random features (two encodes bit-equal, 48 flash launches on
-     the mma.sync route and no other kernel, the median encode ms, the
+     the wgmma route and no other kernel, the median encode ms, the
      device time by kernel kind, peak memory, and the bf16 logits
      against an fp32 encode of the same weights, rel. L2 <= 5e-2);
   7. train: the flash attention backward (`csrc/flash_attention_bwd.cu`,
@@ -357,6 +364,10 @@ def device_profile(fn, kernel_prefix, iters: int = 20,
                       f"{attempt} of {PROFILE_TRIES}")
             return busy_us / iters / 1e3, by_kernel
     if not required:
+        if every_call and busy_us > 0:
+            print(f"device_profile {kernel_prefix}: no whole trace in "
+                  f"{tries} (last try's records of {iters} calls: "
+                  f"{records})")
         return None, {}
     ms = (time_cold(fn.after_flush, iters=iters, warmup=1)
           if hasattr(fn, "after_flush") else time_cuda(fn, iters=iters,
@@ -2357,6 +2368,11 @@ def _flash_cases():
                                       None, True, None),
         "hubert d80 bidirectional bf16": (2, 1000, 1000, 16, 16, 80, bf,
                                           None, None, False, None),
+        # the mma.sync route's head dims in bf16
+        "d32 padding, window 100 bf16": (2, 512, 512, 8, 4, 32, bf, pad_q,
+                                         pad_k, True, 100),
+        "d16 causal bf16": (2, 1024, 1024, 8, 8, 16, bf, None, None, True,
+                            None),
         # the served families' prefill shapes: MLA's q/k head dim 64 + 32
         # with v zero-padded from 64 (FLASH_V_DIM); hymba's 25/5 GQA at
         # d = 64 on its windowed layers and on its global ones
@@ -3191,8 +3207,8 @@ def _flash_build_report() -> list:
         if "wgmma" in row["kernel"]:
             check(row["spill_stores"] == row["spill_loads"] == 0,
                   f"{row['kernel']} spills registers")
-    check(sum("flash_attention_wgmma" in r["kernel"] for r in rows) == 3,
-          "the build report lists no wgmma kernel for d = 64, 96, 128")
+    check(sum("flash_attention_wgmma" in r["kernel"] for r in rows) == 4,
+          "the build report lists no wgmma kernel for d = 64, 80, 96, 128")
     check(sum(r["kernel"].startswith(fa_bwd) for r in rows
               for fa_bwd in ("fa_bwd_dq_wgmma<", "fa_bwd_dkv_wgmma<")) == 8,
           "the build report lists no wgmma backward for d = 64, 80, 96, "
@@ -3277,6 +3293,9 @@ def phase_lm(dev):
     t0 = time.perf_counter()
     enc_diff, enc_par_launches = _encode_parity(dev)
     enc_launches, enc_numbers = _encode(dev)
+    check(enc_numbers["flash_launches_by_route"]["wgmma"] == enc_launches,
+          f"{ENCODER_ARCH}: flash launches by route "
+          f"{enc_numbers['flash_launches_by_route']}, not all wgmma")
     print(f"lm encode {ENCODER_ARCH} wall: {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     bf16_errs = [e for n, e in errors.items() if "fp32" not in n]
@@ -3884,16 +3903,67 @@ def phase_profile(dev, graphs, out_dir):
                   f"{e.device_time_total / 1e3:.1f} ms")
 
 
+# the A/B of the flash forward against another commit (--flash-ab)
+FLASH_AB_CASE = "hubert encode bf16"
+
+
+def flash_ab(other: str) -> None:
+    """FLASH_AB_CASE timed (`_time_flash`: events, whole-trace device time,
+    SDPA, the bound), then hubert's encode (`_encode`: the median encode
+    ms, the device time by kind), on the checkout at `other` (an unpacked
+    tree of another commit, its own kernels built there) and on this one
+    in turns: other, this, this, other, each turn a process of its own
+    that imports that tree's `repro_torch`. One `flash ab` JSON line per
+    turn."""
+    for label, tree in (("other", other), ("this", ROOT), ("this", ROOT),
+                        ("other", other)):
+        src = os.path.join(os.path.abspath(tree), "src")
+        out = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--flash-time", src],
+            capture_output=True, text=True, timeout=900)
+        check(out.returncode == 0, f"flash ab turn on {src}: "
+              f"{out.stdout[-2000:]}{out.stderr[-2000:]}")
+        t = json.loads(out.stdout.strip().splitlines()[-1])
+        print(f"flash ab {label} ({tree}): {json.dumps(t)}", flush=True)
+
+
 def main(argv) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", metavar="DIR",
                         help="profile one lgrass_sparsify call on case3 and "
                              "at n = 160,000 and one estimator call there; "
                              "write the tables to DIR")
+    parser.add_argument("--flash-ab", metavar="TREE",
+                        help="only time the flash forward at "
+                             f"{FLASH_AB_CASE!r} and hubert's encode on the "
+                             "checkout at TREE and on this one in turns "
+                             "(TREE, this, this, TREE)")
+    parser.add_argument("--flash-time", metavar="SRC",
+                        help="only time the flash forward at "
+                             f"{FLASH_AB_CASE!r} and hubert's encode with "
+                             "the repro_torch under SRC; print one JSON "
+                             "line")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if args.flash_ab:
+        flash_ab(args.flash_ab)
+        return 0
+    if args.flash_time:
+        sys.path.insert(0, args.flash_time)
+        from repro_torch.kernels import flash_attention as fa
+
+        check(fa.__file__.startswith(args.flash_time),
+              f"repro_torch imported from {fa.__file__}")
+        dev = torch.device("cuda")
+        t = _time_flash(dev, FLASH_AB_CASE)
+        _, enc = _encode(dev)
+        t.update(encode={k: enc[k] for k in (
+            "encode_ms", "encode_ms_runs", "encode_profile_ms",
+            "flash_launches_by_route")}, source=fa.__file__, clock=sm_clock())
+        print(json.dumps(t))
+        return 0
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.core import (baseline_sparsify, feeder_like_graph,
                                   official_case)

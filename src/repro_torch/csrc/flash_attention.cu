@@ -39,8 +39,8 @@
 // `flash_attention_mma_kernel`, four warps of 16 query rows, the products as
 // mma.sync m16n8k16 with fp32 accumulators, Q fragments in registers, K and
 // V tiles in shared memory read by ldmatrix, and P passed from the score
-// fragments to the P.V product in registers. It serves the head dims 16, 32
-// and 80; at 64, 96 and 128 the wgmma kernel of
+// fragments to the P.V product in registers. It serves the head dims 16
+// and 32; at 64, 80, 96 and 128 the wgmma kernel of
 // csrc/flash_attention_sm90.cu serves bf16 (kernels/flash_attention.py,
 // `cuda_route`). float32 runs on the CUDA cores in full fp32 (no TF32):
 // `flash_attention_tile_kernel`, 16 x 16 threads over a 64 x 64 tile staged
@@ -724,7 +724,7 @@ cudaError_t launch_bf16(const Params& p, int bh, cudaStream_t s) {
 template <int D>
 cudaError_t launch(const Params& p, int dtype, int bh, cudaStream_t s) {
   if (dtype == 0) return launch_f32<D>(p, bh, s);
-  if constexpr (D != 64 && D != 96 && D != 128)
+  if constexpr (D == 16 || D == 32)
     if (dtype == 1) return launch_bf16<D>(p, bh, s);
   return cudaErrorInvalidValue;
 }
@@ -736,7 +736,7 @@ cudaError_t launch(const Params& p, int dtype, int bh, cudaStream_t s) {
 // -1 = padding; out: contiguous (B, Sq, H, d); lse: (B, H, Sq) float32 or
 // null, each row's LSE of its scaled scores (m + log l, natural log units;
 // +inf for a row with no visible key). dtype 0 = float32 with d in
-// {16, 32, 64, 80, 96, 128}, 1 = bfloat16 with d in {16, 32, 80} (q, k, v
+// {16, 32, 64, 80, 96, 128}, 1 = bfloat16 with d in {16, 32} (q, k, v
 // and out alike). window <= 0 means no window. Launches on `stream`; returns
 // the CUDA error of the launch (cudaErrorInvalidValue for a d or dtype it
 // does not take).

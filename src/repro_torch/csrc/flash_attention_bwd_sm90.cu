@@ -54,8 +54,9 @@
 // the resident tiles, two where they fit, so the next item's load overlaps
 // this one's products; tensor maps (d, heads, seq, batch) with the caller's
 // strides, whose seq bound zero-fills a ragged last tile; d cut into slabs
-// of one swizzle span (64 columns under a 128-byte swizzle at d = 64 and
-// 128; 32 under 64 bytes at 96; 16 under 32 bytes at 80). Persistent, one
+// of one swizzle span by the forward's geometry, `Slabs<D>` of
+// csrc/sm90.cuh (64 columns under a 128-byte swizzle at d = 64 and 128; 32
+// under 64 bytes at 96; 16 under 32 bytes at 80). Persistent, one
 // block per SM: items pair tiles y and n - 1 - y so that causal items of a
 // pair cost about the same, in groups of (batch, head) pairs whose streamed
 // operands fit in 8 MB of L2. Key and query tiles are skipped by their
@@ -105,16 +106,6 @@ struct Params {
   int pairs, group;           // work pairs; pairs scheduled together
 };
 
-// d cut into NS slabs of SLAB columns, each one swizzle span of SW bytes
-template <int D>
-struct Slabs {
-  static constexpr int SW = D % 64 == 0 ? 128 : D % 32 == 0 ? 64 : 32;
-  static constexpr int SLAB = SW / 2;
-  static constexpr int NS = D / SLAB;
-  static constexpr uint64_t LAYOUT = SW == 128 ? 1 : SW == 64 ? 2 : 3;
-  static_assert(D % 16 == 0 && NS * SLAB == D, "d: a multiple of 16");
-};
-
 // Whether some query with a position in [qmin, qmax] may see some valid key
 // with a position in [kmin, kmax] (kmax == INT_MIN: no valid key).
 __device__ __forceinline__ bool may_see(const Params& p, int qmin, int qmax,
@@ -140,48 +131,6 @@ __device__ __forceinline__ int work_item(const Params& p, int nt, int k,
   pair = grp * p.group + in_grp % gsize;
   tile = k & 1 ? nt - 1 - j : j;
   return (k & 1) && tile == j ? 0 : 1;
-}
-
-// wgmma descriptor of k-step kk (16 columns of d) of a K-major tile at
-// `tile` whose slabs are `slab` bytes apart
-template <int D>
-__device__ __forceinline__ uint64_t kmajor(uint32_t tile, int slab, int kk) {
-  using S = Slabs<D>;
-  constexpr int STEPS = S::SLAB / 16;  // k-steps per slab
-  return make_desc(tile + (kk / STEPS) * slab + (kk % STEPS) * 32, 16,
-                   8 * S::SW, S::LAYOUT);
-}
-
-// wgmma descriptor of rows 16 kt .. 16 kt + 15 of a row-major tile at
-// `tile` read MN-major (B of a product over those rows, n = d)
-template <int D>
-__device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int slab, int kt) {
-  using S = Slabs<D>;
-  return make_desc(tile + kt * 16 * S::SW, slab, 8 * S::SW, S::LAYOUT);
-}
-
-// d (64 x N) = A B^T over the depth d: A 64 rows at a, B N rows at b, both
-// K-major. Issued and committed, not waited for.
-template <int D, int N>
-__device__ __forceinline__ void issue_abt(float (&d)[N / 2], uint32_t a,
-                                          int a_slab, uint32_t b,
-                                          int b_slab) {
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    wgmma_ss<N>(d, kmajor<D>(a, a_slab, kk), kmajor<D>(b, b_slab, kk),
-                kk == 0);
-  wgmma_commit();
-}
-
-// acc (64 x d) += X B: X's fragments x[kt] over rows 16 kt .. of the
-// row-major B at b. Issued, not committed.
-template <int D, int KT>
-__device__ __forceinline__ void issue_xb(float (&acc)[D / 2],
-                                         const uint32_t (&x)[KT][4],
-                                         uint32_t b, int b_slab) {
-#pragma unroll
-  for (int kt = 0; kt < KT; ++kt)
-    wgmma_rs<D>(acc, x[kt], mnmajor<D>(b, b_slab, kt));
 }
 
 __device__ __forceinline__ float dot8(uint4 a, uint4 b, float acc) {

@@ -1,24 +1,27 @@
 // Forward attention with an online softmax (flash attention) built on
 // Hopper's own units: wgmma, TMA and a warp-specialised mbarrier pipeline.
-// bfloat16, head dim d in {64, 96, 128}.
+// bfloat16, head dim d in {64, 80, 96, 128}.
 //
 // Replaces the TPU kernel `flash_attention_bhsd`
 // (src/repro/kernels/flash_attention.py:72, body `_fa_kernel`) for bf16 at
-// the head dims of the served models (64: hymba, granite; 96: phi3; 128:
-// internlm2, starcoder2, dbrx, chameleon). float32 and the other head dims
-// stay on csrc/flash_attention.cu, whose header gives the function both
-// compute: fp32 scores scaled after the product, masks from the position
-// vectors (-1e30; keys past Sk give p = 0), p rounded to bf16 before P.V,
-// out = acc / max(l, 1e-30), and a row with no visible key the mean of v
-// over all Sk keys. Where the caller asks (the gradient needs it), it also
-// writes each row's LSE of the scaled scores in natural log units,
-// (m + log2 l) ln 2 from the epilogue's m and l, and +inf for a row with no
-// visible key (the backward's P = exp(s * d^-0.5 - LSE)).
+// the head dims of the served models (64: hymba, granite; 80: hubert's
+// encoder; 96: phi3; 128: internlm2, starcoder2, dbrx, chameleon). float32,
+// and bf16 at d = 16 and 32, stay on csrc/flash_attention.cu, whose header
+// gives the function both compute: fp32 scores scaled after the product,
+// masks from the position vectors (-1e30; keys past Sk give p = 0), p
+// rounded to bf16 before P.V, out = acc / max(l, 1e-30), and a row with no
+// visible key the mean of v over all Sk keys. Where the caller asks (the
+// gradient needs it), it also writes each row's LSE of the scaled scores in
+// natural log units, (m + log2 l) ln 2 from the epilogue's m and l, and
+// +inf for a row with no visible key (the backward's P = exp(s * d^-0.5 -
+// LSE)).
 //
 // What bounds it: at the serving shape (B*H = 128, S = 2048, d = 96,
 // causal) the two products are 1.03e11 FLOP against 201 MB of q, k, v and
 // out, so the tensor cores' 989 TFLOP/s bound it (104 us) before HBM
-// (60 us). What the design does about it:
+// (60 us); at hubert's encode (B*H = 64, S = 1,500, d = 80, bidirectional)
+// 4.6e10 FLOP against 31 MB, 46.6 us against 9.2. What the design does
+// about it:
 //
 //  * 384 threads in three warpgroups. Warpgroup 0 produces: one warp loads
 //    positions and one thread issues the TMA copies, and the warpgroup
@@ -37,11 +40,13 @@
 //  * q, k and v are 4-D tensor maps (d, heads, seq, batch) with the
 //    caller's strides, so the seq bound zero-fills a ragged last tile and
 //    no copy reads into another head. The d axis is cut into slabs of one
-//    swizzle span (64 columns, 128-byte swizzle, at d = 64 and 128; 32
-//    columns, 64-byte swizzle, at d = 96), each its own box and region.
-//  * Q has two buffers where they fit (d = 64, 96; one at d = 128); K and V
-//    tiles of 128 keys go through a ring of three stages with full and
-//    empty mbarriers.
+//    swizzle span, each its own box and region, by `Slabs<D>` of
+//    csrc/sm90.cuh, the backward's geometry too: 64 columns under a
+//    128-byte swizzle at d = 64 and 128; 32 under 64 bytes at 96; 16 under
+//    32 bytes at 80 (five boxes a tile).
+//  * Q has two buffers where they fit (d = 64, 80, 96; one at d = 128); K
+//    and V tiles of 128 keys go through a ring of three stages with full
+//    and empty mbarriers.
 //  * S = Q K^T is wgmma m64n128k16 with both operands in shared memory,
 //    K-major; the online softmax runs in registers on the accumulator
 //    layout (rows 16 warp + g and + 8, columns 2t, 2t + 1 of each block of
@@ -109,18 +114,17 @@ struct Params {
 // Shared-memory layout for head dim D: QBUF Q buffers (NS slabs of BQ rows
 // each), then STAGES stages of a K and a V tile (NS slabs of BK rows each),
 // then the barriers, the tiles' info and positions, the query positions and
-// the vote flags.
+// the vote flags. The slabs (SW, SLAB, NS, LAYOUT) are Slabs<D>'s, as in the
+// backward.
 template <int D>
-struct Tiles {
-  static constexpr int SW = D % 64 == 0 ? 128 : 64;  // swizzle span, bytes
-  static constexpr int SLAB = SW / 2;                 // columns per slab
-  static constexpr int NS = D / SLAB;
-  static constexpr uint64_t LAYOUT = SW == 128 ? 1 : 2;  // descriptor code
+struct Tiles : Slabs<D> {
+  using S = Slabs<D>;
+  static_assert(S::NS * S::SLAB == D, "the slabs cover d");
   static constexpr int STAGES = 3;
-  static constexpr int Q_SLAB = BQ * SW;
-  static constexpr int KV_SLAB = BK * SW;
-  static constexpr int Q_BYTES = NS * Q_SLAB;
-  static constexpr int KV_BYTES = NS * KV_SLAB;  // one K (or V) tile
+  static constexpr int Q_SLAB = BQ * S::SW;
+  static constexpr int KV_SLAB = BK * S::SW;
+  static constexpr int Q_BYTES = S::NS * Q_SLAB;
+  static constexpr int KV_BYTES = S::NS * KV_SLAB;  // one K (or V) tile
   static constexpr int STAGE_BYTES = 2 * KV_BYTES;
   // barriers, tile info and key positions, query positions, vote flags
   static constexpr int meta(int qbuf) {
@@ -321,29 +325,6 @@ __device__ __forceinline__ void produce(const CUtensorMap* tq,
   }
 }
 
-// S = Q K^T for one warpgroup's 64 rows and the 128 keys of the tile at
-// `ks`: the k16 steps walk across the slabs of d. Issued, not waited for.
-template <int D>
-__device__ __forceinline__ void issue_scores(float (&s)[BK / 2], uint32_t qa,
-                                             uint32_t ks) {
-  using T = Tiles<D>;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const int sl = kk / (T::SLAB / 16);
-    const uint32_t off = (kk % (T::SLAB / 16)) * 32;
-    const uint64_t da =
-        make_desc(qa + sl * T::Q_SLAB + off, 16, 8 * T::SW, T::LAYOUT);
-    const uint64_t db =
-        make_desc(ks + sl * T::KV_SLAB + off, 16, 8 * T::SW, T::LAYOUT);
-    if (kk == 0) {
-      wgmma_ss_n128_first(s, da, db);
-    } else {
-      wgmma_ss_n128(s, da, db, 1);
-    }
-  }
-  wgmma_commit();
-}
-
 // o = o * alpha + P V for the V tile at `vs`: keys 16 kt .. 16 kt + 15 are
 // the A fragments pa[kt]. Issued, not waited for.
 template <int D>
@@ -351,17 +332,12 @@ __device__ __forceinline__ void issue_pv(float (&o)[D / 2],
                                          uint32_t (&pa)[BK / 16][4],
                                          const float (&alpha)[2],
                                          uint32_t vs) {
-  using T = Tiles<D>;
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
   fence_regs(o);
   fence_regs(pa);
   wgmma_fence();
-#pragma unroll
-  for (int kt = 0; kt < BK / 16; ++kt)
-    wgmma_rs<D>(o, pa[kt],
-                make_desc(vs + kt * 16 * T::SW, T::KV_SLAB, 8 * T::SW,
-                          T::LAYOUT));
+  issue_xb<D, BK / 16>(o, pa, vs, Tiles<D>::KV_SLAB);
   wgmma_commit();
 }
 
@@ -460,8 +436,9 @@ __device__ __forceinline__ void consume(const Params& p, const Shared& sh) {
           fence_regs(pa);
           release(&sh.empty[prev]);
         }
+        // S = Q K^T: the k16 steps walk across the slabs of d
         wgmma_fence();
-        issue_scores<D>(s, qa, stage_k(stage));
+        issue_abt<D, BK>(s, qa, T::Q_SLAB, stage_k(stage), T::KV_SLAB);
         named_arrive(SCHED_BARRIER + 1 - c, 256);
         wgmma_wait<0>();
         fence_regs(s);
@@ -670,7 +647,7 @@ int launch(const void* q, const void* k, const void* v, const Params& p,
 
 }  // namespace
 
-// The bf16 entry for d in {64, 96, 128}; the arguments of
+// The bf16 entry for d in {64, 80, 96, 128}; the arguments of
 // flash_attention_launch (csrc/flash_attention.cu) without the dtype: lse,
 // (B, H, Sq) float32 or null, receives each row's LSE. q, k
 // and v start 16-byte aligned, with element strides that are multiples of
@@ -703,6 +680,9 @@ extern "C" int flash_attention_wgmma_launch(
   switch (d) {
     case 64:
       return launch<64>(q, k, v, p, b, qsb, qss, qsh, ksb, kss, ksh, vsb, vss,
+                        vsh, s);
+    case 80:
+      return launch<80>(q, k, v, p, b, qsb, qss, qsh, ksb, kss, ksh, vsb, vss,
                         vsh, s);
     case 96:
       return launch<96>(q, k, v, p, b, qsb, qss, qsh, ksb, kss, ksh, vsb, vss,

@@ -1,9 +1,9 @@
 // Hopper building blocks shared by the wgmma attention kernels
 // (csrc/flash_attention_sm90.cu, the forward; csrc/flash_attention_bwd_sm90.cu,
 // its gradient): shared-memory addresses, mbarriers, 4-D TMA loads, named
-// barriers, wgmma descriptors and the wgmma products, bf16 packing, warp
-// reductions, and cuTensorMapEncodeTiled reached through the runtime (no
-// -lcuda).
+// barriers, wgmma descriptors and the wgmma products, the slab geometry of
+// d, bf16 packing, warp reductions, and cuTensorMapEncodeTiled reached
+// through the runtime (no -lcuda).
 //
 // The products take bf16 operands and fp32 accumulators, 64 rows (one
 // warpgroup) by n columns, 16 deep. A thread's accumulator element i is row
@@ -14,6 +14,10 @@
 //     (_first overwrites d, which then needs no live registers before it);
 //   wgmma_rs_n{64,80,96,128}: A from registers, B from shared memory read
 //     MN-major (the transpose bit set), accumulating.
+// Both kernels lay d out as Slabs<D> gives it; kmajor / mnmajor build the
+// descriptors of a k-step or a 16-row step of such a tile, and issue_abt /
+// issue_xb the products A B^T (both operands in shared memory) and X B (X
+// from registers) over it.
 #pragma once
 
 #include <climits>
@@ -392,6 +396,62 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a,
       wgmma_ss_n128(d, a, b, 1);
     }
   }
+}
+
+// The slab geometry of both kernels: d cut into NS slabs of SLAB columns,
+// each one swizzle span of SW bytes and its own TMA box and region of
+// shared memory: 64 columns under a 128-byte swizzle where 64 divides d
+// (64, 128), else 32 under 64 bytes where 32 does (96), else 16 under 32
+// bytes (80). LAYOUT is the swizzle's descriptor code.
+template <int D>
+struct Slabs {
+  static constexpr int SW = D % 64 == 0 ? 128 : D % 32 == 0 ? 64 : 32;
+  static constexpr int SLAB = SW / 2;
+  static constexpr int NS = D / SLAB;
+  static constexpr uint64_t LAYOUT = SW == 128 ? 1 : SW == 64 ? 2 : 3;
+  static_assert(D % 16 == 0 && NS * SLAB == D, "d: a multiple of 16");
+};
+
+// wgmma descriptor of k-step kk (16 columns of d) of a K-major tile at
+// `tile` whose slabs are `slab` bytes apart
+template <int D>
+__device__ __forceinline__ uint64_t kmajor(uint32_t tile, int slab, int kk) {
+  using S = Slabs<D>;
+  constexpr int STEPS = S::SLAB / 16;  // k-steps per slab
+  return make_desc(tile + (kk / STEPS) * slab + (kk % STEPS) * 32, 16,
+                   8 * S::SW, S::LAYOUT);
+}
+
+// wgmma descriptor of rows 16 kt .. 16 kt + 15 of a row-major tile at
+// `tile` read MN-major (B of a product over those rows, n = d)
+template <int D>
+__device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int slab, int kt) {
+  using S = Slabs<D>;
+  return make_desc(tile + kt * 16 * S::SW, slab, 8 * S::SW, S::LAYOUT);
+}
+
+// d (64 x N) = A B^T over the depth d: A 64 rows at a, B N rows at b, both
+// K-major. Issued and committed, not waited for.
+template <int D, int N>
+__device__ __forceinline__ void issue_abt(float (&d)[N / 2], uint32_t a,
+                                          int a_slab, uint32_t b,
+                                          int b_slab) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_ss<N>(d, kmajor<D>(a, a_slab, kk), kmajor<D>(b, b_slab, kk),
+                kk == 0);
+  wgmma_commit();
+}
+
+// acc (64 x d) += X B: X's fragments x[kt] over rows 16 kt .. of the
+// row-major B at b. Issued, not committed.
+template <int D, int KT>
+__device__ __forceinline__ void issue_xb(float (&acc)[D / 2],
+                                         const uint32_t (&x)[KT][4],
+                                         uint32_t b, int b_slab) {
+#pragma unroll
+  for (int kt = 0; kt < KT; ++kt)
+    wgmma_rs<D>(acc, x[kt], mnmajor<D>(b, b_slab, kt));
 }
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,

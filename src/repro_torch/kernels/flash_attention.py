@@ -20,11 +20,13 @@ Two executions of the one function:
     through their strides (no transpose and no GQA repeat is made), the
     output is a new contiguous (B, Sq, H, d) tensor. `cuda_route` picks
     the kernel from the dtype and d: bfloat16 at d in `WGMMA_HEAD_DIMS`
-    runs `csrc/flash_attention_sm90.cu` (wgmma, TMA, a warp-specialised
-    pipeline), bfloat16 at the other head dims `csrc/flash_attention.cu`'s
-    mma.sync kernel, float32 that file's kernel on the CUDA cores in full
-    fp32. It takes d in `HEAD_DIMS` and any Sq, Sk. Its launches are
-    counted by route in `launches`;
+    (64, 80, 96, 128) runs `csrc/flash_attention_sm90.cu` (wgmma, TMA, a
+    warp-specialised pipeline; d cut into the swizzled slabs of
+    `csrc/sm90.cuh`'s `Slabs<D>`, 16-column ones at d = 80), bfloat16 at
+    d 16 and 32 `csrc/flash_attention.cu`'s mma.sync kernel, float32 that
+    file's kernel on the CUDA cores in full fp32. It takes d in
+    `HEAD_DIMS` and any Sq, Sk. Its launches are counted by route in
+    `launches`;
   * `flash_attention_plain` is the plain PyTorch version, the formula of
     `repro.kernels.ref.flash_attention_ref`: fp32 scores, −1e30, softmax,
     P·V in fp32. Above `CHUNK_THRESHOLD` queries it works in chunks of
@@ -40,7 +42,7 @@ row's LSE of the scaled scores (natural log units, +inf for a row with
 no visible key) when an input needs a gradient, and its backward
 `flash_attention_backward_cuda`, which takes that LSE (a missing one
 raises: nothing recomputes it). `cuda_bwd_route` picks the backward's
-kernels: bfloat16 at d in `WGMMA_BWD_HEAD_DIMS` runs
+kernels: bfloat16 at d in `WGMMA_HEAD_DIMS` runs
 `csrc/flash_attention_bwd_sm90.cu` (dQ, then dK/dV, on wgmma with TMA
 rings), bfloat16 at d 16 and 32 and float32 at every d
 `csrc/flash_attention_bwd.cu` (Delta, dK/dV, dQ; mma.sync, or the CUDA
@@ -60,7 +62,8 @@ import torch
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 80, 96, 128)
-WGMMA_HEAD_DIMS = (64, 96, 128)
+# the bf16 head dims of the wgmma kernels, forward and backward alike
+WGMMA_HEAD_DIMS = (64, 80, 96, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # route -> the CUDA kernel it launches (a template over d)
 ROUTES = {"wgmma": "flash_attention_wgmma_kernel",
@@ -77,7 +80,6 @@ BF16_MAX_ABS = 3e-2  # the reference's own bf16 tolerance, kept as a ceiling
 # CUDA launches since the last reset (kernels/ops.py), by route
 launches = dict.fromkeys(ROUTES, 0)
 # the backward's routes -> the CUDA kernels one call launches, in order
-WGMMA_BWD_HEAD_DIMS = (64, 80, 96, 128)
 BWD_ROUTES = {"wgmma": ("fa_bwd_dq_wgmma", "fa_bwd_dkv_wgmma"),
               "mma": ("fa_bwd_delta_kernel", "fa_bwd_dkv_mma_kernel",
                       "fa_bwd_dq_mma_kernel"),
@@ -103,14 +105,10 @@ def cuda_route(dtype: torch.dtype, d: int) -> str:
 
 def cuda_bwd_route(dtype: torch.dtype, d: int) -> str:
     """Which CUDA kernels compute the gradient at (dtype, head dim d): a
-    key of BWD_ROUTES. bf16 at WGMMA_BWD_HEAD_DIMS takes the wgmma
-    kernels; bf16 at 16 and 32 the mma.sync ones; float32 the CUDA
-    cores'."""
-    if dtype not in DTYPES or d not in HEAD_DIMS:
-        raise ValueError(f"no CUDA backward for {dtype} at head_dim {d}")
-    if dtype == torch.float32:
-        return "fp32"
-    return "wgmma" if d in WGMMA_BWD_HEAD_DIMS else "mma"
+    key of BWD_ROUTES, the forward's route (`cuda_route`): bf16 at
+    WGMMA_HEAD_DIMS takes the wgmma kernels; bf16 at 16 and 32 the
+    mma.sync ones; float32 the CUDA cores'."""
+    return cuda_route(dtype, d)
 
 
 def visible_mask(qpos: torch.Tensor, kpos: torch.Tensor, causal: bool,

@@ -104,6 +104,7 @@ def _jax_oracle(J, q, k, v, qpos, kpos, causal, window):
     (256, 64, 4, 4),
     (256, 128, 4, 2),   # GQA
     (512, 64, 2, 1),    # MQA
+    (256, 80, 4, 4),    # hubert's head dim
 ])
 @pytest.mark.parametrize("causal", [True, False])
 def test_plain_matches_pallas_and_oracle(J, s, d, h, kv, causal):
@@ -347,6 +348,11 @@ def _emulation_cases():
                             True, 150),
         "reversed keys": (1, 130, 130, 2, 2, 16, None,
                           np.arange(130)[::-1].copy(), True, None),
+        # hubert's encoder: bidirectional at d = 80, 300 = 2 x 128 + 44
+        # (4 x 64 + 44) queries and keys: a ragged last tile in both
+        # tilings, as its 1,500 frames give one
+        "hubert-like d80 bidirectional": (2, 300, 300, 2, 2, 80, None,
+                                          None, False, None),
     }
 
 
@@ -475,10 +481,11 @@ def test_kernel_arg_checks_refuse_what_the_kernel_does_not_take():
 @pytest.mark.parametrize("d", fa.HEAD_DIMS)
 def test_cuda_route_by_dtype_and_head_dim(d, dtype):
     """float32 stays on the CUDA cores; bf16 takes the wgmma kernel at the
-    served head dims 64, 96 and 128, the mma.sync kernel at the others."""
+    served head dims 64, 80, 96 and 128, the mma.sync kernel at 16 and
+    32."""
     dt = getattr(torch, dtype)
     want = ("fp32" if dt == torch.float32
-            else "wgmma" if d in (64, 96, 128) else "mma")
+            else "wgmma" if d in (64, 80, 96, 128) else "mma")
     assert fa.cuda_route(dt, d) == want
     assert want in fa.ROUTES
 
@@ -568,7 +575,7 @@ def test_cuda_kernel_reads_strided_inputs(cuda_device, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 96, 128])
+@pytest.mark.parametrize("d", [64, 80, 96, 128])
 def test_cuda_wgmma_kernel_serves_bf16_at_its_head_dims(cuda_device, d):
     """The wgmma kernel within the bf16 bound of the plain version and
     deterministic on a causal GQA case with a ragged last tile, each launch
@@ -596,7 +603,7 @@ def test_cuda_wgmma_kernel_serves_bf16_at_its_head_dims(cuda_device, d):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 96, 128])
+@pytest.mark.parametrize("d", [64, 80, 96, 128])
 def test_cuda_wgmma_reads_strided_and_transposed_inputs(cuda_device, d):
     """The tensor maps take the caller's strides: views of a fused
     (B, S, 3, H, d) projection and of a (B, H, S, d) tensor give the
@@ -1029,7 +1036,7 @@ def _emulated_grads(q, k, v, dout, qpos, kpos, causal, window, **kw):
     return grads, (q, k, v, dout, qp, kp)
 
 
-@pytest.mark.parametrize("d", fa.WGMMA_BWD_HEAD_DIMS)
+@pytest.mark.parametrize("d", fa.WGMMA_HEAD_DIMS)
 @pytest.mark.parametrize("case", sorted(_bwd_cases()))
 def test_wgmma_backward_emulation_matches_plain_and_jax(J, case, d):
     """The wgmma backward's loops against the plain backward and JAX's vjp
