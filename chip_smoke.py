@@ -137,7 +137,23 @@ Phases, in order; any failed check exits non-zero:
      step: flash forward 2 x layers, backward 1 x layers, rank 2 x MoE
      layers); the `Trainer` on phi3's reduced config, 12 steps, a failure
      at step 9 (one restart, equal replayed losses);
-  8. engines: the reference's other engines of `lgrass_sparsify` on the
+  8. mesh_train: training on a mesh of the card (`models.sharding`,
+     `launch.mesh`): phi3-mini-3.8b at full width, 4 of 32 layers (the
+     cut keeps the phase short), B = 4 x 2,048, bf16 activations, remat:
+     one step from a fresh state unsharded, on 4 data shards of cuda:0
+     and with the ZeRO accumulator (`grad_shard_specs=param_specs`),
+     each against the unsharded step (loss rel. 1e-3, each gradient leaf
+     (mu after the first step) and parameter rel. L2 2e-2), then 2 more
+     steps of each timed (ms side by side, peak memory, busy share,
+     launches a step: flash forward 8 / 32 / 32, backward 4 / 16 / 16);
+     the depth-2 fp32 parity of the 4-shard step against the unsharded
+     one on an uneven mask (1e-4 of each leaf's max); the elastic
+     restart at phi3's reduced config (6 steps on 4 data shards, a
+     checkpoint, `restore(shardings=)`, `remesh_state` onto a (2, 2)
+     ('data', 'model') mesh, 6 steps; 12 losses within 1e-5 of 12
+     unsharded steps); `compressed_psum` over 8 shards of cuda:0 (equal
+     to its CPU run, within 0.05 of the exact sum); the serve_lm twin;
+  9. engines: the reference's other engines of `lgrass_sparsify` on the
      card, on case1-3 and feeder4k: bfs_engine="levels", recovery="host",
      auto_lift_bound=True, use_euler_lca=False (the kernels' lifting
      engine) and schedule="scan", parallel=True (lockstep, no MARK kernel),
@@ -146,7 +162,7 @@ Phases, in order; any failed check exits non-zero:
      to the baseline's, each call's wrapper launches counted, its wall and
      the scan engines' steps printed; then the quickstart twin
      (`repro_torch.examples.quickstart`);
-  9. batch: `lgrass_sparsify_batch` over [case1, case2, case3, feeder4k]
+  10. batch: `lgrass_sparsify_batch` over [case1, case2, case3, feeder4k]
      at the exact bucket and at the pow2 bucket (16,384, 65,536), and over
      [n = 160,000, case3], in both recovery modes: each lane's mask equal
      to its single-graph mask and the baseline's, launches per lane (mark
@@ -154,7 +170,7 @@ Phases, in order; any failed check exits non-zero:
      batch's wall beside the sum of its single calls;
      `recover_device_batched` from `phase1_device_batched` outputs; REC's
      device time on case3 alone and on its two padded lanes;
- 10. service: the serving plane, `SparsifyService`, on a stream of 24
+ 11. service: the serving plane, `SparsifyService`, on a stream of 24
      requests over 9 graphs (case1-3, feeder4k, a 1,600-node grid,
      random graphs of 3,000, 9,000 and 40,000 nodes, the last in the
      (65,536, 131,072) bucket past the reference's BFS and Euler switch
@@ -177,7 +193,7 @@ Phases, in order; any failed check exits non-zero:
      `phase1_device`'s, 1 + 4 MARK launches a call (its unsharded phase
      1, then one a shard), on case3 REC over its outputs equal to the
      baseline, its wall beside `phase1_device`'s;
- 11. walls, last (a CPU+CUDA torch.profiler session disturbs the device
+ 12. walls, last (a CPU+CUDA torch.profiler session disturbs the device
      times of later sessions): the case3 wall and device busy share with
      the MARK/REC kernels and with their plain loops on the card, in
      turns; one graph of n = 160,000 against its numpy baseline, with its
@@ -205,7 +221,10 @@ and radix_hist also `launches_train_path`, their launches a step of each
 full-width training run. `flash_attention_bwd` (no Pallas counterpart:
 its `replaces` names the reference's plain attention that jax.grad
 differentiates) counts its calls over phi3's five full-width steps, with
-`launches_per_train_step` per model and 3 CUDA kernels a launch. Each
+`launches_per_train_step` per model and 3 CUDA kernels a launch.
+flash_attention and flash_attention_bwd also carry
+`launches_mesh_train_path`: their launches a step of the mesh_train
+phase's unsharded, 4-shard and ZeRO steps. Each
 phase prints its wall time. Imports nothing of JAX or of `repro`.
 """
 from __future__ import annotations
@@ -3568,9 +3587,9 @@ def _check_step_counts(arch, counts, cfg, what):
           f"{counts}")
 
 
-def _close_leaves(got, want, what) -> float:
-    """Each leaf within TRAIN_GRAD_TOL of its max (compared on got's
-    device); returns the worst |diff| / max over leaves."""
+def _close_leaves(got, want, what, tol=TRAIN_GRAD_TOL) -> float:
+    """Each leaf within tol of its max (compared on got's device);
+    returns the worst |diff| / max over leaves."""
     worst = 0.0
     for name, w in want.items():
         g = got[name].detach().float()
@@ -3578,24 +3597,26 @@ def _close_leaves(got, want, what) -> float:
         top = float(w.abs().max())
         err = float((g - w).abs().max())
         worst = max(worst, err / max(top, 1e-30))
-        check(err <= TRAIN_GRAD_TOL * top + 1e-9,
+        check(err <= tol * top + 1e-9,
               f"{what} {name}: max abs diff {err:.3e} of max {top:.3e}")
     return worst
 
 
-def _close_params(got, want, mu, lr, b1=0.9, eps=1e-8) -> int:
+def _close_params(got, want, mu, lr, b1=0.9, eps=1e-8,
+                  tol=TRAIN_GRAD_TOL) -> int:
     """Params after one step from zero moments: within 1e-6 + 1e-4·lr +
     lr·swing, swing being the most that AdamW's first-step mhat /
-    sqrt(vhat) = g / (|g| + eps) moves over [g - δ, g + δ] (g the CPU's
-    clipped gradient, mu / (1 - b1); δ = TRAIN_GRAD_TOL (max |g| + |g|)):
-    an entry with |g| near eps may move by up to 2·lr. Compared on got's
-    device. Returns how many entries moved by more than 1e-6 + 1e-4·lr."""
+    sqrt(vhat) = g / (|g| + eps) moves over [g - δ, g + δ] (g the
+    reference side's clipped gradient, mu / (1 - b1); δ = tol (max |g| +
+    |g|)): an entry with |g| near eps may move by up to 2·lr. Compared on
+    got's device. Returns how many entries moved by more than 1e-6 +
+    1e-4·lr."""
     swung = 0
     for name, w in want.items():
         g = got[name].detach()
         gc = mu[name].detach().to(g.device).double() / (1 - b1)
         top = float(gc.abs().max())
-        delta = TRAIN_GRAD_TOL * (top + gc.abs())
+        delta = tol * (top + gc.abs())
         r = lambda x: x / (x.abs() + eps)  # noqa: E731
         swing = torch.maximum((r(gc + delta) - r(gc)).abs(),
                               (r(gc - delta) - r(gc)).abs())
@@ -3878,6 +3899,393 @@ def phase_train(dev) -> tuple:
     return entry, gains
 
 
+MESH_ARCH = "phi3-mini-3.8b"
+MESH_DEPTH = 4              # of phi3's 32 layers, at full width
+MESH_SHARDS = 4             # data shards of cuda:0
+MESH_BATCH, MESH_SEQ, MESH_TIMED = 4, 2048, 2
+MESH_LOSS_RTOL = 1e-3       # bf16 activations: the sharded GEMMs round
+MESH_REL_L2 = 2e-2          # in other orders than the whole batch's
+MESH_PARITY_TOL = 1e-4      # fp32, depth 2: of each leaf's max
+MESH_PARITY_BATCH, MESH_PARITY_SEQ = 4, 128
+PSUM_SHARDS, PSUM_SIZE = 8, 1 << 16
+
+
+def _uneven_mask(b, s, dev, seed=0):
+    """A (b, s) mask whose density differs by row (the first row nearly
+    empty, the last full), so the data shards' token counts differ."""
+    rng = np.random.default_rng(seed)
+    keep = rng.random((b, s)) < np.linspace(0.05, 1.0, b)[:, None]
+    keep[-1] = True
+    return torch.from_numpy(keep).to(dev)
+
+
+def _train_snapshot(state) -> dict:
+    """A copy of a train state's params and moments (no "err")."""
+    def copy(tree):
+        return {n: t.detach().clone() for n, t in tree.items()}
+
+    opt = state["opt"]
+    return dict(params=copy(state["params"]),
+                opt=dict(mu=copy(opt["mu"]), nu=copy(opt["nu"]),
+                         step=opt["step"].clone()))
+
+
+def _rel_l2_leaves(got, want) -> float:
+    """The worst relative L2 distance over the leaves."""
+    worst = 0.0
+    for name, w in want.items():
+        g = got[name].detach().double()
+        w = w.detach().double()
+        worst = max(worst, float(torch.linalg.vector_norm(g - w)
+                                 / max(float(torch.linalg.vector_norm(w)),
+                                       1e-30)))
+    return worst
+
+
+def _mesh_variants(mesh):
+    """(name, mesh, ZeRO accumulator) of the three steps compared."""
+    return (("unsharded", None, False),
+            (f"data{MESH_SHARDS}", mesh, False),
+            (f"data{MESH_SHARDS} zero", mesh, True))
+
+
+def _mesh_full(dev, card) -> dict:
+    """phi3 at full width, MESH_DEPTH layers, bf16 activations, remat,
+    B = MESH_BATCH x MESH_SEQ: one step from a fresh state unsharded, on
+    MESH_SHARDS data shards of the card, and with the ZeRO accumulator;
+    the loss, each gradient leaf (mu after a first step from zero moments
+    is 0.1 x the clipped gradient) and each updated parameter against the
+    unsharded step; then per variant MESH_TIMED more steps timed and one
+    profiled, with each step's launches."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.model import LM
+    from repro_torch.models.sharding import param_specs, use_mesh
+    from repro_torch.optim.optimizer import OptConfig
+    from repro_torch.train.train_step import (load_train_state,
+                                              make_train_state,
+                                              make_train_step)
+
+    full = get_arch(MESH_ARCH)
+    cfg = dataclasses.replace(full, n_layers=MESH_DEPTH)
+    check(cfg.remat and cfg.dtype == "bfloat16",
+          f"{MESH_ARCH}: the mesh step wants remat and bf16 activations")
+    cut = f"{cfg.n_layers} of {full.n_layers} layers"
+    torch.cuda.empty_cache()
+    model = LM(cfg, generator=torch.Generator(dev).manual_seed(0),
+               device=dev, param_dtype=torch.float32)
+    state = make_train_state(model)
+    start = _train_snapshot(state)
+    n = sum(p.numel() for p in model.parameters())
+    batch = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size,
+                                     seq_len=MESH_SEQ,
+                                     global_batch=MESH_BATCH, seed=7),
+                          device=dev).batch(0)
+    mesh = make_host_mesh(MESH_SHARDS, device=dev)
+    opt = OptConfig(peak_lr=3e-4, warmup_steps=2, total_steps=100)
+    print(f"mesh_train {MESH_ARCH}: depth cut to {cut} (full width; the "
+          f"cut keeps the phase short), {n / 1e9:.3f} B params, "
+          f"{16 * n / 1e9:.1f} GB of float32 params, grads and moments, "
+          f"B={MESH_BATCH} S={MESH_SEQ}, bf16 activations, remat; "
+          f"{MESH_SHARDS} data shards of {dev}")
+    rows, first = {}, None
+    for name, m, zero in _mesh_variants(mesh):
+        load_train_state(state, start)
+        torch.cuda.synchronize()
+        held_gb = torch.cuda.memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        shards = 1 if m is None else MESH_SHARDS
+        want = {k: v * shards for k, v in _path_counts(cfg).items()}
+        with use_mesh(m):
+            step = make_train_step(model, opt, grad_shard_specs=(
+                param_specs(model) if zero else None))
+            walls, losses = [], []
+            for i in range(1 + MESH_TIMED):
+                torch.cuda.synchronize()
+                ops.reset_launch_counts()
+                t0 = time.perf_counter()
+                state, metrics = step(state, batch)
+                loss = float(metrics["loss"])
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+                counts = ops.launch_counts()
+                got = {k: counts[k] for k in want}
+                check(got == want and sum(counts.values()) == sum(
+                    want.values()), f"mesh_train {name} step {i}: "
+                    f"launches {counts}, not {want}")
+                check(np.isfinite(loss), f"mesh_train {name}: loss {loss}")
+                losses.append(loss)
+                if i:
+                    continue
+                out = dict(loss=loss, mu={k: t.clone() for k, t in
+                                          state["opt"]["mu"].items()},
+                           params={k: t.detach().clone() for k, t in
+                                   state["params"].items()})
+                if first is None:
+                    first = out
+                    cmp = {}
+                    continue
+                rel = abs(loss - first["loss"]) / abs(first["loss"])
+                grad_l2 = _rel_l2_leaves(out["mu"], first["mu"])
+                param_l2 = _rel_l2_leaves(out["params"], first["params"])
+                update_l2 = _rel_l2_leaves(
+                    {k: out["params"][k] - start["params"][k]
+                     for k in out["params"]},
+                    {k: first["params"][k] - start["params"][k]
+                     for k in out["params"]})
+                check(rel <= MESH_LOSS_RTOL, f"mesh_train {name}: loss "
+                      f"{loss} vs unsharded {first['loss']} (rel {rel:.2e})")
+                check(grad_l2 <= MESH_REL_L2 and param_l2 <= MESH_REL_L2,
+                      f"mesh_train {name}: gradient rel. L2 {grad_l2:.3e}, "
+                      f"params {param_l2:.3e} (limit {MESH_REL_L2:g})")
+                cmp = dict(loss_rel=rel, grad_rel_l2_worst=grad_l2,
+                           param_rel_l2_worst=param_l2,
+                           update_rel_l2_worst=update_l2)
+                del out
+            prof = _profile(lambda: step(state, batch))
+        torch.cuda.synchronize()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        step_ms = statistics.median(walls[1:])
+        rows[name] = dict(step_ms=step_ms, step_ms_runs=walls,
+                          tokens_per_s=MESH_BATCH * MESH_SEQ / step_ms * 1e3,
+                          losses=losses, peak_memory_gb=peak_gb,
+                          held_before_gb=held_gb,
+                          busy_share=prof["busy_share"], profile_ms=prof,
+                          launches_per_step=counts, **cmp)
+        print(f"mesh_train {name} ({cut}): step {step_ms:.1f} ms (median of "
+              f"{MESH_TIMED}; warm-up {walls[0]:.1f} ms), peak memory "
+              f"{peak_gb:.2f} GB ({held_gb:.2f} GB held before the step), "
+              f"busy share {prof['busy_share']:.3f}, device ms: gemm "
+              f"{prof['gemm']:.1f}, flash fwd {prof['flash']:.1f}, flash "
+              f"bwd {prof['flash_bwd']:.1f}, other {prof['other']:.1f}; "
+              f"launches per step {counts}; against the unsharded step "
+              f"{json.dumps(cmp)}; card {card}")
+        del step
+    print(f"mesh_train step ms side by side ({cut}, B={MESH_BATCH} "
+          f"S={MESH_SEQ}): " + ", ".join(
+              f"{k} {r['step_ms']:.1f}" for k, r in rows.items())
+          + f"; card {card}")
+    del model, state, start, first
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _mesh_parity(dev) -> dict:
+    """phi3 at full width, depth 2, fp32, on an uneven mask: the step on
+    MESH_SHARDS data shards of the card against the unsharded step on the
+    card, from the same state: the loss, grad_norm, mu, nu within
+    MESH_PARITY_TOL of each leaf's max, the params within that tolerance
+    carried through AdamW's first step."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.model import LM
+    from repro_torch.models.sharding import use_mesh
+    from repro_torch.optim.optimizer import OptConfig
+    from repro_torch.train.train_step import (load_train_state,
+                                              make_train_state,
+                                              make_train_step)
+
+    cfg = dataclasses.replace(get_arch(MESH_ARCH), n_layers=2,
+                              dtype="float32")
+    model = LM(cfg, generator=torch.Generator(dev).manual_seed(1),
+               device=dev, param_dtype=torch.float32)
+    state = make_train_state(model)
+    start = _train_snapshot(state)
+    batch = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size,
+                                     seq_len=MESH_PARITY_SEQ,
+                                     global_batch=MESH_PARITY_BATCH,
+                                     seed=13), device=dev).batch(0)
+    batch["mask"] = _uneven_mask(MESH_PARITY_BATCH, MESH_PARITY_SEQ, dev)
+    opt = OptConfig(**TRAIN_OPT)
+    mesh = make_host_mesh(MESH_SHARDS, device=dev)
+    shards = len(mesh.devices)
+    out = []
+    for m in (None, mesh):
+        load_train_state(state, start)
+        ops.reset_launch_counts()
+        with use_mesh(m):
+            _, metrics = make_train_step(model, opt)(state, batch)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        want = {k: v * (1 if m is None else shards)
+                for k, v in _path_counts(cfg).items()}
+        check({k: counts[k] for k in want} == want,
+              f"mesh_train parity: launches {counts}, not {want}")
+        out.append((float(metrics["loss"]), float(metrics["grad_norm"]),
+                    _train_snapshot(state), counts))
+    (l0, g0, s0, _), (l1, g1, s1, counts) = out
+    check(abs(l1 - l0) <= 1e-5 * abs(l0),
+          f"mesh_train parity: loss {l1} on the mesh, {l0} unsharded")
+    check(abs(g1 - g0) <= MESH_PARITY_TOL * g0,
+          f"mesh_train parity: grad_norm {g1} vs {g0}")
+    worst = max(_close_leaves(s1["opt"][k], s0["opt"][k],
+                              f"mesh_train parity {k}", MESH_PARITY_TOL)
+                for k in ("mu", "nu"))
+    swung = _close_params(s1["params"], s0["params"], s0["opt"]["mu"],
+                          TRAIN_OPT["peak_lr"], tol=MESH_PARITY_TOL)
+    print(f"mesh_train parity {MESH_ARCH} depth 2 fp32 B="
+          f"{MESH_PARITY_BATCH} S={MESH_PARITY_SEQ} (uneven mask, "
+          f"{int(batch['mask'].sum())} tokens): {shards} shards vs "
+          f"unsharded on the card: loss {l1:.7f} vs {l0:.7f}, grad_norm "
+          f"{g1:.6f} vs {g0:.6f}, mu/nu worst diff / max {worst:.3e} "
+          f"(limit {MESH_PARITY_TOL:g}), params past 1e-4 lr: {swung}; "
+          f"launches per mesh step {counts}")
+    del model, state, start, out
+    torch.cuda.empty_cache()
+    return dict(loss=l1, loss_unsharded=l0, grad_norm=g1,
+                grad_norm_unsharded=g0, moment_worst_rel=worst,
+                params_swung=swung, launches_per_step=counts)
+
+
+def _mesh_elastic(dev) -> dict:
+    """tests/test_distributed.py:137-183 on the card at phi3's reduced
+    config: 6 steps on MESH_SHARDS data shards of the card, a checkpoint,
+    restore(shardings=) onto that mesh, a fresh model, `remesh_state`
+    onto a (2, 2) ('data', 'model') mesh, 6 more steps; the 12 losses
+    against 12 unsharded steps on the card within 1e-5, the optimizer's
+    step at 12."""
+    import tempfile
+
+    from repro_torch.ckpt.checkpoint import Checkpointer
+    from repro_torch.configs import get_arch
+    from repro_torch.core.distributed import Mesh
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.ft.elastic import remesh_state
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.model import LM
+    from repro_torch.models.sharding import P, use_mesh
+    from repro_torch.optim.optimizer import OptConfig
+    from repro_torch.train.train_step import (load_train_state,
+                                              make_train_state,
+                                              make_train_step)
+
+    cfg = get_arch(MESH_ARCH).reduced()
+    opt = OptConfig(peak_lr=5e-3, warmup_steps=2, total_steps=20)
+    data = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=16,
+                                    global_batch=8, seed=3), device=dev)
+
+    def fresh():
+        model = LM(cfg, generator=torch.Generator(dev).manual_seed(0),
+                   device=dev, param_dtype=torch.float32)
+        return model, make_train_state(model), make_train_step(model, opt)
+
+    t0 = time.perf_counter()
+    _, state, step = fresh()
+    want = [float(step(state, data.batch(i))[1]["loss"]) for i in range(12)]
+    mesh4 = make_host_mesh(MESH_SHARDS, device=dev)
+    model, state, step = fresh()
+    losses = []
+    with use_mesh(mesh4):
+        for i in range(6):
+            losses.append(float(step(state, data.batch(i))[1]["loss"]))
+    names = list(state["params"])
+
+    def tree(leaf):
+        return {"params": {n: leaf for n in names},
+                "opt": {"mu": {n: leaf for n in names},
+                        "nu": {n: leaf for n in names}, "step": leaf}}
+
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        ck = Checkpointer(ckpt_dir, async_save=False)
+        ck.save(6, state)
+        del model, state, step
+        restored = ck.restore(6, tree(None), shardings=tree((mesh4, P())))
+    mesh22 = Mesh((dev,) * 4, ("data", "model"), (2, 2))
+    placed = remesh_state(restored, tree(P()), mesh22)
+    check(placed["params"]["embedding"].mesh.shape["data"] == 2,
+          "mesh_train elastic: remeshed onto the wrong mesh")
+    model, state, step = fresh()
+    load_train_state(state, placed)
+    with use_mesh(mesh22):
+        for i in range(6, 12):
+            losses.append(float(step(state, data.batch(i))[1]["loss"]))
+    diff = max(abs(a - b) for a, b in zip(losses, want))
+    opt_step = int(state["opt"]["step"])
+    check(diff <= 1e-5 and opt_step == 12,
+          f"mesh_train elastic: losses differ by {diff} from the unsharded "
+          f"run, opt step {opt_step}")
+    wall = time.perf_counter() - t0
+    print(f"mesh_train elastic {cfg.name} reduced on the card: 6 steps on "
+          f"{MESH_SHARDS} data shards, checkpoint, restore(shardings=), "
+          f"remesh onto (2, 2) ('data', 'model'), 6 steps: 12 losses "
+          f"within {diff:.3e} of 12 unsharded steps, opt step {opt_step}, "
+          f"{wall:.2f} s")
+    return dict(max_loss_diff=diff, opt_step=opt_step, losses=losses,
+                wall_s=wall)
+
+
+def _mesh_psum(dev) -> dict:
+    """compressed_psum over PSUM_SHARDS shards of the card: equal to its
+    CPU run, within 0.05 of the exact sum (of its max)."""
+    from repro_torch.optim.compression import compressed_psum
+
+    rng = np.random.default_rng(0)
+    xs = rng.standard_normal((PSUM_SHARDS, PSUM_SIZE)).astype(np.float32)
+    xs[3] *= 40.0
+    got = compressed_psum([torch.from_numpy(x).to(dev) for x in xs])
+    cpu = compressed_psum([torch.from_numpy(x) for x in xs])
+    check(all(g.device.type == "cuda" for g in got),
+          "compressed_psum: a result off the card")
+    equal = all(torch.equal(g.cpu(), cpu[0]) for g in got)
+    exact = xs.sum(0)
+    err = float(np.abs(got[0].cpu().numpy() - exact).max()
+                / np.abs(exact).max())
+    check(equal, "compressed_psum: the card's sum differs from the CPU's")
+    check(err < 0.05, f"compressed_psum: {err} of the exact sum's max")
+    print(f"mesh_train compressed_psum {PSUM_SHARDS} shards of {dev} x "
+          f"{PSUM_SIZE}: equal to the CPU run {equal}, max error / max of "
+          f"the exact sum {err:.4f} (limit 0.05)")
+    return dict(equal_to_cpu=equal, rel_err=err)
+
+
+def _mesh_serve_twin() -> dict:
+    """The serve_lm twin (`repro_torch.examples.serve_lm`) on the card,
+    its defaults: hymba-1.5b reduced, batch 4, prompt 24, 16 new tokens."""
+    from repro_torch.examples import serve_lm
+    from repro_torch.kernels import ops
+
+    ops.reset_launch_counts()
+    out = serve_lm.main([])
+    counts = ops.launch_counts()
+    check(out.device.type == "cuda" and tuple(out.shape) == (4, 16),
+          f"serve_lm twin: {tuple(out.shape)} on {out.device}")
+    check(bool(((out >= 0) & (out < 97)).all()),
+          "serve_lm twin: a token outside the vocab")
+    check(counts["flash_attention"] == 2,
+          f"serve_lm twin: launches {counts} (one flash launch per layer "
+          f"of the prefill)")
+    print(f"mesh_train serve_lm twin on the card: launches {counts}")
+    return dict(launches=counts)
+
+
+def phase_mesh_train(dev, card) -> dict:
+    """Training on a mesh of the card (after phase_train): phi3's
+    full-width step unsharded, on MESH_SHARDS data shards and with the
+    ZeRO accumulator (`_mesh_full`), the depth-2 fp32 parity
+    (`_mesh_parity`), the elastic restart (`_mesh_elastic`),
+    compressed_psum (`_mesh_psum`) and the serve_lm twin. Returns the
+    flash forward's and backward's launches a step on the mesh path."""
+    t0 = time.perf_counter()
+    rows = _mesh_full(dev, card)
+    parity = _mesh_parity(dev)
+    elastic = _mesh_elastic(dev)
+    psum = _mesh_psum(dev)
+    twin = _mesh_serve_twin()
+    wall = time.perf_counter() - t0
+    print(f"mesh_train numbers: {json.dumps(dict(runs=rows, parity=parity, elastic=elastic, psum=psum, serve_twin=twin, wall_s=wall, card=card))}")
+    per_step = {k: r["launches_per_step"] for k, r in rows.items()}
+    return {kernel: {k: c[kernel] for k, c in per_step.items()}
+            for kernel in ("flash_attention", "flash_attention_bwd")}
+
+
 def phase_profile(dev, graphs, out_dir):
     """One profiled lgrass_sparsify call per graph (name -> graph): the
     busy share and each stage's host and device time; the table goes to
@@ -4046,6 +4454,11 @@ def main(argv) -> int:
     flash_entry["launches_train_path"] = train_gains["flash_attention"]
     report["radix_hist"]["launches_train_path"] = train_gains["radix_hist"]
     print(f"phase train: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    mesh_gains = phase_mesh_train(dev, card)
+    for entry in (flash_entry, bwd_entry):
+        entry["launches_mesh_train_path"] = mesh_gains[entry["name"]]
+    print(f"phase mesh_train: {time.perf_counter() - t0:.1f} s")
     masks = {k: b.edge_mask for k, b in base.items()}
     t0 = time.perf_counter()
     eng_counts, eng_rows = phase_engines(dev, graphs, masks, big, big_oracle)

@@ -11,7 +11,8 @@ process, so every leaf is whole in `proc_0.npz`; a checkpoint that the
 reference's `Checkpointer` wrote on one process restores here (and the
 reverse), since the layout is the same (its leaves named by the
 reference's tree; `models/convert.from_reference_train_state` maps them
-to the port's).
+to the port's). `restore(..., shardings=)` places each restored leaf on a
+mesh (`models/sharding.place`), as the reference's `device_put`s it.
 """
 from __future__ import annotations
 
@@ -24,6 +25,8 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+
+from repro_torch.models.sharding import place
 
 
 def _host(x) -> np.ndarray:
@@ -134,10 +137,24 @@ class Checkpointer:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: int, template):
+    def restore(self, step: int, template, shardings=None):
         """The saved tree of `step` in `template`'s structure (dicts,
-        lists; its leaves only name the places), as host numpy arrays."""
+        lists; its leaves only name the places), as host numpy arrays;
+        with `shardings` (the same structure, a (mesh, P) pair at each
+        leaf), each leaf placed on its mesh (a `Placed` value)."""
         path = os.path.join(self.dir, f"step_{step}")
         with np.load(os.path.join(path, "proc_0.npz")) as data:
             flat = {k: data[k] for k in data.files}
-        return _unflatten_like(template, flat)
+        host = _unflatten_like(template, flat)
+        if shardings is None:
+            return host
+        def walk(node, sh):
+            if isinstance(node, dict):
+                return {k: walk(v, sh[k]) for k, v in node.items()}
+            if isinstance(node, (list, tuple)):
+                out = [walk(x, s) for x, s in zip(node, sh)]
+                return type(node)(out) if isinstance(node, tuple) else out
+            mesh, p = sh
+            return place(node, mesh, p)
+
+        return walk(host, shardings)

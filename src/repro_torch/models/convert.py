@@ -21,7 +21,8 @@ anything `np.asarray` reads) into the state dict of
   * fused weights (`wqkv`, `wig`, from the reference's `fused_qkv`
     optimisation) are refused: the port has the unfused layout only.
 
-`from_reference(cfg, params, device)` builds the port's `LM` from them.
+`from_reference(cfg, params, device)` builds the port's `LM` from them,
+on the card unless `device` names another.
 `from_reference_train_state(cfg, state)` carries a train state across:
 the reference's {"params", "opt": {"mu", "nu", "step"}, ["err"]} (as
 numpy arrays: a restored checkpoint, or `jax.device_get` of a live
@@ -39,6 +40,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.sparsify import resolve_device
 from repro_torch.models.layers import act_dtype
 from repro_torch.models.model import LM
 
@@ -118,8 +120,10 @@ def from_reference_train_state(cfg: ArchConfig,
 
 
 def from_reference(cfg: ArchConfig, params: Dict[str, Any],
-                   device="cpu") -> LM:
-    """The port's LM on `device` holding the reference's weights."""
-    model = LM(cfg, device=device)
+                   device=None) -> LM:
+    """The port's LM on `device` holding the reference's weights: the
+    card unless another device is asked for (`core.sparsify.
+    resolve_device`), which raises without one."""
+    model = LM(cfg, device=resolve_device(device))
     model.load_state_dict(reference_state_dict(cfg, params), strict=True)
     return model

@@ -114,11 +114,14 @@ def rms_scale(dim: int, device=None) -> torch.Tensor:
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   mask: Optional[torch.Tensor] = None,
-                  real_vocab: int = 0) -> torch.Tensor:
+                  real_vocab: int = 0,
+                  denominator: Optional[torch.Tensor] = None
+                  ) -> torch.Tensor:
     """Mean CE in float32, the reference's `cross_entropy`: padded vocab
     columns (past `real_vocab`) get -1e9 added (not set), then logsumexp
     minus the gold logit (a gather); with `mask`, the masked mean over
-    max(Σ mask, 1)."""
+    max(Σ mask, 1). With `denominator`, the (masked) sum over it instead:
+    a data shard's part of the whole batch's mean."""
     logits = logits.to(torch.float32)
     v = logits.shape[-1]
     if real_vocab and real_vocab < v:
@@ -131,5 +134,8 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     nll = logz - gold
     if mask is not None:
         mask = mask.to(torch.float32)
-        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
-    return torch.mean(nll)
+        total = torch.sum(nll * mask)
+        return total / (torch.clamp(torch.sum(mask), min=1.0)
+                        if denominator is None else denominator)
+    return torch.mean(nll) if denominator is None else (torch.sum(nll)
+                                                        / denominator)

@@ -294,23 +294,28 @@ class LM(nn.Module):
         return x, a
 
     # ---------- train ----------
-    def loss_fn(self, batch: Dict[str, torch.Tensor]
+    def loss_fn(self, batch: Dict[str, torch.Tensor],
+                denominator: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """The reference's `loss_fn`. A decoder's batch holds `tokens` and
         `labels` (B, S) and may hold a `mask`: (CE + aux, {loss, ce,
         aux}). The encoder's holds `features` (B, T, feat_dim), `labels`
-        and `mask`: (the masked CE over the real vocab, {loss})."""
+        and `mask`: (the masked CE over the real vocab, {loss}). With
+        `denominator` (a float32 scalar), the CE is the (masked) sum over
+        it: a data shard's part of a whole batch's mean, whose token count
+        (or Σ mask, at least 1) `denominator` is."""
         cfg = self.cfg
         if cfg.is_encoder:
             logits = self.encode(batch["features"])
             loss = cross_entropy(logits, batch["labels"], batch["mask"],
-                                 cfg.real_vocab_size)
+                                 cfg.real_vocab_size, denominator)
             return loss, {"loss": loss}
         x, positions = self._embed_inputs(batch["tokens"])
         x, aux = self.run_layers(x, positions)
         x = rmsnorm(x, self.final_norm, cfg.norm_eps)
         ce = cross_entropy(self._logits(x), batch["labels"],
-                           batch.get("mask"), cfg.real_vocab_size)
+                           batch.get("mask"), cfg.real_vocab_size,
+                           denominator)
         loss = ce + aux
         return loss, {"loss": loss, "ce": ce, "aux": aux}
 

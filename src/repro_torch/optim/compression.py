@@ -10,12 +10,13 @@ Two schemes, each re-injecting its compression error next step:
     over 127 (at least 1e-12), values rounded half to even and clipped to
     ±127.
 
-The reference's `compressed_psum` (an int8 all-reduce across devices)
-waits for the port's sharding (`models/sharding.py`).
+`compressed_psum` is the int8 all-reduce across the shards of one mesh
+axis: one shared absmax scale, int8 values, an int32 sum, dequantised
+once.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 
@@ -55,6 +56,27 @@ def int8_roundtrip(g: torch.Tensor, err: torch.Tensor
     q, s = int8_quantize(acc)
     deq = int8_dequantize(q, s, acc.shape)
     return deq.to(g.dtype), acc - deq
+
+
+def compressed_psum(contributions: Sequence[torch.Tensor]
+                    ) -> List[torch.Tensor]:
+    """The int8-compressed sum of the shards' `contributions` along one
+    mesh axis, given in mesh order: the scale is the max over the shards
+    of each one's absmax, over 127 (at least 1e-12 / 127); each shard's
+    values are rounded half to even to int8 steps of it and clipped to
+    ±127; the int32 sum (taken on the first shard's device, in mesh
+    order) times the scale. Returns the float32 result once per shard,
+    on that shard's device."""
+    root = contributions[0].device
+    g32 = [c.to(device=root, dtype=torch.float32) for c in contributions]
+    gmax = torch.stack([torch.amax(torch.abs(g)) for g in g32]).amax()
+    scale = torch.clamp(gmax, min=1e-12) / 127.0
+    qsum = torch.zeros(g32[0].shape, dtype=torch.int32, device=root)
+    for g in g32:
+        qsum += torch.clamp(torch.round(g / scale), -127, 127).to(
+            torch.int32)
+    out = qsum.to(torch.float32) * scale
+    return [out.to(c.device) for c in contributions]
 
 
 def init_error_state(params: Dict[str, torch.Tensor]

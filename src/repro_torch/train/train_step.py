@@ -23,17 +23,49 @@ the layers, and both top-k's k and int8's rows (the first axis) are
 taken over that leaf, so the port stacks its per-layer gradients the
 same way before compressing and splits the result after.
 
-`grad_shard_specs` (ZeRO-sharded accumulation) waits for the port's
-sharding (`models/sharding.py`).
+On a mesh (`models.sharding.use_mesh`, read when the step runs, as the
+reference reads `current_mesh()`), each microbatch's rows are split over
+the data shards of `launch.mesh.batch_axes_for`'s axes (contiguous
+blocks, in mesh order; a shard runs on the first mesh entry at its
+coordinates). Each shard runs `LM.loss_fn` and `torch.autograd.grad` on
+its rows on its device: the model's own parameters where the shard is on
+the model's device (shards that repeat a device share them), a copy of
+them through `torch.func.functional_call` elsewhere. A shard's CE is its
+sum over the microbatch's token count (Σ mask, at least 1, where there is
+a mask), so the shards' losses add up to the whole microbatch's mean, as
+the reference's jitted step computes it whatever the sharding, and so do
+their gradients. The gradients are summed in float32 in mesh order (no
+atomics: two runs are bit-equal); `grad_sync_dtype` rounds the sum, the
+microbatch's gradient, as the reference's does, before it is added to the
+accumulator. An MoE config on more than one data shard raises
+ValueError: its capacity and aux loss are over the whole batch's rows.
+
+`grad_shard_specs` ({name: P}, `models.sharding.param_specs`' layout),
+on a mesh, makes the accumulator ZeRO-sharded: each data shard keeps
+only its block of each leaf's gradient sum, along the spec's batch axes
+(the spec resolved on the mesh and on the port's per-layer leaf), on its
+device; the microbatches accumulate into those blocks, AdamW runs on the
+blocks (views of the parameters and moments, so the update lands in the
+whole leaves: the parameters are gathered back in place), and the
+global norm is taken over them. Compression, where asked, runs on the
+gathered sum, on the reference's leaves, before the update.
+Without a mesh (or with one data shard) the step is the one-device step
+above: one shard, the whole leaves, `loss_fn`'s own mean.
 """
 from __future__ import annotations
 
 import re
 from typing import Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
+from torch import nn
 
+from repro_torch.ft.elastic import resolve_spec_for_mesh
+from repro_torch.launch.mesh import batch_axes_for
 from repro_torch.models.model import LM
+from repro_torch.models.sharding import (Placed, block_slices,
+                                         current_mesh, keep_axes)
 from repro_torch.optim import compression as comp
 from repro_torch.optim.optimizer import (OptConfig, adamw_update,
                                          init_opt_state)
@@ -65,9 +97,10 @@ def make_train_state(model: LM,
 
 
 def load_train_state(state: Dict, values: Dict) -> Dict:
-    """Copy `values` (a tree of the state's shape: tensors or numpy
-    arrays, such as `models/convert.from_reference_train_state`'s or a
-    restored checkpoint) into the state's tensors, in place."""
+    """Copy `values` (a tree of the state's shape: tensors, numpy arrays
+    or Placed values, such as `models/convert.from_reference_train_state`'s,
+    a restored checkpoint or `ft.elastic.remesh_state`'s) into the state's
+    tensors, in place."""
     with torch.no_grad():
         def walk(dst, src):
             if isinstance(dst, dict):
@@ -76,7 +109,8 @@ def load_train_state(state: Dict, values: Dict) -> Dict:
                 for k in dst:
                     walk(dst[k], src[k])
             else:
-                dst.copy_(torch.as_tensor(src))
+                dst.copy_(src.full() if isinstance(src, Placed)
+                          else torch.as_tensor(src))
         walk(state, values)
     return state
 
@@ -122,59 +156,205 @@ def _compress(fn: Callable, grads: Dict, errs: Dict, groups) -> Tuple[Dict,
     return sent, new_err
 
 
+class _LossOf(nn.Module):
+    """`model.loss_fn` as a module call, for `functional_call` with a copy
+    of the parameters on another device."""
+
+    def __init__(self, model: LM):
+        super().__init__()
+        self.model = model
+
+    def forward(self, batch, denominator):
+        return self.model.loss_fn(batch, denominator)
+
+
+def _canon(dev: torch.device) -> torch.device:
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def _data_shards(mesh, rows: int) -> Tuple[Tuple[str, ...], List]:
+    """The batch axes of `rows` on `mesh` and, per data shard in mesh
+    order, its coordinates on them and its device (the first mesh entry
+    there)."""
+    axes = batch_axes_for(rows, mesh)
+    axes = () if axes is None else ((axes,) if isinstance(axes, str)
+                                    else tuple(axes))
+    sizes = [mesh.shape[a] for a in axes]
+    shards = []
+    for k in range(int(np.prod(sizes, dtype=np.int64))):
+        at = dict(zip(axes, (int(c) for c in np.unravel_index(k, sizes))))
+        j = np.ravel_multi_index([at.get(a, 0) for a in mesh.axis_names],
+                                 mesh.axis_sizes)
+        shards.append((at, _canon(mesh.devices[int(j)])))
+    return axes, shards
+
+
+def _grad_blocks(params: Dict, specs: Optional[Dict], mesh, axes,
+                 shards, root) -> Dict[str, List]:
+    """Per leaf, the (slices, device) of each block of its gradient sum
+    that the data shards keep: without specs the whole leaf on `root`;
+    with them the blocks of the spec's batch axes, each on the first
+    shard that holds it."""
+    if specs is None:
+        return {n: [((slice(None),) * p.dim(), root)]
+                for n, p in params.items()}
+    out = {}
+    for n, p in params.items():
+        zs = keep_axes(resolve_spec_for_mesh(specs[n], mesh), set(axes))
+        seen, blocks = set(), []
+        for at, dev in shards:
+            sl = block_slices(p.shape, zs, mesh.shape, at)
+            key = tuple((x.start, x.stop) for x in sl)
+            if key not in seen:
+                seen.add(key)
+                blocks.append((sl, dev))
+        out[n] = blocks
+    return out
+
+
+def _denominator(mb: Dict, root) -> torch.Tensor:
+    """The microbatch's CE denominator: max(Σ mask, 1), or its token
+    count where it has no mask (float32, on `root`)."""
+    mask = mb.get("mask")
+    if mask is not None:
+        return torch.clamp(torch.sum(mask.to(root, torch.float32)), min=1.0)
+    return torch.tensor(float(mb["labels"].numel()), dtype=torch.float32,
+                        device=root)
+
+
 def make_train_step(model: LM, opt_cfg: OptConfig, micro_batches: int = 1,
                     compress: Optional[str] = None, topk_frac: float = 0.01,
+                    grad_shard_specs: Optional[Dict] = None,
                     grad_sync_dtype: Optional[str] = None):
     """Returns train_step(state, batch) -> (state, metrics {"loss", "lr",
     "grad_norm"}, float32 scalars on the model's device). `state` must be
     `make_train_state(model)`'s (with "err" from
     `compression.init_error_state` when `compress` is 'topk' or 'int8');
-    it is updated in place and returned."""
+    it is updated in place and returned. On a mesh (`use_mesh`) the batch
+    is split over its data shards; `grad_shard_specs` ({name: P}) then
+    shards the gradient accumulator (see the module docstring)."""
     if compress not in (None, "topk", "int8"):
         raise ValueError(f"compress must be None, 'topk' or 'int8', got "
                          f"{compress!r}")
     sync_dt = getattr(torch, grad_sync_dtype) if grad_sync_dtype else None
+    loss_of = _LossOf(model)
 
-    def grads_of(leaves: List[torch.Tensor], batch) -> Tuple[torch.Tensor,
-                                                             List]:
-        loss, _ = model.loss_fn(batch)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    def compress_grads(state: Dict, grads: Dict) -> Dict:
+        fn = ((lambda g, e: comp.topk_compress(g, topk_frac, e))
+              if compress == "topk" else comp.int8_roundtrip)
+        grads, new_err = _compress(fn, grads, state["err"],
+                                   _reference_leaves(list(grads),
+                                                     model.cfg.layout))
+        with torch.no_grad():
+            for n, e in new_err.items():
+                state["err"][n].copy_(e)
+        return grads
+
+    def shard_grads(names, leaves, rows, dev, den, copies):
+        """(loss, grads) of one data shard's rows on its device."""
+        if dev == model.device:
+            loss, _ = model.loss_fn(rows, den)
+            use = leaves
+        else:
+            if dev not in copies:
+                copies[dev] = [p.detach().to(dev).requires_grad_(True)
+                               for p in leaves]
+            use = copies[dev]
+            loss, _ = torch.func.functional_call(
+                loss_of, {"model." + n: t for n, t in zip(names, use)},
+                (rows, den))
+        grads = torch.autograd.grad(loss, use, allow_unused=True)
         # a leaf the loss does not read (hymba's ssm_norm) has zero grad
         return loss.detach(), [torch.zeros_like(p) if g is None else g
-                               for p, g in zip(leaves, grads)]
+                               for p, g in zip(use, grads)]
 
     def train_step(state: Dict, batch: Dict) -> Tuple[Dict, Dict]:
+        mesh = current_mesh()
         params = state["params"]
         names = list(params)
         leaves = [params[n] for n in names]
-        if micro_batches > 1:
-            gacc = [torch.zeros(p.shape, dtype=torch.float32,
-                                device=p.device) for p in leaves]
-            lsum = torch.zeros((), dtype=torch.float32,
-                               device=leaves[0].device)
-            for mb in _split_microbatches(batch, micro_batches):
-                loss, grads = grads_of(leaves, mb)
-                for a, g in zip(gacc, grads):
-                    a.add_(g.to(sync_dt) if sync_dt is not None else g)
-                lsum = lsum + loss
+        root = model.device
+        mbs = (_split_microbatches(batch, micro_batches)
+               if micro_batches > 1 else [batch])
+        rows = next(iter(mbs[0].values())).shape[0]
+        axes, shards = (((), [({}, root)]) if mesh is None
+                        else _data_shards(mesh, rows))
+        if model.cfg.is_moe and len(shards) > 1:
+            raise ValueError(
+                f"{model.cfg.name} is MoE: its dispatch capacity and aux "
+                f"loss are over the whole batch, which {len(shards)} data "
+                f"shards would split; train it without a mesh")
+        blocks = _grad_blocks(params, grad_shard_specs if mesh else None,
+                              mesh, axes, shards, root)
+        per = rows // len(shards)
+        acc, lsum, copies = None, None, {}
+        for mb in mbs:
+            # one shard takes loss_fn's own mean, the one-device step's
+            den = _denominator(mb, root) if len(shards) > 1 else None
+            part, mloss = None, None
+            for j, (_, dev) in enumerate(shards):
+                loss, grads = shard_grads(
+                    names, leaves,
+                    {k: x[j * per:(j + 1) * per].to(dev)
+                     for k, x in mb.items()}, dev,
+                    None if den is None else den.to(dev), copies)
+                loss = loss.to(root)
+                mloss = loss if mloss is None else mloss + loss
+                if part is None:
+                    part = [[g[sl].to(bdev, torch.float32,
+                                      copy=len(blocks[n]) > 1)
+                             for sl, bdev in blocks[n]]
+                            for n, g in zip(names, grads)]
+                else:
+                    for tiles, n, g in zip(part, names, grads):
+                        for t, (sl, bdev) in zip(tiles, blocks[n]):
+                            t.add_(g[sl].to(bdev))
                 del grads
-            grads = [a / micro_batches for a in gacc]
-            loss = lsum / micro_batches
-        else:
-            loss, grads = grads_of(leaves, batch)
-        grads = dict(zip(names, grads))
+            lsum = mloss if lsum is None else lsum + mloss
+            if micro_batches == 1:
+                acc = part
+                continue
+            if acc is None:
+                acc = [[torch.zeros_like(t) for t in tiles]
+                       for tiles in part]
+            for a_tiles, tiles in zip(acc, part):
+                for a, t in zip(a_tiles, tiles):
+                    a.add_(t.to(sync_dt) if sync_dt is not None else t)
+            del part
+        if micro_batches > 1:
+            acc = [[a / micro_batches for a in tiles] for tiles in acc]
+            lsum = lsum / micro_batches
+        acc = dict(zip(names, acc))
 
         if compress:
-            fn = ((lambda g, e: comp.topk_compress(g, topk_frac, e))
-                  if compress == "topk" else comp.int8_roundtrip)
-            grads, new_err = _compress(fn, grads, state["err"],
-                                       _reference_leaves(names,
-                                                         model.cfg.layout))
-            with torch.no_grad():
-                for n, e in new_err.items():
-                    state["err"][n].copy_(e)
+            full = {}
+            for n, p in params.items():
+                if len(blocks[n]) == 1:
+                    full[n] = acc[n][0].to(root)
+                    continue
+                full[n] = torch.empty(p.shape, dtype=torch.float32,
+                                      device=root)
+                for t, (sl, _) in zip(acc[n], blocks[n]):
+                    full[n][sl] = t.to(root)
+            full = compress_grads(state, full)
+            acc = {n: [full[n][sl] for sl, _ in blocks[n]] for n in names}
 
-        _, _, om = adamw_update(params, grads, state["opt"], opt_cfg)
-        return state, dict(loss=loss, **om)
+        # AdamW over the blocks: views of the leaves, their moments and
+        # (moved to the leaf's device) the gradient sums
+        opt = state["opt"]
+        p_b, g_b, mu_b, nu_b = {}, {}, {}, {}
+        with torch.no_grad():
+            for n in names:
+                for b, (sl, _) in enumerate(blocks[n]):
+                    key = n if len(blocks[n]) == 1 else f"{n}#{b}"
+                    p_b[key] = params[n][sl]
+                    mu_b[key] = opt["mu"][n][sl]
+                    nu_b[key] = opt["nu"][n][sl]
+                    g_b[key] = acc[n][b].to(root)
+        _, _, om = adamw_update(p_b, g_b, dict(mu=mu_b, nu=nu_b,
+                                               step=opt["step"]), opt_cfg)
+        return state, dict(loss=lsum, **om)
 
     return train_step

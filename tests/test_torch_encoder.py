@@ -36,7 +36,7 @@ def _features(cfg, b, t, seed=0):
 @pytest.mark.parametrize("t", [32, 21])
 def test_encode_matches_reference(J, t):
     cfg, m, params = ref_model(J, ARCH)
-    model = convert.from_reference(port_cfg(cfg), params)
+    model = convert.from_reference(port_cfg(cfg), params, device="cpu")
     feats = _features(cfg, 2, t)
     want = m.encode(params, {"features": J.jnp.asarray(feats)})
     got = model.encode(torch.from_numpy(feats))
@@ -50,7 +50,8 @@ def test_state_dict_loads_strictly_from_the_reference_tree(J):
     assert torch.equal(sd["frontend.proj"],
                        torch.from_numpy(np.array(params["frontend"]["proj"])))
     assert sd["frontend.proj"].shape == (cfg.feat_dim, cfg.d_model)
-    model = convert.from_reference(port_cfg(cfg), params)  # strict=True
+    # strict=True
+    model = convert.from_reference(port_cfg(cfg), params, device="cpu")
     own = LM(port_cfg(cfg), generator=torch.Generator().manual_seed(0),
              device="cpu").state_dict()
     assert sorted(own) == sorted(model.state_dict()) == sorted(sd)
@@ -70,7 +71,7 @@ def test_bf16_conversion_keeps_the_reference_dtypes(J):
              device="cpu").state_dict()
     assert {k: t.dtype for k, t in own.items()} == {
         k: t.dtype for k, t in sd.items()}
-    model = convert.from_reference(port_cfg(cfg), params)
+    model = convert.from_reference(port_cfg(cfg), params, device="cpu")
     out = model.encode(torch.from_numpy(_features(cfg, 1, 8)))
     assert out.dtype == torch.bfloat16
 
@@ -105,7 +106,7 @@ def test_attention_is_bidirectional(J):
     it sees only itself, and its logits differ. Position 0's causal logits
     also equal an encode of the first frame alone."""
     cfg, _, params = ref_model(J, ARCH)
-    model = convert.from_reference(port_cfg(cfg), params)
+    model = convert.from_reference(port_cfg(cfg), params, device="cpu")
     feats = torch.from_numpy(_features(cfg, 2, 16, seed=3))
     both = model.encode(feats)
     for blk in model.layers:

@@ -40,7 +40,7 @@ def test_model_prefill_decode_and_forward_match_reference(J, name):
     """S = 32: hymba's windowed layer runs the reference's banded path in
     the full forward; the prefill of 29 its masked softmax."""
     cfg, m, params = ref_model(J, name)
-    model = convert.from_reference(port_cfg(cfg), params)
+    model = convert.from_reference(port_cfg(cfg), params, device="cpu")
     b, s, max_len = 2, 32, 64
     toks = tokens(cfg.vocab_size, b, s)
     jt, tt = J.jnp.asarray(toks), torch.from_numpy(toks)
@@ -58,7 +58,7 @@ def test_model_prefill_decode_and_forward_match_reference(J, name):
 @pytest.mark.parametrize("name", FAMILIES)
 def test_generate_tokens_equal_reference(J, name):
     cfg, m, params = ref_model(J, name, seed=3)
-    model = convert.from_reference(port_cfg(cfg), params)
+    model = convert.from_reference(port_cfg(cfg), params, device="cpu")
     prompt = tokens(cfg.vocab_size, 2, 8, seed=6)
     want = J.serve_step.generate(m, params, J.jnp.asarray(prompt), max_new=6,
                                  max_len=32)
@@ -76,7 +76,7 @@ def test_generate_tokens_equal_reference(J, name):
 def test_prefill_plus_decode_equals_full_forward(J, name):
     """The serving contract of tests/test_serve.py, on the port alone."""
     cfg, _, params = ref_model(J, name)
-    model = convert.from_reference(port_cfg(cfg), params)
+    model = convert.from_reference(port_cfg(cfg), params, device="cpu")
     toks = torch.from_numpy(tokens(cfg.vocab_size, 2, 24))
     want = model(toks)[:, -1, :]
     _, caches = model.prefill(toks[:, :21], model.init_caches(2, 64))
@@ -91,7 +91,7 @@ def test_hymba_ring_cache_beyond_twice_the_window(J):
     16) through the ring, against the full forward's last logits and the
     reference's decode."""
     cfg, m, params = ref_model(J, "hymba-1.5b", seed=2)
-    model = convert.from_reference(port_cfg(cfg), params)
+    model = convert.from_reference(port_cfg(cfg), params, device="cpu")
     b, s = 1, 40
     toks = np.random.default_rng(1).integers(
         0, cfg.vocab_size, (b, s)).astype(np.int32)
@@ -132,7 +132,7 @@ def test_bf16_conversion_keeps_what_the_reference_reads_in_float32(J, name):
              device="cpu").state_dict()
     assert {k: t.dtype for k, t in own.items()} == {
         k: t.dtype for k, t in sd.items()}
-    model = convert.from_reference(tcfg, params)
+    model = convert.from_reference(tcfg, params, device="cpu")
     for key, t in model.state_dict().items():
         assert t.dtype == sd[key].dtype, key
         assert torch.equal(t, sd[key]), key

@@ -193,7 +193,7 @@ def test_gqa_cache_and_decode_match_reference(J, window):
 @pytest.mark.parametrize("name", SERVED)
 def test_model_prefill_decode_and_forward_match_reference(J, name):
     cfg, m, params = _ref_model(J, name)
-    model = convert.from_reference(_port_cfg(cfg), params)
+    model = convert.from_reference(_port_cfg(cfg), params, device="cpu")
     b, s, max_len = 2, 24, 64
     toks = _tokens(cfg.vocab_size, b, s)
     jt, tt = J.jnp.asarray(toks), torch.from_numpy(toks)
@@ -211,7 +211,7 @@ def test_model_prefill_decode_and_forward_match_reference(J, name):
 @pytest.mark.parametrize("name", SERVED)
 def test_generate_tokens_equal_reference(J, name):
     cfg, m, params = _ref_model(J, name, seed=3)
-    model = convert.from_reference(_port_cfg(cfg), params)
+    model = convert.from_reference(_port_cfg(cfg), params, device="cpu")
     prompt = _tokens(cfg.vocab_size, 2, 8, seed=6)
     want = J.serve_step.generate(m, params, J.jnp.asarray(prompt), max_new=6,
                                  max_len=32)
@@ -229,7 +229,7 @@ def test_generate_tokens_equal_reference(J, name):
 def test_prefill_plus_decode_equals_full_forward(J, name):
     """The serving contract of tests/test_serve.py, on the port alone."""
     cfg, _, params = _ref_model(J, name)
-    model = convert.from_reference(_port_cfg(cfg), params)
+    model = convert.from_reference(_port_cfg(cfg), params, device="cpu")
     toks = torch.from_numpy(_tokens(cfg.vocab_size, 2, 24))
     want = model(toks)[:, -1, :]
     _, caches = model.prefill(toks[:, :21], model.init_caches(2, 64))
@@ -274,7 +274,7 @@ def test_convert_stores_matmuls_in_the_activation_dtype(J):
     for name, t in sd.items():
         want = torch.float32 if name.endswith("norm") else torch.bfloat16
         assert t.dtype == want, name
-    model = convert.from_reference(_port_cfg(cfg), params)
+    model = convert.from_reference(_port_cfg(cfg), params, device="cpu")
     assert model.layers[0].attn["wq"].dtype == torch.bfloat16
     assert model.final_norm.dtype == torch.float32
 

@@ -198,7 +198,7 @@ def test_model_layers_and_aux_loss_match_reference(J, name):
     x at 1e-4 and the aux loss (the mean over layers) at 1e-5 against the
     reference's `_run_layers_train`."""
     cfg, m, params = ref_model(J, name, capacity_factor=0.5)
-    model = convert.from_reference(port_cfg(cfg), params)
+    model = convert.from_reference(port_cfg(cfg), params, device="cpu")
     toks = tokens(cfg.vocab_size, 2, 24, seed=7)
     x, pos = m._embed_inputs(params, {"tokens": J.jnp.asarray(toks)})
     want_x, want_aux = m._run_layers_train(params, x, pos)
@@ -217,7 +217,7 @@ def test_model_with_drops_matches_reference(J, name):
     packages: prefill, decode and full-forward logits against the
     reference's at 1e-4."""
     cfg, m, params = ref_model(J, name, capacity_factor=0.5)
-    model = convert.from_reference(port_cfg(cfg), params)
+    model = convert.from_reference(port_cfg(cfg), params, device="cpu")
     b, s, max_len = 2, 24, 32
     toks = tokens(cfg.vocab_size, b, s, seed=8)
     jt, tt = J.jnp.asarray(toks), torch.from_numpy(toks)

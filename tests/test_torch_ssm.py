@@ -178,7 +178,8 @@ def hymba(J):
     """(reference config, port config, reference params, port model)."""
     cfg, _, params = ref_model(J, "hymba-1.5b", seed=2)
     tcfg = port_cfg(cfg)
-    return cfg, tcfg, params, convert.from_reference(tcfg, params)
+    return cfg, tcfg, params, convert.from_reference(tcfg, params,
+                                                     device="cpu")
 
 
 def _jtree(J, tree):

@@ -1,6 +1,7 @@
 """The port's checkpoints, data pipeline, fault tolerance and trainer
 (`repro_torch.ckpt`, `data`, `ft`, `train.trainer`), on the CPU: the
-cases of `tests/test_ckpt_ft_data.py` but the mesh one, the pipeline's
+cases of `tests/test_ckpt_ft_data.py` (its mesh case is in
+`tests/test_torch_sharding.py`), the pipeline's
 batches against the reference pipeline's bit for bit, a checkpoint that
 the reference's `Checkpointer` wrote restored through
 `models/convert.from_reference_train_state` with the next step against
