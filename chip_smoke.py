@@ -147,7 +147,16 @@ Phases, in order; any failed check exits non-zero:
      steps of each timed (ms side by side, peak memory, busy share,
      launches a step: flash forward 8 / 32 / 32, backward 4 / 16 / 16);
      the depth-2 fp32 parity of the 4-shard step against the unsharded
-     one on an uneven mask (1e-4 of each leaf's max); the elastic
+     one on an uneven mask (1e-4 of each leaf's max); the same two for
+     MoE, granite-moe-3b-a800m at 4 of 32 layers, capacity factor 1.25
+     (launches a step: rank 8 / 32 / 32 beside the flash ones; the aux
+     each step reports (`metrics["aux"]`; on the mesh assembled from the
+     shards' router statistics) against the whole batch's, rel. 1e-5,
+     and the mean of the shards' own auxes, which must lie outside that
+     limit; device ms with the rank kernel's; the
+     gradient distance printed, and held in fp32 at full width: each
+     leaf within 1e-4 rel. L2, every token routed alike);
+     the elastic
      restart at phi3's reduced config (6 steps on 4 data shards, a
      checkpoint, `restore(shardings=)`, `remesh_state` onto a (2, 2)
      ('data', 'model') mesh, 6 steps; 12 losses within 1e-5 of 12
@@ -197,7 +206,13 @@ Phases, in order; any failed check exits non-zero:
      times of later sessions): the case3 wall and device busy share with
      the MARK/REC kernels and with their plain loops on the card, in
      turns; one graph of n = 160,000 against its numpy baseline, with its
-     wall and busy share.
+     wall and busy share;
+ 13. analysis: `python -m repro_torch.analysis --json` (the lint, and the
+     graph audit of the standard programs at n = 64, L = 128, B = 2 on
+     the card) exits 0; then on CUDA tensors one `audit_service` at that
+     signature and `lgrass_sparsify` on case3: every call's host syncs
+     by site beside its card budget; a site past its budget or outside
+     it, or a plain MARK / REC loop syncing on the card, fails the run.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. In the kernels line, `launches` counts the
@@ -224,7 +239,8 @@ differentiates) counts its calls over phi3's five full-width steps, with
 `launches_per_train_step` per model and 3 CUDA kernels a launch.
 flash_attention and flash_attention_bwd also carry
 `launches_mesh_train_path`: their launches a step of the mesh_train
-phase's unsharded, 4-shard and ZeRO steps. Each
+phase's unsharded, 4-shard and ZeRO steps, and with radix_hist
+`launches_mesh_moe_path`, the same for granite's MoE steps. Each
 phase prints its wall time. Imports nothing of JAX or of `repro`.
 """
 from __future__ import annotations
@@ -3900,12 +3916,18 @@ def phase_train(dev) -> tuple:
 
 
 MESH_ARCH = "phi3-mini-3.8b"
-MESH_DEPTH = 4              # of phi3's 32 layers, at full width
+MESH_MOE_ARCH = "granite-moe-3b-a800m"
+MESH_DEPTH = 4              # of the 32 layers of each, at full width
 MESH_SHARDS = 4             # data shards of cuda:0
 MESH_BATCH, MESH_SEQ, MESH_TIMED = 4, 2048, 2
 MESH_LOSS_RTOL = 1e-3       # bf16 activations: the sharded GEMMs round
+# the assembled MoE aux against the whole batch's: the shards route alike
+# and the counts are exact, so only the order of the float32 gate sums
+# differs; the mean of the shards' own auxes must lie outside it
+MESH_AUX_RTOL = 1e-5
 MESH_REL_L2 = 2e-2          # in other orders than the whole batch's
 MESH_PARITY_TOL = 1e-4      # fp32, depth 2: of each leaf's max
+MESH_FP32_REL_L2 = 1e-4     # fp32 at full width: each leaf, rel. L2
 MESH_PARITY_BATCH, MESH_PARITY_SEQ = 4, 128
 PSUM_SHARDS, PSUM_SIZE = 8, 1 << 16
 
@@ -3949,20 +3971,27 @@ def _mesh_variants(mesh):
             (f"data{MESH_SHARDS} zero", mesh, True))
 
 
-def _mesh_full(dev, card) -> dict:
-    """phi3 at full width, MESH_DEPTH layers, bf16 activations, remat,
-    B = MESH_BATCH x MESH_SEQ: one step from a fresh state unsharded, on
-    MESH_SHARDS data shards of the card, and with the ZeRO accumulator;
-    the loss, each gradient leaf (mu after a first step from zero moments
-    is 0.1 x the clipped gradient) and each updated parameter against the
-    unsharded step; then per variant MESH_TIMED more steps timed and one
-    profiled, with each step's launches."""
+def _mesh_full(dev, card, arch=MESH_ARCH, grad_limit=MESH_REL_L2) -> dict:
+    """`arch` (phi3, or granite's MoE) at full width, MESH_DEPTH layers,
+    bf16 activations, remat, B = MESH_BATCH x MESH_SEQ: one step from a
+    fresh state unsharded, on MESH_SHARDS data shards of the card, and
+    with the ZeRO accumulator; the loss, each gradient leaf (mu after a
+    first step from zero moments is 0.1 x the clipped gradient) and each
+    updated parameter against the unsharded step (for MoE also the aux
+    each step reports, on the mesh the one assembled from the shards'
+    router statistics, against `loss_fn`'s on the whole batch within
+    MESH_AUX_RTOL, and the mean of the shards' own auxes outside it);
+    then per variant MESH_TIMED
+    more steps timed and one profiled, with each step's launches. With
+    `grad_limit` None the gradient and parameter distances are printed,
+    not checked (granite's: `_mesh_moe`)."""
     import dataclasses
 
     from repro_torch.configs import get_arch
     from repro_torch.data.pipeline import DataConfig, TokenPipeline
     from repro_torch.kernels import ops
     from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import moe as tmoe
     from repro_torch.models.model import LM
     from repro_torch.models.sharding import param_specs, use_mesh
     from repro_torch.optim.optimizer import OptConfig
@@ -3970,10 +3999,10 @@ def _mesh_full(dev, card) -> dict:
                                               make_train_state,
                                               make_train_step)
 
-    full = get_arch(MESH_ARCH)
+    full = get_arch(arch)
     cfg = dataclasses.replace(full, n_layers=MESH_DEPTH)
     check(cfg.remat and cfg.dtype == "bfloat16",
-          f"{MESH_ARCH}: the mesh step wants remat and bf16 activations")
+          f"{arch}: the mesh step wants remat and bf16 activations")
     cut = f"{cfg.n_layers} of {full.n_layers} layers"
     torch.cuda.empty_cache()
     model = LM(cfg, generator=torch.Generator(dev).manual_seed(0),
@@ -3987,11 +4016,35 @@ def _mesh_full(dev, card) -> dict:
                           device=dev).batch(0)
     mesh = make_host_mesh(MESH_SHARDS, device=dev)
     opt = OptConfig(peak_lr=3e-4, warmup_steps=2, total_steps=100)
-    print(f"mesh_train {MESH_ARCH}: depth cut to {cut} (full width; the "
+    print(f"mesh_train {arch}: depth cut to {cut} (full width; the "
           f"cut keeps the phase short), {n / 1e9:.3f} B params, "
           f"{16 * n / 1e9:.1f} GB of float32 params, grads and moments, "
-          f"B={MESH_BATCH} S={MESH_SEQ}, bf16 activations, remat; "
-          f"{MESH_SHARDS} data shards of {dev}")
+          f"B={MESH_BATCH} S={MESH_SEQ}, bf16 activations, remat"
+          + (f", capacity factor {cfg.capacity_factor}" if cfg.is_moe
+             else "") + f"; {MESH_SHARDS} data shards of {dev}")
+    aux_whole = aux_own = None
+    if cfg.is_moe:      # the start state's aux: the whole batch's, and
+        # the mean of the shards' own (the mistake the mesh step avoids)
+        per = MESH_BATCH // MESH_SHARDS
+        with torch.no_grad():
+            aux_whole = float(model.loss_fn(batch)[1]["aux"])
+            own = []
+            for j in range(MESH_SHARDS):
+                stats = []
+                model.loss_fn({k: x[j * per:(j + 1) * per]
+                               for k, x in batch.items()}, None, stats)
+                own.append(float(tmoe.aux_from_stats(
+                    cfg, stats, per * MESH_SEQ, cfg.n_layers)))
+        aux_own = sum(own) / MESH_SHARDS
+        own_rel = abs(aux_own - aux_whole) / abs(aux_whole)
+        print(f"mesh_train {arch}: aux of the whole batch {aux_whole!r}, "
+              f"mean of the {MESH_SHARDS} shards' own {aux_own!r} (rel. "
+              f"{own_rel:.3e}; the assembled aux's limit "
+              f"{MESH_AUX_RTOL:g}, the loss's {MESH_LOSS_RTOL:g})")
+        check(own_rel > MESH_AUX_RTOL, f"mesh_train {arch}: the mean of "
+              f"the shards' auxes is within {MESH_AUX_RTOL:g} of the whole "
+              f"batch's ({own_rel:.3e}): the aux check cannot tell them "
+              f"apart")
     rows, first = {}, None
     for name, m, zero in _mesh_variants(mesh):
         load_train_state(state, start)
@@ -4021,13 +4074,25 @@ def _mesh_full(dev, card) -> dict:
                 losses.append(loss)
                 if i:
                     continue
+                aux = aux_cmp = None
+                if cfg.is_moe:
+                    aux = float(metrics["aux"])
+                    aux_rel = abs(aux - aux_whole) / abs(aux_whole)
+                    check(aux_rel <= MESH_AUX_RTOL,
+                          f"mesh_train {arch} {name}: the step's aux {aux} "
+                          f"vs the whole batch's {aux_whole} (rel "
+                          f"{aux_rel:.2e}, limit {MESH_AUX_RTOL:g})")
+                    aux_cmp = dict(aux=aux, aux_whole_batch=aux_whole,
+                                   aux_rel=aux_rel,
+                                   aux_mean_of_shards=aux_own,
+                                   aux_mean_of_shards_rel=own_rel)
                 out = dict(loss=loss, mu={k: t.clone() for k, t in
                                           state["opt"]["mu"].items()},
                            params={k: t.detach().clone() for k, t in
                                    state["params"].items()})
                 if first is None:
                     first = out
-                    cmp = {}
+                    cmp = dict(aux_cmp or {})
                     continue
                 rel = abs(loss - first["loss"]) / abs(first["loss"])
                 grad_l2 = _rel_l2_leaves(out["mu"], first["mu"])
@@ -4039,12 +4104,14 @@ def _mesh_full(dev, card) -> dict:
                      for k in out["params"]})
                 check(rel <= MESH_LOSS_RTOL, f"mesh_train {name}: loss "
                       f"{loss} vs unsharded {first['loss']} (rel {rel:.2e})")
-                check(grad_l2 <= MESH_REL_L2 and param_l2 <= MESH_REL_L2,
+                check(grad_limit is None or (grad_l2 <= grad_limit
+                                             and param_l2 <= grad_limit),
                       f"mesh_train {name}: gradient rel. L2 {grad_l2:.3e}, "
-                      f"params {param_l2:.3e} (limit {MESH_REL_L2:g})")
+                      f"params {param_l2:.3e} (limit {grad_limit})")
                 cmp = dict(loss_rel=rel, grad_rel_l2_worst=grad_l2,
                            param_rel_l2_worst=param_l2,
                            update_rel_l2_worst=update_l2)
+                cmp.update(aux_cmp or {})
                 del out
             prof = _profile(lambda: step(state, batch))
         torch.cuda.synchronize()
@@ -4056,16 +4123,17 @@ def _mesh_full(dev, card) -> dict:
                           held_before_gb=held_gb,
                           busy_share=prof["busy_share"], profile_ms=prof,
                           launches_per_step=counts, **cmp)
-        print(f"mesh_train {name} ({cut}): step {step_ms:.1f} ms (median of "
-              f"{MESH_TIMED}; warm-up {walls[0]:.1f} ms), peak memory "
-              f"{peak_gb:.2f} GB ({held_gb:.2f} GB held before the step), "
-              f"busy share {prof['busy_share']:.3f}, device ms: gemm "
-              f"{prof['gemm']:.1f}, flash fwd {prof['flash']:.1f}, flash "
-              f"bwd {prof['flash_bwd']:.1f}, other {prof['other']:.1f}; "
-              f"launches per step {counts}; against the unsharded step "
+        print(f"mesh_train {arch} {name} ({cut}): step {step_ms:.1f} ms "
+              f"(median of {MESH_TIMED}; warm-up {walls[0]:.1f} ms), peak "
+              f"memory {peak_gb:.2f} GB ({held_gb:.2f} GB held before the "
+              f"step), busy share {prof['busy_share']:.3f}, device ms: "
+              f"gemm {prof['gemm']:.1f}, flash fwd {prof['flash']:.1f}, "
+              f"flash bwd {prof['flash_bwd']:.1f}, rank "
+              f"{prof['radix']:.1f}, other {prof['other']:.1f}; launches "
+              f"per step {counts}; against the unsharded step "
               f"{json.dumps(cmp)}; card {card}")
         del step
-    print(f"mesh_train step ms side by side ({cut}, B={MESH_BATCH} "
+    print(f"mesh_train {arch} step ms side by side ({cut}, B={MESH_BATCH} "
           f"S={MESH_SEQ}): " + ", ".join(
               f"{k} {r['step_ms']:.1f}" for k, r in rows.items())
           + f"; card {card}")
@@ -4074,8 +4142,8 @@ def _mesh_full(dev, card) -> dict:
     return rows
 
 
-def _mesh_parity(dev) -> dict:
-    """phi3 at full width, depth 2, fp32, on an uneven mask: the step on
+def _mesh_parity(dev, arch=MESH_ARCH) -> dict:
+    """`arch` at full width, depth 2, fp32, on an uneven mask: the step on
     MESH_SHARDS data shards of the card against the unsharded step on the
     card, from the same state: the loss, grad_norm, mu, nu within
     MESH_PARITY_TOL of each leaf's max, the params within that tolerance
@@ -4093,8 +4161,7 @@ def _mesh_parity(dev) -> dict:
                                               make_train_state,
                                               make_train_step)
 
-    cfg = dataclasses.replace(get_arch(MESH_ARCH), n_layers=2,
-                              dtype="float32")
+    cfg = dataclasses.replace(get_arch(arch), n_layers=2, dtype="float32")
     model = LM(cfg, generator=torch.Generator(dev).manual_seed(1),
                device=dev, param_dtype=torch.float32)
     state = make_train_state(model)
@@ -4131,7 +4198,7 @@ def _mesh_parity(dev) -> dict:
                 for k in ("mu", "nu"))
     swung = _close_params(s1["params"], s0["params"], s0["opt"]["mu"],
                           TRAIN_OPT["peak_lr"], tol=MESH_PARITY_TOL)
-    print(f"mesh_train parity {MESH_ARCH} depth 2 fp32 B="
+    print(f"mesh_train parity {arch} depth 2 fp32 B="
           f"{MESH_PARITY_BATCH} S={MESH_PARITY_SEQ} (uneven mask, "
           f"{int(batch['mask'].sum())} tokens): {shards} shards vs "
           f"unsharded on the card: loss {l1:.7f} vs {l0:.7f}, grad_norm "
@@ -4266,24 +4333,187 @@ def _mesh_serve_twin() -> dict:
     return dict(launches=counts)
 
 
+def _mesh_fp32(dev, arch) -> dict:
+    """`arch` at full width, MESH_DEPTH layers, fp32 activations, remat,
+    B = MESH_BATCH x MESH_SEQ, one step from one state unsharded, on
+    MESH_SHARDS data shards and with the ZeRO accumulator: the loss
+    within 1e-5 and each gradient leaf (mu) within MESH_FP32_REL_L2 rel.
+    L2 of the unsharded step's; for MoE also the router's top-k of every
+    token in every layer's forward, equal on both."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import moe as tmoe
+    from repro_torch.models.model import LM
+    from repro_torch.models.sharding import param_specs, use_mesh
+    from repro_torch.optim.optimizer import OptConfig
+    from repro_torch.train.train_step import (load_train_state,
+                                              make_train_state,
+                                              make_train_step)
+
+    cfg = dataclasses.replace(get_arch(arch), n_layers=MESH_DEPTH,
+                              dtype="float32")
+    model = LM(cfg, generator=torch.Generator(dev).manual_seed(0),
+               device=dev, param_dtype=torch.float32)
+    state = make_train_state(model)
+    start = _train_snapshot(state)
+    batch = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size,
+                                     seq_len=MESH_SEQ,
+                                     global_batch=MESH_BATCH, seed=7),
+                          device=dev).batch(0)
+    routes = []
+
+    def hook(mod, args):
+        with torch.no_grad():
+            routes.append(tmoe.route(mod, args[0], args[1])[2])
+
+    hooks = [blk.mlp.register_forward_pre_hook(hook)
+             for blk in model.layers if cfg.is_moe]
+    opt = OptConfig(peak_lr=3e-4, warmup_steps=2, total_steps=100)
+    mesh = make_host_mesh(MESH_SHARDS, device=dev)
+    out, first = {}, None
+    for name, m, zero in _mesh_variants(mesh):
+        load_train_state(state, start)
+        routes.clear()
+        with use_mesh(m):
+            _, met = make_train_step(model, opt, grad_shard_specs=(
+                param_specs(model) if zero else None))(state, batch)
+        loss = float(met["loss"])
+        shards = 1 if m is None else MESH_SHARDS
+        # each shard's forward routes, then the recompute's: the forward's
+        # by layer over the rows
+        fwd = [torch.cat([routes[j * cfg.n_layers + l]
+                          for j in range(shards)])
+               for l in range(cfg.n_layers)] if hooks else []
+        mu = {k: t.clone() for k, t in state["opt"]["mu"].items()}
+        if first is None:
+            first = (loss, mu, fwd)
+            continue
+        rel = abs(loss - first[0]) / abs(first[0])
+        grad_l2 = _rel_l2_leaves(mu, first[1])
+        flips = sum(int((torch.sort(a, -1).values
+                         != torch.sort(b, -1).values).any(-1).sum())
+                    for a, b in zip(fwd, first[2]))
+        check(rel <= 1e-5 and grad_l2 <= MESH_FP32_REL_L2 and flips == 0,
+              f"mesh_train fp32 {arch} {name}: loss rel {rel:.2e}, "
+              f"gradient rel. L2 {grad_l2:.3e} (limit "
+              f"{MESH_FP32_REL_L2:g}), tokens routed otherwise {flips}")
+        out[name] = dict(loss_rel=rel, grad_rel_l2_worst=grad_l2,
+                         tokens_routed_otherwise=flips)
+    for h in hooks:
+        h.remove()
+    print(f"mesh_train fp32 {arch} ({cfg.n_layers} layers, full width, "
+          f"B={MESH_BATCH} S={MESH_SEQ}) against the unsharded step: "
+          f"{json.dumps(out)}")
+    del model, state, start, first
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_moe(dev, card) -> tuple:
+    """MoE on the mesh: granite's full-width bf16 step (`_mesh_full`: one
+    step each unsharded, on MESH_SHARDS data shards, with the ZeRO
+    accumulator; the step's aux against the whole batch's and the mean
+    of the shards' own; the gradient distance printed: bf16 rounding at
+    M = 2,048 rather than 8,192 moves granite's attention leaves by ~2.5
+    %, past phi3's limit); the same steps in fp32, each leaf within
+    MESH_FP32_REL_L2 and every token routed alike (`_mesh_fp32`); and
+    the depth-2 fp32 parity (`_mesh_parity`)."""
+    t0 = time.perf_counter()
+    rows = _mesh_full(dev, card, MESH_MOE_ARCH, grad_limit=None)
+    fp32 = _mesh_fp32(dev, MESH_MOE_ARCH)
+    parity = _mesh_parity(dev, MESH_MOE_ARCH)
+    print(f"mesh_train {MESH_MOE_ARCH}: {time.perf_counter() - t0:.1f} s")
+    return rows, dict(parity, fp32_full_width=fp32)
+
+
 def phase_mesh_train(dev, card) -> dict:
     """Training on a mesh of the card (after phase_train): phi3's
     full-width step unsharded, on MESH_SHARDS data shards and with the
     ZeRO accumulator (`_mesh_full`), the depth-2 fp32 parity
-    (`_mesh_parity`), the elastic restart (`_mesh_elastic`),
-    compressed_psum (`_mesh_psum`) and the serve_lm twin. Returns the
-    flash forward's and backward's launches a step on the mesh path."""
+    (`_mesh_parity`), the same two for granite's MoE (`_mesh_moe`), the
+    elastic restart (`_mesh_elastic`), compressed_psum (`_mesh_psum`) and
+    the serve_lm twin. Returns per kernel its launches a step on the
+    dense mesh path ({variant: count}) and on the MoE one ({"moe":
+    {variant: count}})."""
     t0 = time.perf_counter()
     rows = _mesh_full(dev, card)
     parity = _mesh_parity(dev)
+    moe_rows, moe_parity = _mesh_moe(dev, card)
     elastic = _mesh_elastic(dev)
     psum = _mesh_psum(dev)
     twin = _mesh_serve_twin()
     wall = time.perf_counter() - t0
-    print(f"mesh_train numbers: {json.dumps(dict(runs=rows, parity=parity, elastic=elastic, psum=psum, serve_twin=twin, wall_s=wall, card=card))}")
-    per_step = {k: r["launches_per_step"] for k, r in rows.items()}
-    return {kernel: {k: c[kernel] for k, c in per_step.items()}
-            for kernel in ("flash_attention", "flash_attention_bwd")}
+    print(f"mesh_train numbers: {json.dumps(dict(runs=rows, parity=parity, moe_runs=moe_rows, moe_parity=moe_parity, elastic=elastic, psum=psum, serve_twin=twin, wall_s=wall, card=card))}")
+    out = {}
+    for kernel in ("flash_attention", "flash_attention_bwd", "radix_hist"):
+        out[kernel] = {k: r["launches_per_step"][kernel]
+                       for k, r in rows.items()}
+        out[kernel]["moe"] = {k: r["launches_per_step"][kernel]
+                              for k, r in moe_rows.items()}
+    return out
+
+
+AUDIT_SIGNATURE = dict(n=64, L=128, B=2)  # the CLI's standard programs
+
+
+def phase_analysis(dev, card) -> dict:
+    """The static-analysis package on the card: `python -m
+    repro_torch.analysis --json` (the lint, the derived constants and
+    `standard_program_audits` on the card) must exit 0; its report gives
+    the standard programs' host syncs by site. Then on CUDA tensors one
+    `audit_service` at AUDIT_SIGNATURE and `lgrass_sparsify` on case3.
+    Prints every call's host syncs by site beside its budget; fails where
+    a site syncs past its card budget, outside the budget, or where a
+    site of a plain loop (MARK's, REC's) syncs on the card."""
+    import tempfile
+
+    from repro_torch.analysis import graph_audit as ga
+    from repro_torch.core import official_case
+    from repro_torch.serve.sparsify_service import SparsifyService
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "analysis.json")
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.analysis", "--device",
+             str(dev), "--json", out],
+            cwd=ROOT, capture_output=True, text=True, timeout=600,
+            env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")))
+        cli = json.load(open(out)) if os.path.exists(out) else {}
+    tail = proc.stdout.strip().splitlines()[-1:] or [""]
+    print(f"analysis cli: exit {proc.returncode}; {tail[0]}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    check(proc.returncode == 0, f"python -m repro_torch.analysis exited "
+          f"{proc.returncode}: {proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+    audits = cli.get("audits", [])
+    check(len(audits) == 12 and all(a["device"] == "cuda" for a in audits),
+          f"analysis cli: {len(audits)} audits, on "
+          f"{sorted({a['device'] for a in audits})}, not 12 on the card")
+    sig = AUDIT_SIGNATURE
+    svc = SparsifyService(device=dev)
+    reports = ga.audit_service(svc, sizes=[(sig["n"], sig["L"])],
+                               batch_sizes=(sig["B"],))
+    reports.append(ga.audit_sparsify(official_case("case3"), device=dev))
+    torch.cuda.synchronize()
+    audits += [r.as_dict() for r in reports]
+    rows = {}
+    for a in audits:
+        rows[a["name"]] = dict(n_syncs=a["n_syncs"], by_site=a["by_site"],
+                               bounds=a["bounds"], by_line=a["syncs"],
+                               kinds=a["kinds"], findings=a["findings"])
+        print(f"analysis syncs {a['name']} on {a['device']}: "
+              f"{a['n_syncs']} host syncs; by site (count / card budget) "
+              + ", ".join(f"{k} {c}/{a['bounds'].get(k)}"
+                          for k, c in sorted(a["by_site"].items())))
+    bad = {a["name"]: a["findings"] for a in audits if not a["ok"]}
+    check(not bad, f"analysis: audits over their card budget: "
+          f"{json.dumps(bad)}")
+    wall = time.perf_counter() - t0
+    print(f"analysis numbers: {json.dumps(dict(audits=rows, cli_lint_suppressed=cli.get('suppressed'), wall_s=wall, card=card))}")
+    return rows
 
 
 def phase_profile(dev, graphs, out_dir):
@@ -4457,7 +4687,11 @@ def main(argv) -> int:
     t0 = time.perf_counter()
     mesh_gains = phase_mesh_train(dev, card)
     for entry in (flash_entry, bwd_entry):
+        moe = mesh_gains[entry["name"]].pop("moe")
         entry["launches_mesh_train_path"] = mesh_gains[entry["name"]]
+        entry["launches_mesh_moe_path"] = moe
+    report["radix_hist"]["launches_mesh_moe_path"] = \
+        mesh_gains["radix_hist"]["moe"]
     print(f"phase mesh_train: {time.perf_counter() - t0:.1f} s")
     masks = {k: b.edge_mask for k, b in base.items()}
     t0 = time.perf_counter()
@@ -4494,6 +4728,9 @@ def main(argv) -> int:
                       args.profile)
         profile_estimator(dev, _big_graph(), args.profile)
     print(f"pipeline numbers: {json.dumps(dict(walls_ms=walls, **profiled))}")
+    t0 = time.perf_counter()
+    phase_analysis(dev, card)
+    print(f"phase analysis: {time.perf_counter() - t0:.1f} s")
 
     print(f"card: {card}")
     print(json.dumps({"kernels": [report["radix_hist"], report["tree_dist"],

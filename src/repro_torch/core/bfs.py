@@ -54,6 +54,21 @@ def finite_depth(depth: torch.Tensor) -> torch.Tensor:
     return torch.where(depth == INF, torch.zeros_like(depth), depth)
 
 
+def relax_key(ds: torch.Tensor, src: torch.Tensor, live: torch.Tensor,
+              base: int) -> torch.Tensor:
+    """`bfs_doubling`'s packed relaxation key ds·base + src of a live arc
+    whose source is reached (INF otherwise), in int64: the product is
+    formed on every arc, the INF depths' included, so it must fit int64
+    at every n the port takes (`analysis.graph_audit` checks it)."""
+    return torch.where(live & (ds < INF), ds * base + src, INF)
+
+
+def euler_arc_key(tail: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
+    """`root_tree_euler`'s (tail << 16) | head arc key, read as u32 by
+    the radix sort: exact while tail, head <= EULER_PACK_MAX_N."""
+    return (tail << 16) | head
+
+
 def _full(n: int, value: int, device) -> torch.Tensor:
     return torch.full((n,), value, dtype=torch.int64, device=device)
 
@@ -160,7 +175,7 @@ def bfs_doubling(u: torch.Tensor, v: torch.Tensor, n: int,
     while changed:
         d_in = dist
         ds = dist[src]
-        key = torch.where(emask & (ds < INF), ds * base + src, kinf)
+        key = relax_key(ds, src, emask, base)
         kmin = _scatter_min(n, kinf, dst, key)
         has = kmin < kinf
         mnb = torch.where(has, kmin // base, INF)
@@ -232,8 +247,8 @@ def root_tree_euler(u: torch.Tensor, v: torch.Tensor, n: int,
     # -- 1. sorted out-arc blocks ---------------------------------------
     umax = torch.full_like(tail, U32_MASK)
     if n <= EULER_PACK_MAX_N:
-        key = (tail << 16) | head
-        S = radix_argsort_u32(torch.where(valid, key, umax))
+        S = radix_argsort_u32(torch.where(valid, euler_arc_key(tail, head),
+                                          umax))
     else:
         S = radix_argsort_u64pair(torch.where(valid, tail, umax), head)
     pos = torch.empty_like(S)

@@ -179,7 +179,8 @@ def _ball_pair_covered(t: LiftingTables, x, y, row_u, row_v, row_b,
     pair = (((dxu <= row_b) & (dyv <= row_b))
             | ((dxv <= row_b) & (dyu <= row_b)))
     k = row_u.shape[-1]
-    valid = torch.arange(k, device=x.device) < cnt[..., None]
+    valid = torch.arange(k, dtype=torch.int64,
+                         device=x.device) < cnt[..., None]
     return (pair & valid).any(dim=-1)
 
 
@@ -355,7 +356,8 @@ def phase1_parallel(t: LiftingTables, su, sv, sbeta, layout: GroupLayout,
         return _empty_phase1(dev)
     group_size = torch.bincount(layout.gidx, minlength=m)
     group_active = layout.active[torch.clamp(layout.group_start, max=m - 1)]
-    live = (torch.arange(m, device=dev) < layout.n_groups) & group_active
+    live = ((torch.arange(m, dtype=torch.int64, device=dev)
+             < layout.n_groups) & group_active)
     sizes, lane_group = torch.sort(torch.where(live, group_size, 0),
                                    descending=True, stable=True)
     sizes_h = sizes.tolist()  # the one sync
@@ -367,7 +369,7 @@ def phase1_parallel(t: LiftingTables, su, sv, sbeta, layout: GroupLayout,
     out = torch.zeros((m,), dtype=torch.bool, device=dev)
     su, sv, sbeta = su.to(torch.int64), sv.to(torch.int64), \
         sbeta.to(torch.int64)
-    rows = torch.arange(n_lanes, device=dev)
+    rows = torch.arange(n_lanes, dtype=torch.int64, device=dev)
     k = n_lanes
     for r in range(sizes_h[0] if n_lanes else 0):
         while sizes_h[k - 1] <= r:  # lanes whose group has no r-th slot

@@ -80,7 +80,8 @@ def bucket_ranks(keys: torch.Tensor, n_buckets: int) -> torch.Tensor:
     counts = torch.bincount(keys, minlength=n_buckets)
     starts = torch.cumsum(counts, dim=0) - counts
     rank = torch.empty_like(order)
-    rank[order] = torch.arange(keys.shape[0], device=keys.device) \
+    rank[order] = torch.arange(keys.shape[0], dtype=torch.int64,
+                               device=keys.device) \
         - starts[keys[order]]
     return rank.to(torch.int32)
 

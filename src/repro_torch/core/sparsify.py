@@ -113,7 +113,8 @@ def _phase1_program(u, v, w, n: int, k_cap: int, parallel: bool = True,
     with record_function("SORT_EFF"):
         perm_eff = sort_f32_desc_stable(eff, valid=edge_valid)
         rank_eff = torch.empty_like(perm_eff)
-        rank_eff[perm_eff] = torch.arange(perm_eff.shape[0], device=u.device)
+        rank_eff[perm_eff] = torch.arange(perm_eff.shape[0],
+                                          dtype=torch.int64, device=u.device)
     with record_function("MST"):
         tree_mask = boruvka_mst(u, v, rank_eff, n, edge_valid)
 

@@ -153,7 +153,7 @@ def _banded_swa(q, k, v, window: int):
     vc = v.reshape(b, nw, w, kvh, d).to(torch.float32)
     k2 = torch.cat([torch.roll(kc, 1, dims=1), kc], dim=2)
     v2 = torch.cat([torch.roll(vc, 1, dims=1), vc], dim=2)
-    pq = torch.arange(s, device=q.device).reshape(nw, w)
+    pq = torch.arange(s, dtype=torch.int64, device=q.device).reshape(nw, w)
     # chunk 0 has no previous chunk: its rolled positions are invalid
     prev = torch.roll(pq, 1, dims=0)
     prev[0] = -1
@@ -176,7 +176,7 @@ def _banded(q, k, qpos, kpos, causal, window) -> bool:
     if not (causal and window is not None and k.shape[1] == s
             and s % window == 0 and s >= 2 * window):
         return False
-    pos = torch.arange(s, device=qpos.device)
+    pos = torch.arange(s, dtype=torch.int64, device=qpos.device)
     return bool(torch.equal(qpos.to(pos.dtype), pos)
                 and torch.equal(kpos.to(pos.dtype), pos))
 

@@ -41,7 +41,7 @@ def bucket_rank_hist_plain(digits: torch.Tensor, chunk: int = 1024):
     dev = digits.device
     rank = torch.empty((m,), dtype=torch.int32, device=dev)
     carry = torch.zeros((NB,), dtype=torch.int64, device=dev)
-    buckets = torch.arange(NB, device=dev)
+    buckets = torch.arange(NB, dtype=torch.int64, device=dev)
     for s in range(0, m, chunk):
         ck = digits[s:s + chunk].to(torch.int64)
         onehot = (ck[:, None] == buckets[None, :]).to(torch.int64)

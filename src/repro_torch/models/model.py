@@ -20,8 +20,14 @@ frame features). Its surface:
     prefill(tokens, caches)         -> (last logits (B, V), caches)
     decode_step(tok, pos, caches)   -> (logits (B, V), caches)
     run_layers(x, positions)        -> (x, the MoE aux loss), the layers
+    run_layers(x, positions, moe_stats=list)
+                                    -> (x, 0); each MoE layer's router
+                                       statistics appended to the list
     encode(features)                -> logits (B, T, V)     [encoder]
     loss_fn(batch)                  -> (loss, metrics)      [train]
+    loss_fn(batch, den, moe_stats=list)
+                                    -> (CE, metrics), the statistics
+                                       collected             [train]
 
 The four decoder entries raise ValueError on an encoder, whose config
 has no decode step (`supports_decode`); `encode` raises on a decoder.
@@ -43,6 +49,15 @@ autograd records, wraps each layer in `torch.utils.checkpoint`
 `jax.checkpoint`: the backward runs the layer's forward again, its flash
 and rank kernels included. `loss_fn` is the reference's: CE + aux for a
 decoder, the masked CE over `labels` and `mask` for the encoder.
+
+A data shard of a batch cannot compute the batch's aux loss from its own
+rows: the loss couples every row through the router's statistics. With a
+`moe_stats` list, the layers hand out each MoE layer's (gsum, count)
+(`moe.router_stats`) in layer order instead of their losses, and the
+trainer assembles the whole batch's aux from every shard's statistics
+(`moe.aux_from_stats`, `train/train_step.py`). Under remat the
+statistics are outputs of the checkpointed layer, so the backward's
+gradient of gsum flows through the layer's recomputed forward.
 
 The model lives on the CUDA device unless `device` asks for another
 (`core.sparsify.resolve_device`): without a card the default raises, and
@@ -141,12 +156,12 @@ class Block(nn.Module):
 
     def run(self, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor,
             window: Optional[int], mode: str, cache: Optional[Dict] = None,
-            pos: Optional[int] = None
+            pos: Optional[int] = None, stats: bool = False
             ) -> Tuple[torch.Tensor, Optional[Dict], Optional[torch.Tensor]]:
         """mode: 'train' (full sequence), 'prefill' (also fills `cache`,
         in place) or 'decode' (one token at `pos` against `cache`).
         Returns (x, cache, the MoE layer's aux loss in 'train' mode, else
-        None)."""
+        None; with `stats`, its router statistics in the loss's place)."""
         args = (positions, window, mode, cache, pos)
         if cfg.has_attention and cfg.has_ssm:   # hybrid: parallel heads
             h_in = rmsnorm(x, self.attn_norm, cfg.norm_eps)
@@ -163,7 +178,8 @@ class Block(nn.Module):
         if self.has_mlp:
             h_in = rmsnorm(x, self.mlp_norm, cfg.norm_eps)
             if cfg.is_moe:
-                y, aux = self.mlp(cfg, h_in, with_aux=mode == "train")
+                y, aux = self.mlp(cfg, h_in, with_aux=mode == "train",
+                                  stats=stats)
             else:
                 y = mlp(self.mlp, h_in, cfg.act)
             x = x + y
@@ -269,33 +285,44 @@ class LM(nn.Module):
         x = rmsnorm(x, self.final_norm, self.cfg.norm_eps)
         return self._logits(x)
 
-    def run_layers(self, x: torch.Tensor, positions: torch.Tensor
+    def run_layers(self, x: torch.Tensor, positions: torch.Tensor,
+                   moe_stats: Optional[List] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
         """The layers in 'train' mode, the reference's `_run_layers_train`:
         (x, the MoE aux loss summed over layers over n_layers; 0 without
         MoE layers). With `cfg.remat`, while autograd records, each layer
         is a non-reentrant `torch.utils.checkpoint`: its activations are
-        recomputed in the backward."""
+        recomputed in the backward. With a `moe_stats` list, each MoE
+        layer's (gsum, count) is appended to it in layer order, and the
+        aux returned is 0."""
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         remat = self.cfg.remat and torch.is_grad_enabled()
+        stats = moe_stats is not None
         for blk, window in zip(self.layers, self.windows):
             if remat:
                 x, a = checkpoint(self._train_layer, blk, x, positions,
-                                  window, use_reentrant=False)
+                                  window, stats, use_reentrant=False)
             else:
-                x, a = self._train_layer(blk, x, positions, window)
-            if a is not None:
+                x, a = self._train_layer(blk, x, positions, window, stats)
+            if a is None:
+                continue
+            if stats:
+                moe_stats.append(a)
+            else:
                 aux = aux + a
         return x, aux / max(self.cfg.n_layers, 1)
 
     def _train_layer(self, blk: Block, x: torch.Tensor,
-                     positions: torch.Tensor, window: Optional[int]):
-        x, _, a = blk.run(self.cfg, x, positions, window, "train")
+                     positions: torch.Tensor, window: Optional[int],
+                     stats: bool = False):
+        x, _, a = blk.run(self.cfg, x, positions, window, "train",
+                          stats=stats)
         return x, a
 
     # ---------- train ----------
     def loss_fn(self, batch: Dict[str, torch.Tensor],
-                denominator: Optional[torch.Tensor] = None
+                denominator: Optional[torch.Tensor] = None,
+                moe_stats: Optional[List] = None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """The reference's `loss_fn`. A decoder's batch holds `tokens` and
         `labels` (B, S) and may hold a `mask`: (CE + aux, {loss, ce,
@@ -303,7 +330,9 @@ class LM(nn.Module):
         and `mask`: (the masked CE over the real vocab, {loss}). With
         `denominator` (a float32 scalar), the CE is the (masked) sum over
         it: a data shard's part of a whole batch's mean, whose token count
-        (or Σ mask, at least 1) `denominator` is."""
+        (or Σ mask, at least 1) `denominator` is. With a `moe_stats` list
+        (see `run_layers`), the MoE layers' statistics are appended to it
+        and the loss is the CE alone: the caller assembles the aux."""
         cfg = self.cfg
         if cfg.is_encoder:
             logits = self.encode(batch["features"])
@@ -311,12 +340,12 @@ class LM(nn.Module):
                                  cfg.real_vocab_size, denominator)
             return loss, {"loss": loss}
         x, positions = self._embed_inputs(batch["tokens"])
-        x, aux = self.run_layers(x, positions)
+        x, aux = self.run_layers(x, positions, moe_stats)
         x = rmsnorm(x, self.final_norm, cfg.norm_eps)
         ce = cross_entropy(self._logits(x), batch["labels"],
                            batch.get("mask"), cfg.real_vocab_size,
                            denominator)
-        loss = ce + aux
+        loss = ce if moe_stats is not None else ce + aux
         return loss, {"loss": loss, "ce": ce, "aux": aux}
 
     # ---------- encoder ----------

@@ -25,8 +25,15 @@ The port of `repro.models.moe`, function for function:
 
 The Switch-style load-balance loss is computed only where the caller asks
 for it (`with_aux`): serving never reads it, and skipping it changes no
-output. A model holds each layer's weights as an `MoE` module, whose
-call is `moe_ffn`, so a caller can hook a layer's inputs.
+output. With `stats`, the layer hands out its router statistics in the
+loss's place: `gsum`, the (E,) float32 sum of the gates over the rows
+and positions it saw (it keeps its gradient), and `count`, the (E,)
+float32 top-k counts (no gradient). The loss couples every row of the
+batch through them (`aux_from_stats`); dispatch and capacity are per
+sequence, so a data shard of the rows routes, keeps and drops exactly
+as the whole batch does, and only these two sums cross the shards. A
+model holds each layer's weights as an `MoE` module, whose call is
+`moe_ffn`, so a caller can hook a layer's inputs.
 """
 from __future__ import annotations
 
@@ -92,11 +99,42 @@ def dispatch_ranks(expert_idx: torch.Tensor, e: int) -> torch.Tensor:
     return bucket_ranks((flat_e + rows).reshape(-1), b * e).reshape(b, -1)
 
 
+def router_stats(gates_all: torch.Tensor, expert_idx: torch.Tensor,
+                 e: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(B, S, E) gates, (B, S, k) experts -> (gsum (E,) float32 with its
+    gradient, count (E,) float32 top-k counts, exact, with none)."""
+    gsum = gates_all.sum(dim=(0, 1))
+    flat = expert_idx.reshape(-1)
+    count = torch.zeros((e,), dtype=torch.float32,
+                        device=flat.device).index_add_(
+        0, flat, torch.ones(flat.shape, dtype=torch.float32,
+                            device=flat.device))
+    return gsum, count
+
+
+def aux_from_stats(cfg: ArchConfig, stats, tokens: int,
+                   n_layers: int) -> torch.Tensor:
+    """The load-balance loss of a whole batch of `tokens` = B·S positions
+    from its MoE layers' (gsum, count), summed over the data shards: per
+    layer coef·E·Σ_e density·frac with density = gsum / (B·S) and frac =
+    count / (B·S·k), summed over the layers in order, over `n_layers`,
+    as `LM.run_layers` averages the layers' losses."""
+    e, k = cfg.n_experts, cfg.moe_top_k
+    aux = None
+    for gsum, count in stats:
+        a = cfg.router_aux_coef * e * torch.sum(
+            (gsum / tokens) * (count / (tokens * k)))
+        aux = a if aux is None else aux + a
+    return aux / max(n_layers, 1)
+
+
 def moe_ffn(params: Dict, cfg: ArchConfig, x: torch.Tensor,
-            with_aux: bool = True
+            with_aux: bool = True, stats: bool = False
             ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """x: (B, S, d) -> (y (B, S, d) in x's dtype, the load-balance loss as
-    a float32 scalar, or None without `with_aux`)."""
+    a float32 scalar, or None without `with_aux`). With `stats`, the
+    second item is the layer's `router_stats` (gsum, count) instead of
+    the loss."""
     dt = x.dtype
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.moe_top_k
@@ -104,7 +142,9 @@ def moe_ffn(params: Dict, cfg: ArchConfig, x: torch.Tensor,
     gates_all, gate_vals, expert_idx = route(params, cfg, x)
 
     aux = None
-    if with_aux:   # Switch-style
+    if stats:
+        aux = router_stats(gates_all, expert_idx, e)
+    elif with_aux:   # Switch-style
         # adds of one constant: the same sum in any order, and no sync
         density = gates_all.mean(dim=(0, 1))
         frac = torch.zeros((e,), dtype=torch.float32, device=dev).index_add_(
@@ -156,7 +196,7 @@ def moe_ffn(params: Dict, cfg: ArchConfig, x: torch.Tensor,
 class MoE(nn.ParameterDict):
     """An MoE layer's weights (`init_moe`; no gradient unless a train
     state sets one) as a module whose call is `moe_ffn(self, cfg, x,
-    with_aux)`."""
+    with_aux, stats)`."""
 
     __call__ = nn.Module.__call__   # a ParameterDict refuses calls
 
@@ -165,6 +205,6 @@ class MoE(nn.ParameterDict):
                           for k, t in tensors.items()})
 
     def forward(self, cfg: ArchConfig, x: torch.Tensor,
-                with_aux: bool = True
+                with_aux: bool = True, stats: bool = False
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-        return moe_ffn(self, cfg, x, with_aux)
+        return moe_ffn(self, cfg, x, with_aux, stats)

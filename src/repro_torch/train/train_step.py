@@ -37,8 +37,22 @@ the reference's jitted step computes it whatever the sharding, and so do
 their gradients. The gradients are summed in float32 in mesh order (no
 atomics: two runs are bit-equal); `grad_sync_dtype` rounds the sum, the
 microbatch's gradient, as the reference's does, before it is added to the
-accumulator. An MoE config on more than one data shard raises
-ValueError: its capacity and aux loss are over the whole batch's rows.
+accumulator.
+
+MoE on the mesh: dispatch and capacity are per sequence (the reference's
+`_capacity` takes the row length, its ranks are vmapped over rows), so a
+data shard routes, keeps and drops its rows' pairs exactly as the whole
+batch does. Only the Switch aux loss couples the rows: its density and
+frac are the whole microbatch's. So each shard runs its forward first,
+handing out its MoE layers' router statistics (`LM.loss_fn(...,
+moe_stats=)`); the statistics are summed on the model's device in mesh
+order (a shard elsewhere sends its own there) and give the microbatch's
+aux (`moe.aux_from_stats`); then each shard takes its gradient of its CE
+plus its linear share of the aux, coef·E/(L·B·S)·Σ_l ⟨gsum_s,l, frac_l⟩
+(frac has no gradient; it goes back to the shard's device). The shards'
+shares add up to the aux and their gradients to its gradient. Every
+shard's forward graph lives until the last forward ends. The loss
+reported is the shards' CE summed plus the assembled aux.
 
 `grad_shard_specs` ({name: P}, `models.sharding.param_specs`' layout),
 on a mesh, makes the accumulator ZeRO-sharded: each data shard keeps
@@ -63,6 +77,7 @@ from torch import nn
 
 from repro_torch.ft.elastic import resolve_spec_for_mesh
 from repro_torch.launch.mesh import batch_axes_for
+from repro_torch.models import moe
 from repro_torch.models.model import LM
 from repro_torch.models.sharding import (Placed, block_slices,
                                          current_mesh, keep_axes)
@@ -164,8 +179,8 @@ class _LossOf(nn.Module):
         super().__init__()
         self.model = model
 
-    def forward(self, batch, denominator):
-        return self.model.loss_fn(batch, denominator)
+    def forward(self, batch, denominator, moe_stats=None):
+        return self.model.loss_fn(batch, denominator, moe_stats)
 
 
 def _canon(dev: torch.device) -> torch.device:
@@ -229,7 +244,9 @@ def make_train_step(model: LM, opt_cfg: OptConfig, micro_batches: int = 1,
                     grad_shard_specs: Optional[Dict] = None,
                     grad_sync_dtype: Optional[str] = None):
     """Returns train_step(state, batch) -> (state, metrics {"loss", "lr",
-    "grad_norm"}, float32 scalars on the model's device). `state` must be
+    "grad_norm"}, and for an MoE config "aux", the whole batch's Switch
+    aux loss (on a mesh the one assembled from the shards' statistics),
+    float32 scalars on the model's device). `state` must be
     `make_train_state(model)`'s (with "err" from
     `compression.init_error_state` when `compress` is 'topk' or 'int8');
     it is updated in place and returned. On a mesh (`use_mesh`) the batch
@@ -252,23 +269,62 @@ def make_train_step(model: LM, opt_cfg: OptConfig, micro_batches: int = 1,
                 state["err"][n].copy_(e)
         return grads
 
-    def shard_grads(names, leaves, rows, dev, den, copies):
-        """(loss, grads) of one data shard's rows on its device."""
+    def shard_loss(names, leaves, rows, dev, den, copies, stats):
+        """(loss, loss_fn's metrics, the leaves it reads) of one data
+        shard's rows on its device; `stats` (a list, or None) collects its
+        MoE statistics."""
         if dev == model.device:
-            loss, _ = model.loss_fn(rows, den)
-            use = leaves
-        else:
-            if dev not in copies:
-                copies[dev] = [p.detach().to(dev).requires_grad_(True)
-                               for p in leaves]
-            use = copies[dev]
-            loss, _ = torch.func.functional_call(
-                loss_of, {"model." + n: t for n, t in zip(names, use)},
-                (rows, den))
+            return (*model.loss_fn(rows, den, stats), leaves)
+        if dev not in copies:
+            copies[dev] = [p.detach().to(dev).requires_grad_(True)
+                           for p in leaves]
+        use = copies[dev]
+        loss, metrics = torch.func.functional_call(
+            loss_of, {"model." + n: t for n, t in zip(names, use)},
+            (rows, den, stats))
+        return loss, metrics, use
+
+    def grads_of(loss, use):
         grads = torch.autograd.grad(loss, use, allow_unused=True)
         # a leaf the loss does not read (hymba's ssm_norm) has zero grad
-        return loss.detach(), [torch.zeros_like(p) if g is None else g
-                               for p, g in zip(use, grads)]
+        return [torch.zeros_like(p) if g is None else g
+                for p, g in zip(use, grads)]
+
+    def shard_grads(names, leaves, mb, shards, per, den, copies, root,
+                    auxes):
+        """Per data shard in mesh order, (loss on `root`, grads); an MoE
+        config appends the microbatch's aux (on `root`) to `auxes`. On
+        more than one shard it runs every shard's forward first, then
+        assembles that aux (the module docstring), which a shard's loss
+        then leaves out."""
+        moe_mesh = model.cfg.is_moe and len(shards) > 1
+        fwd = []
+        for j, (_, dev) in enumerate(shards):
+            stats = [] if moe_mesh else None
+            loss, metrics, use = shard_loss(
+                names, leaves,
+                {k: x[j * per:(j + 1) * per].to(dev) for k, x in mb.items()},
+                dev, None if den is None else den.to(dev), copies, stats)
+            if not moe_mesh:       # one shard's graph alive at a time
+                if model.cfg.is_moe:
+                    auxes.append(metrics["aux"].detach().to(root))
+                yield loss.detach().to(root), grads_of(loss, use)
+                continue
+            fwd.append((loss, use, dev, stats))
+        if not moe_mesh:
+            return
+        tot = [(g.detach().to(root), c.to(root)) for g, c in fwd[0][3]]
+        for *_, stats in fwd[1:]:
+            tot = [(g0 + g.detach().to(root), c0 + c.to(root))
+                   for (g0, c0), (g, c) in zip(tot, stats)]
+        tokens = mb["labels"].numel()
+        cfg, n_layers = model.cfg, model.cfg.n_layers
+        auxes.append(moe.aux_from_stats(cfg, tot, tokens, n_layers))
+        for loss, use, dev, stats in fwd:
+            share = moe.aux_from_stats(
+                cfg, [(g, c.to(dev)) for (g, _), (_, c) in zip(stats, tot)],
+                tokens, n_layers)
+            yield loss.detach().to(root), grads_of(loss + share, use)
 
     def train_step(state: Dict, batch: Dict) -> Tuple[Dict, Dict]:
         mesh = current_mesh()
@@ -281,26 +337,17 @@ def make_train_step(model: LM, opt_cfg: OptConfig, micro_batches: int = 1,
         rows = next(iter(mbs[0].values())).shape[0]
         axes, shards = (((), [({}, root)]) if mesh is None
                         else _data_shards(mesh, rows))
-        if model.cfg.is_moe and len(shards) > 1:
-            raise ValueError(
-                f"{model.cfg.name} is MoE: its dispatch capacity and aux "
-                f"loss are over the whole batch, which {len(shards)} data "
-                f"shards would split; train it without a mesh")
         blocks = _grad_blocks(params, grad_shard_specs if mesh else None,
                               mesh, axes, shards, root)
         per = rows // len(shards)
-        acc, lsum, copies = None, None, {}
+        moe_mesh = model.cfg.is_moe and len(shards) > 1
+        acc, lsum, copies, auxes = None, None, {}, []
         for mb in mbs:
             # one shard takes loss_fn's own mean, the one-device step's
             den = _denominator(mb, root) if len(shards) > 1 else None
             part, mloss = None, None
-            for j, (_, dev) in enumerate(shards):
-                loss, grads = shard_grads(
-                    names, leaves,
-                    {k: x[j * per:(j + 1) * per].to(dev)
-                     for k, x in mb.items()}, dev,
-                    None if den is None else den.to(dev), copies)
-                loss = loss.to(root)
+            for loss, grads in shard_grads(names, leaves, mb, shards, per,
+                                           den, copies, root, auxes):
                 mloss = loss if mloss is None else mloss + loss
                 if part is None:
                     part = [[g[sl].to(bdev, torch.float32,
@@ -312,6 +359,8 @@ def make_train_step(model: LM, opt_cfg: OptConfig, micro_batches: int = 1,
                         for t, (sl, bdev) in zip(tiles, blocks[n]):
                             t.add_(g[sl].to(bdev))
                 del grads
+            if moe_mesh:           # the shards' losses are their CE
+                mloss = mloss + auxes[-1]
             lsum = mloss if lsum is None else lsum + mloss
             if micro_batches == 1:
                 acc = part
@@ -323,9 +372,11 @@ def make_train_step(model: LM, opt_cfg: OptConfig, micro_batches: int = 1,
                 for a, t in zip(a_tiles, tiles):
                     a.add_(t.to(sync_dt) if sync_dt is not None else t)
             del part
+        aux = sum(auxes[1:], auxes[0]) if auxes else None
         if micro_batches > 1:
             acc = [[a / micro_batches for a in tiles] for tiles in acc]
             lsum = lsum / micro_batches
+            aux = None if aux is None else aux / micro_batches
         acc = dict(zip(names, acc))
 
         if compress:
@@ -355,6 +406,9 @@ def make_train_step(model: LM, opt_cfg: OptConfig, micro_batches: int = 1,
                     g_b[key] = acc[n][b].to(root)
         _, _, om = adamw_update(p_b, g_b, dict(mu=mu_b, nu=nu_b,
                                                step=opt["step"]), opt_cfg)
-        return state, dict(loss=lsum, **om)
+        metrics = dict(loss=lsum, **om)
+        if aux is not None:
+            metrics["aux"] = aux
+        return state, metrics
 
     return train_step
