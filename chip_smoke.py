@@ -162,6 +162,21 @@ Phases, in order; any failed check exits non-zero:
      ('data', 'model') mesh, 6 steps; 12 losses within 1e-5 of 12
      unsharded steps); `compressed_psum` over 8 shards of cuda:0 (equal
      to its CPU run, within 0.05 of the exact sum); the serve_lm twin;
+  8b. dryrun: the dry-run tools (`launch/{graph_analysis,specs,dryrun}
+     .py`) held to the card: the card's `total_memory`; each operator
+     of `kernels/oplib.py` through the dispatcher against its raw ctypes
+     launch, host µs a call in turns (a granite decode step's 32 rank
+     calls may add at most 1 ms); each operator's fake (on meta copies)
+     against the kernel's outputs, shape, dtype and stride, at the flash,
+     MoE-rank, argsort and case3 MARK shapes; the dry-run's peak of the
+     mesh_train phase's unsharded phi3 step and of a full-depth phi3
+     prefill (B = 4 x 2,048) against `max_memory_allocated` above what
+     was held (within 20 %), the step's FLOPs against `FlopCounterMode`
+     on a second real step, apart from the peak (equal), beside the
+     kernels' work (`flops_work`); `analyze_program` of the donated service
+     program on CUDA tensors (an alias, no transfer); the records of
+     phi3 train_4k (traced in a process of its own) and lgrass case3_16k
+     on the 256-card mesh;
   9. engines: the reference's other engines of `lgrass_sparsify` on the
      card, on case1-3 and feeder4k: bfs_engine="levels", recovery="host",
      auto_lift_bound=True, use_euler_lca=False (the kernels' lifting
@@ -240,8 +255,10 @@ differentiates) counts its calls over phi3's five full-width steps, with
 flash_attention and flash_attention_bwd also carry
 `launches_mesh_train_path`: their launches a step of the mesh_train
 phase's unsharded, 4-shard and ZeRO steps, and with radix_hist
-`launches_mesh_moe_path`, the same for granite's MoE steps. Each
-phase prints its wall time. Imports nothing of JAX or of `repro`.
+`launches_mesh_moe_path`, the same for granite's MoE steps; and
+`launches_dryrun_path`, their launches in the dryrun phase's real phi3
+step and prefill (the meta traces launch nothing). Each phase prints
+its wall time. Imports nothing of JAX or of `repro`.
 """
 from __future__ import annotations
 
@@ -258,9 +275,13 @@ import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
-FP32_OPS_PER_S = 67e12      # H100 SXM non-tensor-core fp32/int32 rate
-BF16_OPS_PER_S = 989e12     # H100 SXM dense bf16 tensor-core rate
+sys.path.insert(0, os.path.join(ROOT, "src"))
+# the H100 SXM data sheet's rates (this module loads no kernel)
+from repro_torch.launch.mesh import HBM_BW as HBM_BYTES_PER_S  # noqa: E402
+from repro_torch.launch.mesh import \
+    PEAK_FLOPS_BF16 as BF16_OPS_PER_S  # noqa: E402
+from repro_torch.launch.mesh import \
+    PEAK_FLOPS_FP32 as FP32_OPS_PER_S  # noqa: E402
 CASES = ("case1", "case2", "case3")
 TIMED_CALLS = 3
 
@@ -786,28 +807,34 @@ def _walls(fn, calls: int = TIMED_CALLS) -> list:
 
 
 def _case3_kernels_vs_plain(dev, g, want):
-    """The case3 wall and busy share with the MARK/REC kernels and with
-    the plain loops on the card, in turns, in this one process."""
+    """The case3 wall with the MARK/REC kernels and with the plain loops
+    on the card, in turns, in this one process, and the busy share of
+    each under the profiler on its first turn: the plain loops' ~97,000
+    launches take the profiler a minute or more to sum, once is enough."""
     from repro_torch.core import lgrass_sparsify
 
     call = lambda: lgrass_sparsify(g, device=dev)  # noqa: E731
     out = {}
     for label in ("kernels", "plain", "plain", "kernels"):
         ctx = plain_loops() if label == "plain" else contextlib.nullcontext()
+        first = label not in out
         with ctx:
             check(np.array_equal(call().edge_mask, want),
                   f"case3 with the {label}: mask differs from the baseline")
             ts = _walls(call)
-            wall, busy, launches, _ = busy_profile(call)
+            if first:
+                wall, busy, launches, _ = busy_profile(call)
         clock = sm_clock()
-        out.setdefault(label, []).append(dict(
-            walls_ms=ts, profiled_wall_ms=wall, busy_ms=busy,
-            busy_share=busy / wall, launches=launches, sm_clock=clock))
+        run = dict(walls_ms=ts, sm_clock=clock)
+        if first:
+            run.update(profiled_wall_ms=wall, busy_ms=busy,
+                       busy_share=busy / wall, launches=launches)
+        out.setdefault(label, []).append(run)
         print(f"case3 wall with the {label}: median "
               f"{statistics.median(ts):.1f} ms of {[round(t, 1) for t in ts]}"
-              f"; profiled {wall:.1f} ms, device busy {busy:.2f} ms "
-              f"({100 * busy / wall:.1f} %), {launches} launches "
-              f"[clock {clock}]")
+              + (f"; profiled {wall:.1f} ms, device busy {busy:.2f} ms "
+                 f"({100 * busy / wall:.1f} %), {launches} launches"
+                 if first else "") + f" [clock {clock}]")
     return out
 
 
@@ -2453,17 +2480,34 @@ def _flash_inputs(dev, name, seed):
     return q, k, v, qp, kp, causal, window
 
 
+def _visible_pairs(q, k, qpos, kpos, causal, window) -> int:
+    """The (query, key) pairs that this run's positions leave visible. At
+    the model's own positions 0..S-1 it must equal
+    `flash_attention.visible_pairs`, the count of the dry-run's
+    `flops_work`: the bounds and the dry-run count one work."""
+    from repro_torch.kernels import flash_attention as fa
+
+    visible = int(fa.visible_mask(qpos, kpos, causal, window).sum())
+    sq, sk = q.shape[1], k.shape[1]
+    if (torch.equal(qpos.cpu().long(), torch.arange(sq))
+            and torch.equal(kpos.cpu().long(), torch.arange(sk))):
+        check(visible == fa.visible_pairs(sq, sk, causal, window),
+              f"flash visible pairs {visible} != visible_pairs")
+    return visible
+
+
 def _flash_bound(q, k, v, qpos, kpos, causal, window) -> tuple:
     """Bytes: q, k, v read once and out written once; operations: the two
     products over the visible (query, key) pairs of this run's positions
-    (4·d FLOP per pair and query head), at the dtype's peak rate."""
+    (`flash_attention.pair_flops` at FWD_PRODUCTS), at the dtype's peak
+    rate."""
     from repro_torch.kernels import flash_attention as fa
 
-    b, _, h, d = q.shape
-    visible = int(fa.visible_mask(qpos, kpos, causal, window).sum())
+    visible = _visible_pairs(q, k, qpos, kpos, causal, window)
     n_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
     rate = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else FP32_OPS_PER_S
-    return bound_ms(n_bytes, 4 * d * b * h * visible, rate)
+    return bound_ms(n_bytes, fa.pair_flops(q.shape, visible,
+                                           fa.FWD_PRODUCTS), rate)
 
 
 LSE_TOL = 1e-4  # atol = rtol of the forward's LSE against its plain one
@@ -3398,17 +3442,18 @@ def _bwd_inputs(dev, name, dtype, seed):
 def _flash_bwd_bound(q, k, v, qpos, kpos, causal, window) -> tuple:
     """Bytes: q, k, v, out and dout read once, dq, dk and dv written once;
     operations: the gradient's five products (S, dP, dV, dK, dQ) over the
-    visible (query, key) pairs of this run's positions, 10·d FLOP per pair
-    and query head, at the dtype's peak rate. The products that the
-    kernels compute twice (S and dP, in the dQ and the dK/dV kernel) are
-    not the function's work and are left out (`_flash_bwd_floor`)."""
+    visible (query, key) pairs of this run's positions
+    (`flash_attention.pair_flops` at BWD_PRODUCTS), at the dtype's peak
+    rate. The products that the kernels compute twice (S and dP, in the
+    dQ and the dK/dV kernel) are not the function's work and are left out
+    (`_flash_bwd_floor`)."""
     from repro_torch.kernels import flash_attention as fa
 
-    b, _, h, d = q.shape
-    visible = int(fa.visible_mask(qpos, kpos, causal, window).sum())
+    visible = _visible_pairs(q, k, qpos, kpos, causal, window)
     n_bytes = 4 * (q.numel() + k.numel()) * q.element_size()
     rate = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else FP32_OPS_PER_S
-    return bound_ms(n_bytes, 10 * d * b * h * visible, rate)
+    return bound_ms(n_bytes, fa.pair_flops(q.shape, visible,
+                                           fa.BWD_PRODUCTS), rate)
 
 
 def _flash_bwd_floor(q, k, qpos, kpos, causal, window) -> float:
@@ -3417,9 +3462,8 @@ def _flash_bwd_floor(q, k, qpos, kpos, causal, window) -> float:
     head, at the bf16 tensor-core rate."""
     from repro_torch.kernels import flash_attention as fa
 
-    b, _, h, d = q.shape
-    visible = int(fa.visible_mask(qpos, kpos, causal, window).sum())
-    return 14 * d * b * h * visible / BF16_OPS_PER_S * 1e3
+    visible = _visible_pairs(q, k, qpos, kpos, causal, window)
+    return fa.pair_flops(q.shape, visible, 7) / BF16_OPS_PER_S * 1e3
 
 
 def _check_flash_bwd(dev) -> dict:
@@ -4459,6 +4503,350 @@ def phase_mesh_train(dev, card) -> dict:
 AUDIT_SIGNATURE = dict(n=64, L=128, B=2)  # the CLI's standard programs
 
 
+# ------------------------------------------------------------- dryrun
+# the flash shapes whose kernel outputs the operators' fakes are held to
+DRYRUN_FLASH_CASES = ("phi3 prefill bf16", "granite prefill bf16",
+                      "hubert encode bf16", "phi3 prefill fp32")
+DRYRUN_PEAK_RTOL = 0.2      # the dry-run's peak against the card's
+DRYRUN_DECODE_RANK_CALLS = 32   # rank calls of a granite decode step
+DRYRUN_HOST_BUDGET_US = 1000.0  # the op layer's host time per such step
+DRYRUN_PROD_OUT = os.path.join(ROOT, "build", "dryrun_smoke")
+
+
+def _layout(x) -> tuple:
+    return tuple(x.shape), str(x.dtype), tuple(x.stride())
+
+
+def _on_meta(x):
+    """x as a meta tensor of its layout (anything else as it is)."""
+    if not torch.is_tensor(x):
+        return x
+    return torch.empty_strided(x.shape, x.stride(), dtype=x.dtype,
+                               device="meta")
+
+
+def _same_as_fake(name, real, fake) -> None:
+    real = real if isinstance(real, (tuple, list)) else (real,)
+    fake = fake if isinstance(fake, (tuple, list)) else (fake,)
+    want, got = [_layout(x) for x in real], [_layout(x) for x in fake]
+    print(f"dryrun fake {name}: kernel {want}, fake {got}")
+    check(want == got, f"dryrun: the fake of {name} differs from the "
+          f"kernel's outputs")
+
+
+def _dryrun_fakes(dev, case3) -> None:
+    """Each operator's fake (on meta copies of the inputs) against the
+    kernel's outputs on the card: shape, dtype and stride, at the flash
+    shapes, the MoE rank shapes, the argsort of case3's size and case3's
+    MARK."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import phase1, radix_hist
+
+    for name in DRYRUN_FLASH_CASES:
+        q, k, v, qp, kp, causal, window = _flash_inputs(dev, name, 0)
+        args = (q, k, v, qp, kp, causal, window)
+        meta = tuple(_on_meta(x) for x in args)
+        _same_as_fake(f"flash_fwd {name}", fa.FWD_OP(*args),
+                      fa.FWD_OP(*meta))
+        out, lse = fa.FWD_LSE_OP(*args)
+        _same_as_fake(f"flash_fwd_lse {name}", (out, lse),
+                      fa.FWD_LSE_OP(*meta))
+        bargs = (out, q, k, v, out, qp, kp, lse, causal, window)
+        _same_as_fake(f"flash_bwd {name}", fa.BWD_OP(*bargs),
+                      fa.BWD_OP(*(_on_meta(x) for x in bargs)))
+    rng = np.random.default_rng(29)
+    for name, (b, pairs, e) in MOE_RANK_CASES.items():
+        keys = (rng.integers(0, e, (b, pairs))
+                + np.arange(b)[:, None] * e).reshape(-1)
+        dt = torch.as_tensor(keys.astype(np.int32), device=dev)
+        _same_as_fake(f"bucket_rank_hist MoE {name}", radix_hist.RANK_OP(dt),
+                      radix_hist.RANK_OP(_on_meta(dt)))
+    keys = torch.as_tensor(rng.integers(0, 2 ** 32, case3.m), device=dev)
+    for hi in (None, keys.flip(0).contiguous()):
+        _same_as_fake(f"radix_argsort M={case3.m} "
+                      f"{'u32' if hi is None else 'pair'}",
+                      radix_hist.ARGSORT_OP(keys, hi),
+                      radix_hist.ARGSORT_OP(_on_meta(keys), _on_meta(hi)))
+    x = _mark_rec_inputs(case3, dev, False)
+    real = phase1.mark_cuda(x.t, x.su, x.sv, x.sbeta, x.layout, x.k_cap,
+                            x.euler)
+    fake = phase1.mark_cuda(
+        type(x.t)(*map(_on_meta, x.t)), _on_meta(x.su), _on_meta(x.sv),
+        _on_meta(x.sbeta), type(x.layout)(*map(_on_meta, x.layout)),
+        x.k_cap, type(x.euler)(*map(_on_meta, x.euler)))
+    _same_as_fake(f"mark case3 (L={case3.m})", real, fake)
+    torch.cuda.synchronize()
+
+
+def _op_host_us(fn, calls: int) -> float:
+    """Host µs per call of `calls` back-to-back calls, after one call and
+    a sync; the device work they enqueue is drained after the clock."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def _dryrun_host_time(dev, card, case3) -> dict:
+    """The operator layer's host time: each operator called through the
+    dispatcher against its CUDA implementation (the raw ctypes launch)
+    called directly on the same arguments, in 12 turns (op, raw, raw, op,
+    three times), host µs a call: the rank entry at M = 32 (a granite
+    decode step's call), the argsort at M = 32, phi3's flash forward with
+    and without LSE and its backward, and case3's MARK. The guard at each
+    launch (`oplib.check_launchable`) is in both; the added time a call
+    is the median op less the median raw, and its spread the range of
+    op - raw over the six pairs of turns in order."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import phase1, radix_hist
+
+    d = torch.zeros(32, dtype=torch.int32, device=dev)
+    keys = torch.arange(32, dtype=torch.int64, device=dev)
+    q, k, v, qp, kp, causal, window = _flash_inputs(dev, "phi3 prefill bf16",
+                                                    0)
+    fwd = (q, k, v, qp, kp, causal, window)
+    out, lse = fa.FWD_LSE_OP(*fwd)
+    bwd = (out, q, k, v, out, qp, kp, lse, causal, window)
+    x = _mark_rec_inputs(case3, dev, False)
+    engine, tabs, _, _ = phase1._engine(x.t, x.euler)
+    i32 = phase1._i32
+    mark = (engine, *tabs, i32(x.su), i32(x.sv), i32(x.sbeta),
+            i32(x.layout.group_start), i32(x.layout.gidx),
+            x.layout.active.contiguous(),
+            x.layout.n_groups.to(torch.int64).contiguous(),
+            (x.t.depth != phase1.INF).all(), x.k_cap, True)
+    cases = {
+        "bucket_rank_hist M=32": (radix_hist.RANK_OP, radix_hist._rank_launch,
+                                  (d,), 400),
+        "radix_argsort M=32": (radix_hist.ARGSORT_OP,
+                               radix_hist._argsort_launch, (keys, None),
+                               400),
+        "flash_fwd phi3": (fa.FWD_OP, lambda *a: fa._forward_launch(
+            *a, False)[0], fwd, 20),
+        "flash_fwd_lse phi3": (fa.FWD_LSE_OP, lambda *a: fa._forward_launch(
+            *a, True), fwd, 20),
+        "flash_bwd phi3": (fa.BWD_OP, fa._backward_launch, bwd, 10),
+        "mark case3": (phase1.MARK_OP, phase1._mark_launch, mark, 20)}
+    res = {}
+    for name, (op, raw, args, calls) in cases.items():
+        runs = {"op": [], "raw": []}
+        for which in ("op", "raw", "raw", "op") * 3:
+            fn = op if which == "op" else raw
+            runs[which].append(_op_host_us(lambda: fn(*args), calls))
+        op_us, raw_us = (statistics.median(runs[w]) for w in ("op", "raw"))
+        pairs = [o - r for o, r in zip(runs["op"], runs["raw"])]
+        res[name] = dict(op_us=op_us, raw_us=raw_us,
+                         added_us=op_us - raw_us,
+                         added_range_us=[min(pairs), max(pairs)],
+                         runs_us=runs)
+    step = DRYRUN_DECODE_RANK_CALLS * max(
+        res["bucket_rank_hist M=32"]["added_us"], 0.0)
+    res["granite decode step added_us"] = step
+    print(f"dryrun host time per call (operator vs its raw ctypes launch, "
+          f"in turns): {json.dumps(res)}; a granite decode step's "
+          f"{DRYRUN_DECODE_RANK_CALLS} rank calls add {step:.1f} us; "
+          f"card {card}")
+    check(step <= DRYRUN_HOST_BUDGET_US, f"dryrun: the op layer adds "
+          f"{step:.1f} us to a granite decode step (limit "
+          f"{DRYRUN_HOST_BUDGET_US:g})")
+    return res
+
+
+def _held_bytes(dev) -> int:
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated(dev)
+
+
+def _dryrun_vs_card(dev, card) -> dict:
+    """The dry-run's peak and FLOPs of the mesh_train phase's unsharded
+    phi3 step (MESH_DEPTH of 32 layers, B = MESH_BATCH x MESH_SEQ, fp32
+    state, bf16 activations, remat) and the peak of a full-depth phi3
+    prefill at B = 4 x 2,048 (bf16 weights, its caches), each traced on
+    meta tensors, against the card: `max_memory_allocated` over what was
+    held before the model was built, and the step's FLOPs by
+    `FlopCounterMode` on the real step."""
+    import dataclasses
+
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.launch.graph_analysis import analyze_program
+    from repro_torch.models.model import LM
+    from repro_torch.optim.optimizer import OptConfig
+    from repro_torch.train.train_step import (make_train_state,
+                                              make_train_step)
+
+    cfg = dataclasses.replace(get_arch(MESH_ARCH), n_layers=MESH_DEPTH)
+    opt = OptConfig(peak_lr=3e-4, warmup_steps=2, total_steps=100)
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=MESH_SEQ,
+                      global_batch=MESH_BATCH, seed=7)
+    cpu_batch = TokenPipeline(data, device="cpu").batch(0)
+    launches = {}
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    meta = LM(cfg, device="meta", param_dtype=torch.float32)
+    dry = analyze_program(make_train_step(meta, opt), make_train_state(meta),
+                          {k: _on_meta(x) for k, x in cpu_batch.items()})
+    dry_s = time.perf_counter() - t0
+    check(sum(ops.launch_counts().values()) == 0,
+          "dryrun: a meta trace launched a kernel")
+    base = _held_bytes(dev)
+    model = LM(cfg, generator=torch.Generator(dev).manual_seed(0),
+               device=dev, param_dtype=torch.float32)
+    state = make_train_state(model)
+    batch = {k: x.to(dev) for k, x in cpu_batch.items()}
+    step = make_train_step(model, opt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    state, metrics = step(state, batch)
+    loss = float(metrics["loss"])
+    torch.cuda.synchronize()
+    launches["step"] = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    # the FLOPs of a second step: FlopCounterMode's module tracker holds
+    # activations in reference cycles, so it runs apart from the peak
+    with FlopCounterMode(display=False) as counter:
+        state, metrics = step(state, batch)
+    flops = counter.get_total_flops()
+    del model, state, batch, step, metrics
+    rel = dry["peak_bytes"] / peak - 1
+    row = dict(step=dict(
+        config=f"{MESH_ARCH} {MESH_DEPTH} of 32 layers, B={MESH_BATCH} "
+               f"S={MESH_SEQ}", dry_peak_bytes=dry["peak_bytes"],
+        card_peak_bytes=peak, peak_rel=rel, dry_flops=dry["flops"],
+        dry_flops_work=dry["flops_work"], card_flops=flops, trace_s=dry_s,
+        loss=loss))
+    print(f"dryrun {MESH_ARCH} step ({MESH_DEPTH} layers, B={MESH_BATCH} "
+          f"S={MESH_SEQ}): peak dry-run {dry['peak_bytes'] / 1e9:.3f} GB, "
+          f"card {peak / 1e9:.3f} GB (rel. {rel:+.4f}); FLOPs dry-run "
+          f"{dry['flops']:.6e}, card {flops:.6e} (kernels' work "
+          f"{dry['flops_work']:.6e}); traced in {dry_s:.1f} s; "
+          f"launches {launches['step']}; card {card}")
+    check(np.isfinite(loss), f"dryrun: step loss {loss}")
+    check(abs(rel) <= DRYRUN_PEAK_RTOL, f"dryrun: step peak {rel:+.3f}")
+    check(dry["flops"] == flops, "dryrun: step FLOPs differ from the card's")
+
+    full = get_arch(LM_ARCH)
+    b, s = 4, 2048
+    tokens = torch.randint(0, full.vocab_size, (b, s), dtype=torch.int32,
+                           generator=torch.Generator().manual_seed(5))
+    t0 = time.perf_counter()
+    meta = LM(full, device="meta")
+    with torch.no_grad():
+        dry = analyze_program(lambda p, t, c: meta.prefill(t, c),
+                              dict(meta.named_parameters()),
+                              _on_meta(tokens), meta.init_caches(b, s))
+    dry_s = time.perf_counter() - t0
+    base = _held_bytes(dev)
+    model = LM(full, generator=torch.Generator(dev).manual_seed(0),
+               device=dev)
+    caches = model.init_caches(b, s)
+    tokens = tokens.to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        logits, _ = model.prefill(tokens, caches)
+    torch.cuda.synchronize()
+    launches["prefill"] = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    finite = bool(torch.isfinite(logits).all())
+    del model, caches, logits
+    _held_bytes(dev)
+    rel = dry["peak_bytes"] / peak - 1
+    row["prefill"] = dict(config=f"{LM_ARCH} {full.n_layers} layers, "
+                                 f"B={b} S={s}",
+                          dry_peak_bytes=dry["peak_bytes"],
+                          card_peak_bytes=peak, peak_rel=rel,
+                          dry_flops=dry["flops"], trace_s=dry_s)
+    print(f"dryrun {LM_ARCH} prefill ({full.n_layers} layers, B={b} "
+          f"S={s}): peak "
+          f"dry-run {dry['peak_bytes'] / 1e9:.3f} GB, card "
+          f"{peak / 1e9:.3f} GB (rel. {rel:+.4f}); traced in {dry_s:.1f} s; "
+          f"launches {launches['prefill']}; card {card}")
+    check(finite, "dryrun: prefill logits not finite")
+    check(abs(rel) <= DRYRUN_PEAK_RTOL, f"dryrun: prefill peak {rel:+.3f}")
+    row["launches"] = launches
+    return row
+
+
+def _dryrun_donation(dev) -> dict:
+    """`analyze_program` of the donated service program on CUDA tensors:
+    the tree mask handed back in `edge_valid`'s storage, and no copy from
+    the host."""
+    from repro_torch.analysis.graph_audit import audit_graphs
+    from repro_torch.launch.graph_analysis import analyze_program
+    from repro_torch.serve.sparsify_service import SparsifyService
+
+    svc = SparsifyService(donate=True, device=dev)
+    spec = svc.program_specs([(64, 128)], batch_sizes=(2,))[0]
+    (b, length), _ = spec.args[0]
+    args = audit_graphs(spec.static_kwargs["n"], length, b, device=dev) + (
+        torch.full((b,), spec.signature[3], dtype=torch.int32, device=dev),)
+    rep = analyze_program(spec.fn, *args, static_kwargs=spec.static_kwargs)
+    torch.cuda.synchronize()
+    keep = ("output_alias", "transfer_count", "transfer_sites",
+            "sync_count", "sync_sites", "flops", "mem_bytes", "peak_bytes",
+            "n_ops")
+    out = {k: rep[k] for k in keep}
+    print(f"dryrun donated program {spec.name} on {dev}: {json.dumps(out)}")
+    check(len(rep["output_alias"]) >= 1 and rep["transfer_count"] == 0,
+          "dryrun: the donated program reports no alias, or a transfer")
+    return out
+
+
+def phase_dryrun(dev, card, case3) -> dict:
+    """The dry-run tools on the card (launch/{graph_analysis,specs,
+    dryrun}.py): the operators' host time (first, before anything else
+    runs beside it), then the production record of phi3 train_4k on 256
+    cards traced in a process of its own while the fakes are held to the
+    kernels' outputs, the dry-run's peaks and FLOPs to the card's, the
+    donated program's alias; then lgrass case3_16k's record on the 256-card mesh
+    and phi3's. Returns the phase's numbers."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as M
+
+    props = torch.cuda.get_device_properties(0)
+    print(f"dryrun card memory: total_memory {props.total_memory} B "
+          f"(launch/mesh.HBM_BYTES {M.HBM_BYTES}); card {card}")
+    out = dict(total_memory=props.total_memory,
+               host=_dryrun_host_time(dev, card, case3))
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=os.path.join(ROOT, "src"))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "phi3-mini-3.8b", "--shape", "train_4k", "--mesh", "single",
+         "--force", "--out", DRYRUN_PROD_OUT], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        _dryrun_fakes(dev, case3)
+        out.update(_dryrun_vs_card(dev, card))
+        out["donation"] = _dryrun_donation(dev)
+        lg = dryrun.run_lgrass_cell("case3_16k", False, DRYRUN_PROD_OUT,
+                                    force=True)
+        log, _ = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    check(proc.returncode == 0, f"dryrun phi3 train_4k: {log[-3000:]}")
+    with open(os.path.join(DRYRUN_PROD_OUT,
+                           "phi3-mini-3.8b_train_4k_h100x256.json")) as f:
+        phi3 = json.load(f)
+    for rec in (phi3, lg):
+        print(f"dryrun record {rec['cell']}: {json.dumps(rec)}")
+    out["records"] = {r["cell"]: r for r in (phi3, lg)}
+    return out
+
+
 def phase_analysis(dev, card) -> dict:
     """The static-analysis package on the card: `python -m
     repro_torch.analysis --json` (the lint, the derived constants and
@@ -4589,6 +4977,9 @@ def main(argv) -> int:
         flash_ab(args.flash_ab)
         return 0
     if args.flash_time:
+        for name in [m for m in sys.modules
+                     if m == "repro_torch" or m.startswith("repro_torch.")]:
+            del sys.modules[name]
         sys.path.insert(0, args.flash_time)
         from repro_torch.kernels import flash_attention as fa
 
@@ -4602,7 +4993,6 @@ def main(argv) -> int:
             "flash_launches_by_route")}, source=fa.__file__, clock=sm_clock())
         print(json.dumps(t))
         return 0
-    sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.core import (baseline_sparsify, feeder_like_graph,
                                   official_case)
     from repro_torch.core import _host as H
@@ -4693,6 +5083,16 @@ def main(argv) -> int:
     report["radix_hist"]["launches_mesh_moe_path"] = \
         mesh_gains["radix_hist"]["moe"]
     print(f"phase mesh_train: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    dry = phase_dryrun(dev, card, graphs["case3"])
+    for entry, key in ((flash_entry, "flash_attention"),
+                       (bwd_entry, "flash_attention_bwd"),
+                       (report["radix_hist"], "radix_hist")):
+        entry["launches_dryrun_path"] = {
+            part: dry["launches"][part][key] for part in ("step", "prefill")}
+    print("dryrun numbers: " + json.dumps(
+        {k: v for k, v in dry.items() if k != "records"}))
+    print(f"phase dryrun: {time.perf_counter() - t0:.1f} s")
     masks = {k: b.edge_mask for k, b in base.items()}
     t0 = time.perf_counter()
     eng_counts, eng_rows = phase_engines(dev, graphs, masks, big, big_oracle)

@@ -242,22 +242,21 @@ def _blocks(L: int, c: int) -> int:
 
 SITES: Dict[str, Allow] = {
     "core/bfs.py:bfs_doubling": Allow(
-        lambda c: c.ecc + 2,
-        "`dist[root] = 0` reads the 0-d root (1; a 0-d index syncs on "
-        "the card too); the round "
-        "loop tests its fixpoint once a round, and every round is a full "
-        "Bellman-Ford relaxation, so after ecc rounds every depth is "
-        "final and round ecc + 1 sees no change"),
+        lambda c: c.ecc + 1,
+        "the round loop tests its fixpoint once a round, and every round "
+        "is a full Bellman-Ford relaxation, so after ecc rounds every "
+        "depth is final and round ecc + 1 sees no change (the root's "
+        "depth is written by a compare on the device, no 0-d index)"),
     "core/bfs.py:bfs_levels": Allow(
         lambda c: 2 * 2 + (c.ecc + 2) + (c.tdepth + 2),
         "two BFS per lane (the graph, then the tree's edges): 2 root "
         "writes each, and one frontier test per level: levels 0..ecc "
         "non-empty, then one empty (ecc + 2; tdepth + 2 on the tree)"),
     "core/bfs.py:root_tree_euler": Allow(
-        lambda c: 14,
-        "no loop: 3 reads of a 0-d index (root, s0) and 11 masked "
-        "gathers / scatters (is_first, in_tour, down) of data-dependent "
-        "length"),
+        lambda c: 13,
+        "no loop: 2 reads of a 0-d index (`first_arc[root]`, s0) and 11 "
+        "masked gathers / scatters (is_first, in_tour, down) of "
+        "data-dependent length"),
     "core/lca.py:tables_from_tour": Allow(
         lambda c: 2,
         "no loop: one masked scatter of the real tour positions"),

@@ -163,8 +163,9 @@ def bfs_doubling(u: torch.Tensor, v: torch.Tensor, n: int,
     ol = (pl != iota).to(torch.int64)
     pr = torch.where(hi_nbr >= 0, hi_nbr, iota)
     orr = (pr != iota).to(torch.int64)
-    dist = _full(n, INF, dev)
-    dist[root] = 0
+    # depth 0 at the root, written on the device: `dist[root] = 0` reads
+    # the 0-d root back and copies the 0 from the host
+    dist = torch.where(iota == root, 0, _full(n, INF, dev))
 
     def pull(dist, p, o):
         dp = dist[p]
@@ -225,8 +226,8 @@ def root_tree_euler(u: torch.Tensor, v: torch.Tensor, n: int,
 
     dev = u.device
     L = u.shape[0]
-    depth = _full(n, INF, dev)
-    depth[root] = 0
+    depth = torch.where(torch.arange(n, dtype=torch.int64, device=dev)
+                        == root, 0, _full(n, INF, dev))
     parent = _full(n, -1, dev)
     P = 2 * n - 1
     if L == 0:

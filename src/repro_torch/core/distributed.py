@@ -184,9 +184,11 @@ def _local_layout(gstart, active) -> tuple:
     start = torch.where(active, gstart.to(torch.int64), active.sum())
     head = start == iota
     gidx = torch.cumsum(head.to(torch.int64), dim=0) - 1
-    group_start = torch.full((m,), m, dtype=torch.int64,
-                             device=gstart.device)
-    group_start[gidx[head]] = iota[head]
+    # each head's slot at its group's index; the other slots write the
+    # spare last entry, so the shapes do not depend on the data
+    group_start = torch.full((m + 1,), m, dtype=torch.int64,
+                             device=gstart.device).scatter_(
+        0, torch.where(head, gidx, m), iota)[:m]
     return GroupLayout(perm=iota, gidx=gidx, group_start=group_start,
                        active=active, n_groups=gidx[-1] + 1), head
 

@@ -113,7 +113,7 @@ def build_group_layout(crit, hi, lo, crossing,
     perm = p1[p2]
     sh, sl = hi[perm], lo[perm]
     bnd = (sh != torch.roll(sh, 1)) | (sl != torch.roll(sl, 1))
-    bnd[0] = True
+    bnd[:1].fill_(True)  # a fill on the device, not a copy from the host
     gidx = torch.cumsum(bnd.to(torch.int64), dim=0) - 1
     iota = torch.arange(m, dtype=torch.int64, device=dev)
     group_start = torch.full((m,), m, dtype=torch.int64, device=dev)

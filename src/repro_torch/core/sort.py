@@ -77,7 +77,10 @@ def bucket_ranks(keys: torch.Tensor, n_buckets: int) -> torch.Tensor:
         return ops.bucket_rank_hist(keys.to(torch.int32).contiguous())[0]
     keys = keys.to(torch.int64)
     order = radix_argsort_u32(keys)
-    counts = torch.bincount(keys, minlength=n_buckets)
+    # each bucket's count, shape-static (bincount's length is the data's)
+    counts = torch.zeros((n_buckets,), dtype=torch.int64,
+                         device=keys.device).scatter_add_(
+        0, keys, torch.ones_like(keys))
     starts = torch.cumsum(counts, dim=0) - counts
     rank = torch.empty_like(order)
     rank[order] = torch.arange(keys.shape[0], dtype=torch.int64,

@@ -236,12 +236,12 @@ def _lgrass_program(u, v, w, budget: int, n: int, k_cap: int,
     with record_function("REC_ORDER"):
         rec = _rec_inputs(d, u, v, edge_valid)
     with record_function("REC"):
-        accepted, n_accepted = ops.recover(*rec, budget, b_cap, chunk,
-                                           euler)
+        accepted, _ = ops.recover(*rec, budget, b_cap, chunk, euler)
     return dict(
         tree_mask=d["tree_mask"],
         accepted=accepted,
-        n_accepted=torch.tensor(n_accepted, device=u.device),
+        # REC's count, summed on the device: no copy of it from the host
+        n_accepted=accepted.sum(),
         n_groups=d["n_groups"],
         n_overflow_groups=d["group_overflow"].sum(),
         n_dirty=rec[-1].sum(),

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import oplib
 # CUDA launches of the kernel since the last reset (kernels/ops.py).
 launches = 0
 
@@ -46,6 +47,7 @@ def bitmap_intersect_any_cuda(m1: torch.Tensor,
     if m1.shape != m2.shape:
         raise ValueError(f"shapes differ: {tuple(m1.shape)} vs "
                          f"{tuple(m2.shape)}")
+    oplib.check_launchable("bitmap_intersect", m1, m2)
     l, w = m1.shape
     out = torch.empty((l,), dtype=torch.bool, device=dev)
     if l == 0:

@@ -36,6 +36,19 @@ Two executions of the one function:
 
 `kernels/ops.py` picks between them by the tensors' device.
 
+The launches are operators (`kernels/oplib.py`): `flash_fwd`,
+`flash_fwd_lse` and `flash_bwd` in `torch.ops.repro_torch`, whose fakes
+give meta tensors the outputs' shapes and whose FLOP formulas
+(`torch.utils.flop_counter`) count what the plain version's products
+count on the CPU: 4·B·H·Sq·Sk·d forward, 8·B·H·Sq·Sk·d for the
+gradient, over the full square (`attention_flops`). That is the
+reference's convention, not the kernels' work: they skip the masked
+tiles, and the backward recomputes S. `WORK_FLOPS` gives each operator
+both counts; the kernels' work (`pair_flops` over `visible_pairs`, with
+`FWD_PRODUCTS` and `BWD_PRODUCTS`) is what a roofline divides by, and
+what `chip_smoke.py`'s bounds and `launch/graph_analysis.py`'s
+`flops_work` count.
+
 The gradient. `FlashAttention` is the autograd function of the CUDA
 path: its forward is `flash_attention_cuda`, which also writes each
 row's LSE of the scaled scores (natural log units, +inf for a row with
@@ -56,9 +69,14 @@ banded, as the reference's CPU path does.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
+import numpy as np
 import torch
+from torch.utils.flop_counter import register_flop_formula
+
+from repro_torch.kernels import oplib
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 80, 96, 128)
@@ -308,31 +326,41 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          window: Optional[int] = None,
                          return_lse: bool = False):
     """Launch the kernel that `cuda_route(q.dtype, d)` picks on the
-    current stream of q's device. q (B, Sq, H, d), k/v (B, Sk, Kv, d), any
-    strides with a unit stride on d (a tensor the kernel cannot read in
-    place is copied); qpos (Sq,), kpos (Sk,) integer positions. Returns a
-    contiguous (B, Sq, H, d) tensor; with return_lse, also the kernel's
-    (B, H, Sq) float32 LSE of each row's scaled scores (natural log units,
-    +inf for a row with no visible key; `flash_attention_lse_plain`)."""
+    current stream of q's device, through its operator
+    (`torch.ops.repro_torch.flash_fwd`, or `flash_fwd_lse` with
+    return_lse). q (B, Sq, H, d), k/v (B, Sk, Kv, d), any strides with a
+    unit stride on d (a tensor the kernel cannot read in place is copied);
+    qpos (Sq,), kpos (Sk,) integer positions. Returns a contiguous
+    (B, Sq, H, d) tensor; with return_lse, also the kernel's (B, H, Sq)
+    float32 LSE of each row's scaled scores (natural log units, +inf for a
+    row with no visible key; `flash_attention_lse_plain`). Meta tensors
+    get the operator's fake."""
     dev = q.device
     for name, x in (("q", q), ("k", k), ("v", v), ("qpos", qpos),
                     ("kpos", kpos)):
-        if x.device != dev or dev.type != "cuda":
+        if x.device != dev or not oplib.on_card_route(x):
             raise ValueError(f"{name} must be on q's CUDA device, got "
                              f"{x.device}")
     check_kernel_args(q, k, v, qpos, kpos, window)
-    route = cuda_route(q.dtype, q.shape[3])
     q, k, v = (x if _readable(x) else x.clone(
         memory_format=torch.contiguous_format) for x in (q, k, v))
     qpos = qpos.to(torch.int32).contiguous()
     kpos = kpos.to(torch.int32).contiguous()
+    op = FWD_LSE_OP if return_lse else FWD_OP
+    return op(q, k, v, qpos, kpos, causal, window)
+
+
+def _forward_launch(q, k, v, qpos, kpos, causal, window, return_lse):
+    oplib.check_launchable("flash_attention", q, k, v, qpos, kpos)
+    dev = q.device
+    route = cuda_route(q.dtype, q.shape[3])
     b, sq, h, d = q.shape
     sk, kvh = k.shape[1], k.shape[2]
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
            if return_lse else None)
     if out.numel() == 0:
-        return (out, lse) if return_lse else out
+        return out, lse
     from repro_torch.kernels._build import library
 
     lib = library()
@@ -357,7 +385,17 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
     launches[route] += 1
-    return (out, lse) if return_lse else out
+    return out, lse
+
+
+def _forward_fake(q, k, v, qpos, kpos, causal, window):
+    return q.new_empty(q.shape)
+
+
+def _forward_lse_fake(q, k, v, qpos, kpos, causal, window):
+    b, sq, h, _ = q.shape
+    return q.new_empty(q.shape), q.new_empty((b, h, sq),
+                                             dtype=torch.float32)
 
 
 def flash_attention_backward_plain(dout: torch.Tensor, q: torch.Tensor,
@@ -382,7 +420,8 @@ def flash_attention_backward_cuda(dout: torch.Tensor, q: torch.Tensor,
                                   lse: Optional[torch.Tensor] = None) -> tuple:
     """The gradient of `flash_attention_cuda` by the kernels that
     `cuda_bwd_route(q.dtype, d)` picks, launched in order on the current
-    stream of q's device: dout and out (B, Sq, H, d) and the forward's
+    stream of q's device through their operator
+    (`torch.ops.repro_torch.flash_bwd`; meta tensors get its fake): dout and out (B, Sq, H, d) and the forward's
     (B, H, Sq) float32 `lse` (`flash_attention_cuda(..., return_lse=True)`)
     beside the forward's inputs, each read through its strides (a tensor
     they cannot read in place is copied). Returns contiguous (dq, dk, dv)
@@ -395,7 +434,7 @@ def flash_attention_backward_cuda(dout: torch.Tensor, q: torch.Tensor,
     for name, x in (("dout", dout), ("q", q), ("k", k), ("v", v),
                     ("out", out), ("lse", lse), ("qpos", qpos),
                     ("kpos", kpos)):
-        if x.device != dev or dev.type != "cuda":
+        if x.device != dev or not oplib.on_card_route(x):
             raise ValueError(f"{name} must be on q's CUDA device, got "
                              f"{x.device}")
     check_kernel_args(q, k, v, qpos, kpos, window)
@@ -408,13 +447,20 @@ def flash_attention_backward_cuda(dout: torch.Tensor, q: torch.Tensor,
     if lse.shape != (b, h, sq) or lse.dtype != torch.float32:
         raise ValueError(f"lse must be ({b}, {h}, {sq}) float32, got "
                          f"{tuple(lse.shape)} {lse.dtype}")
-    route = cuda_bwd_route(q.dtype, d)
     q, k, v, out, dout = (x if _readable(x) else x.clone(
         memory_format=torch.contiguous_format)
         for x in (q, k, v, out, dout))
-    lse = lse.contiguous()
-    qpos = qpos.to(torch.int32).contiguous()
-    kpos = kpos.to(torch.int32).contiguous()
+    return BWD_OP(dout, q, k, v, out, qpos.to(torch.int32).contiguous(),
+                  kpos.to(torch.int32).contiguous(), lse.contiguous(),
+                  causal, window)
+
+
+def _backward_launch(dout, q, k, v, out, qpos, kpos, lse, causal, window):
+    oplib.check_launchable("flash_attention backward", dout, q, k, v, out,
+                           qpos, kpos, lse)
+    dev = q.device
+    b, sq, h, d = q.shape
+    route = cuda_bwd_route(q.dtype, d)
     sk, kvh = k.shape[1], k.shape[2]
     dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=dev)
     dk = torch.empty((b, sk, kvh, d), dtype=q.dtype, device=dev)
@@ -453,6 +499,93 @@ def flash_attention_backward_cuda(dout: torch.Tensor, q: torch.Tensor,
                            f"error {err}")
     bwd_launches[route] += 1
     return dq, dk, dv
+
+
+def _backward_fake(dout, q, k, v, out, qpos, kpos, lse, causal, window):
+    return q.new_empty(q.shape), k.new_empty(k.shape), k.new_empty(k.shape)
+
+
+_FWD_ARGS = ("Tensor q, Tensor k, Tensor v, Tensor qpos, Tensor kpos, "
+             "bool causal, int? window")
+FWD_OP = oplib.define(
+    f"flash_fwd({_FWD_ARGS}) -> Tensor",
+    lambda *a: _forward_launch(*a, False)[0], _forward_fake)
+FWD_LSE_OP = oplib.define(
+    f"flash_fwd_lse({_FWD_ARGS}) -> (Tensor, Tensor)",
+    lambda *a: _forward_launch(*a, True), _forward_lse_fake)
+BWD_OP = oplib.define(
+    "flash_bwd(Tensor dout, Tensor q, Tensor k, Tensor v, Tensor out, "
+    "Tensor qpos, Tensor kpos, Tensor lse, bool causal, int? window) -> "
+    "(Tensor, Tensor, Tensor)", _backward_launch, _backward_fake)
+
+
+# the products that the kernels must compute per (query, key) pair: the
+# forward's S = QKᵀ and O = PV; the backward's dP = dO Vᵀ, dV = PᵀdO,
+# dQ = dS K and dK = dSᵀQ, and S again, since P is not kept
+FWD_PRODUCTS = 2
+BWD_PRODUCTS = 5
+
+
+def pair_flops(q_shape, pairs: int, products: int) -> int:
+    """2·d FLOP per product, (query, key) pair and query head."""
+    b, _, h, d = q_shape
+    return 2 * products * b * h * d * pairs
+
+
+@functools.lru_cache(maxsize=None)
+def visible_pairs(sq: int, sk: int, causal: bool,
+                  window: Optional[int]) -> int:
+    """The (query, key) pairs that `visible_mask` leaves visible at the
+    positions 0..sq-1 and 0..sk-1, the model's own: a meta tensor's
+    positions hold no values to count."""
+    q = np.arange(sq, dtype=np.int64)
+    hi = np.minimum(q, sk - 1) if causal else np.full(sq, sk - 1)
+    lo = (np.maximum(q - window + 1, 0) if window is not None
+          else np.zeros(sq, dtype=np.int64))
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def attention_flops(q_shape, k_shape, products: int) -> int:
+    """2·B·H·Sq·Sk·d per product of two (Sq × d)·(d × Sk)-sized operands,
+    over the full square whatever the mask, as torch's SDPA formula and
+    the reference's HLO of its plain attention count."""
+    return pair_flops(q_shape, q_shape[1] * k_shape[1], products)
+
+
+@register_flop_formula([torch.ops.repro_torch.flash_fwd,
+                        torch.ops.repro_torch.flash_fwd_lse])
+def _forward_flops(q, k, *args, out_shape=None, **kwargs) -> int:
+    """The forward: the two products S = QKᵀ and O = PV."""
+    return attention_flops(q, k, 2)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_bwd)
+def _backward_flops(dout, q, k, *args, out_shape=None, **kwargs) -> int:
+    """The gradient's four products, dV = PᵀdO, dP = dO Vᵀ, dQ = dS K and
+    dK = dSᵀQ, as autograd of the plain version (and the reference's
+    jitted gradient) computes them; the kernels also recompute S, which
+    is not counted, so that the count is the same on every route."""
+    return attention_flops(q, k, 4)
+
+
+def _forward_counts(q, k, v, qpos, kpos, causal, window):
+    return (attention_flops(q.shape, k.shape, 2),
+            pair_flops(q.shape, visible_pairs(q.shape[1], k.shape[1],
+                                              causal, window),
+                       FWD_PRODUCTS))
+
+
+def _backward_counts(dout, q, k, v, out, qpos, kpos, lse, causal, window):
+    return (attention_flops(q.shape, k.shape, 4),
+            pair_flops(q.shape, visible_pairs(q.shape[1], k.shape[1],
+                                              causal, window),
+                       BWD_PRODUCTS))
+
+
+# operator -> f(its arguments) = (what its FLOP formula counts, the
+# kernels' work)
+WORK_FLOPS = {FWD_OP: _forward_counts, FWD_LSE_OP: _forward_counts,
+              BWD_OP: _backward_counts}
 
 
 class FlashAttention(torch.autograd.Function):

@@ -3,7 +3,11 @@
 A CUDA tensor goes to the hand-written kernel, and a failed build or
 launch raises; a CPU tensor goes to the kernel's plain PyTorch version.
 Nothing else decides the path: not whether a card is present, and there
-is no fallback from one to the other.
+is no fallback from one to the other. A meta tensor takes the card's
+route: the kernels registered as operators (`kernels/oplib.py`: the
+flash forward and backward, the rank entry, the radix argsort and MARK)
+answer it with their fakes, which is how the dry-run traces the card's
+program without one; the others raise at their launch.
 """
 from __future__ import annotations
 
@@ -31,6 +35,8 @@ _COUNTERS = {
 
 
 def _route(x: torch.Tensor) -> str:
+    if x.device.type == "meta":
+        return "cuda"
     if x.device.type in ("cuda", "cpu"):
         return x.device.type
     raise ValueError(f"no kernel path for device {x.device}")

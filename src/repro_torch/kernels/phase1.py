@@ -31,6 +31,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.bfs import INF
+from repro_torch.kernels import oplib
 
 # CUDA launches of each kernel since the last reset (kernels/ops.py).
 mark_launches = 0
@@ -86,6 +87,14 @@ def _check_cuda(dev, **tensors) -> None:
     for name, x in tensors.items():
         if x.device != dev or dev.type != "cuda":
             raise ValueError(f"{name} must be on the CUDA device {dev}")
+    oplib.check_launchable("rec", *tensors.values())
+
+
+def _check_card(dev, **tensors) -> None:
+    """As `_check_cuda` for an operator's caller: meta tensors pass."""
+    for name, x in tensors.items():
+        if x.device != dev or not oplib.on_card_route(x):
+            raise ValueError(f"{name} must be on the CUDA device {dev}")
 
 
 def _scratch(nbytes: int, dev):
@@ -95,16 +104,16 @@ def _scratch(nbytes: int, dev):
 
 def mark_cuda(t, su, sv, sbeta, layout, k_cap: int, euler=None,
               depth_skip: bool = True):
-    """Launch `csrc/mark.cu` on the current stream of the tensors' device.
-    t: LiftingTables; su, sv, sbeta: (L,) sorted slots; layout: the
-    GroupLayout; euler: the EulerLCA tables, or None for the lifting
-    climb; depth_skip False turns off the cover test's depth-difference
-    skip (`csrc/ball_pair.cuh`), which changes no decision. Returns
-    (accept (L,) bool per sorted slot, group_overflow (L,) bool per dense
-    group)."""
-    global mark_launches
+    """Launch `csrc/mark.cu` on the current stream of the tensors' device,
+    through its operator (`torch.ops.repro_torch.mark`; meta tensors get
+    its fake). t: LiftingTables; su, sv, sbeta: (L,) sorted slots;
+    layout: the GroupLayout; euler: the EulerLCA tables, or None for the
+    lifting climb; depth_skip False turns off the cover test's
+    depth-difference skip (`csrc/ball_pair.cuh`), which changes no
+    decision. Returns (accept (L,) bool per sorted slot, group_overflow
+    (L,) bool per dense group)."""
     dev = su.device
-    _check_cuda(dev, su=su, sv=sv, sbeta=sbeta, up=t.up,
+    _check_card(dev, su=su, sv=sv, sbeta=sbeta, up=t.up,
                 group_start=layout.group_start, active=layout.active,
                 n_groups=layout.n_groups)
     if k_cap < 1:
@@ -112,6 +121,21 @@ def mark_cuda(t, su, sv, sbeta, layout, k_cap: int, euler=None,
     m = su.shape[0]
     if m >= 2 ** 31 - 1:
         raise ValueError(f"{m} slots do not fit int32 indices")
+    engine, tabs, _, _ = _engine(t, euler)
+    return MARK_OP(engine, *tabs, _i32(su), _i32(sv), _i32(sbeta),
+                   _i32(layout.group_start), _i32(layout.gidx),
+                   layout.active.contiguous(),
+                   layout.n_groups.to(torch.int64).contiguous(),
+                   (t.depth != INF).all(), k_cap, depth_skip)
+
+
+def _mark_launch(engine, t0, t1, t2, t3, t4, su, sv, sb, gstart, gidx,
+                 active, n_groups, connected, k_cap, depth_skip):
+    global mark_launches
+    tabs = (t0, t1, t2, t3, t4)
+    oplib.check_launchable("mark", su, sv, sb, gstart, gidx, active,
+                           n_groups, connected, *tabs)
+    dev, m = su.device, su.shape[0]
     accept = torch.empty((m,), dtype=torch.bool, device=dev)
     overflow = torch.empty((m,), dtype=torch.bool, device=dev)
     if m == 0:
@@ -119,13 +143,7 @@ def mark_cuda(t, su, sv, sbeta, layout, k_cap: int, euler=None,
     from repro_torch.kernels._build import library
 
     lib = library()
-    engine, tabs, tlog, tn = _engine(t, euler)
-    su, sv, sb = _i32(su), _i32(sv), _i32(sbeta)
-    gstart = _i32(layout.group_start)
-    active = layout.active.contiguous()
-    gidx = _i32(layout.gidx)
-    n_groups = layout.n_groups.to(torch.int64).contiguous()
-    connected = (t.depth != INF).all()
+    tlog, tn = t0.shape if engine == LIFTING else t1.shape
     work = torch.empty((1,), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         scratch = _scratch(lib.mark_scratch_bytes(m), dev)
@@ -140,6 +158,20 @@ def mark_cuda(t, su, sv, sbeta, layout, k_cap: int, euler=None,
         raise RuntimeError(f"mark launch failed: CUDA error {err}")
     mark_launches += 1
     return accept, overflow
+
+
+def _mark_fake(engine, t0, t1, t2, t3, t4, su, *args):
+    m = su.shape[0]
+    return (su.new_empty((m,), dtype=torch.bool),
+            su.new_empty((m,), dtype=torch.bool))
+
+
+MARK_OP = oplib.define(
+    "mark(int engine, Tensor t0, Tensor t1, Tensor? t2, Tensor? t3, "
+    "Tensor? t4, Tensor su, Tensor sv, Tensor sbeta, Tensor group_start, "
+    "Tensor gidx, Tensor active, Tensor n_groups, Tensor connected, "
+    "int k_cap, bool depth_skip) -> (Tensor, Tensor)", _mark_launch,
+    _mark_fake)
 
 
 def walk_order(offtree: torch.Tensor, order: torch.Tensor):

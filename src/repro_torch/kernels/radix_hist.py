@@ -10,7 +10,10 @@ Two executions of each function live here:
     `csrc/radix_hist.cu` (onesweep: one histogram launch, then one pass
     per byte with a decoupled look-back), all in one C call, and
     `bucket_rank_hist_cuda` the same histogram launch plus one pass in
-    rank mode; each counts its calls in `launches`;
+    rank mode; each counts its calls in `launches`. Both go through
+    operators (`kernels/oplib.py`): `radix_argsort` and
+    `bucket_rank_hist`, whose fakes give a meta tensor the outputs'
+    shapes;
   * `radix_argsort_plain` composes stable counting passes of
     `bucket_rank_hist_plain`, the chunked one-hot scan of
     `repro.kernels.ref.bucket_rank_hist_ref` with a running per-bucket
@@ -25,6 +28,8 @@ import contextlib
 from typing import Optional
 
 import torch
+
+from repro_torch.kernels import oplib
 
 NB = 256
 # a count holds 30 bits in the kernel's look-back words
@@ -86,7 +91,7 @@ def _on(dev: torch.device):
 
 
 def _check_1d(x: torch.Tensor, dtype: torch.dtype, what: str) -> None:
-    if x.device.type != "cuda":
+    if not oplib.on_card_route(x):
         raise ValueError(f"{what} needs a CUDA tensor, got {x.device}")
     if x.dtype != dtype or x.dim() != 1:
         raise ValueError(f"{what} must be (M,) {dtype}, got {x.dtype} "
@@ -99,16 +104,24 @@ def _check_1d(x: torch.Tensor, dtype: torch.dtype, what: str) -> None:
 
 def radix_argsort_cuda(keys: torch.Tensor,
                        hi: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Launch `csrc/radix_hist.cu`'s argsort on the current stream: one C
-    call (a memset, the histogram launch, 4 or 8 pass launches) and one
-    scratch buffer. keys (and hi): contiguous (M,) int64 CUDA tensors
-    holding u32 values; only the low 32 bits are read."""
-    global launches
+    """`csrc/radix_hist.cu`'s argsort on the current stream, through its
+    operator (`torch.ops.repro_torch.radix_argsort`): one C call (a
+    memset, the histogram launch, 4 or 8 pass launches) and one scratch
+    buffer. keys (and hi): contiguous (M,) int64 CUDA tensors holding u32
+    values; only the low 32 bits are read. A meta tensor gets the
+    operator's fake."""
     _check_1d(keys, torch.int64, "radix_argsort_cuda keys")
     if hi is not None:
         _check_1d(hi, torch.int64, "radix_argsort_cuda hi")
         if hi.shape != keys.shape or hi.device != keys.device:
             raise ValueError("hi and keys must match in shape and device")
+    return ARGSORT_OP(keys, hi)
+
+
+def _argsort_launch(keys: torch.Tensor,
+                    hi: Optional[torch.Tensor]) -> torch.Tensor:
+    global launches
+    oplib.check_launchable("radix_argsort", keys, hi)
     m, dev = keys.shape[0], keys.device
     perm = torch.empty((m,), dtype=torch.int64, device=dev)
     if m == 0:
@@ -130,13 +143,25 @@ def radix_argsort_cuda(keys: torch.Tensor,
     return perm
 
 
+def _argsort_fake(keys: torch.Tensor,
+                  hi: Optional[torch.Tensor]) -> torch.Tensor:
+    return keys.new_empty((keys.shape[0],), dtype=torch.int64)
+
+
 def bucket_rank_hist_cuda(digits: torch.Tensor):
-    """The rank entry on the current stream: the histogram launch and one
-    pass in rank mode. digits: contiguous (M,) int32 CUDA tensor in
+    """The rank entry on the current stream, through its operator
+    (`torch.ops.repro_torch.bucket_rank_hist`): the histogram launch and
+    one pass in rank mode. digits: contiguous (M,) int32 CUDA tensor in
     [0, 256). Returns (rank (M,) int32, hist (256,) int32); hist is a view
-    of the call's scratch buffer."""
-    global launches
+    of the call's scratch buffer. A meta tensor gets the operator's
+    fake."""
     _check_1d(digits, torch.int32, "bucket_rank_hist_cuda digits")
+    return RANK_OP(digits)
+
+
+def _rank_launch(digits: torch.Tensor):
+    global launches
+    oplib.check_launchable("bucket_rank_hist", digits)
     m, dev = digits.shape[0], digits.device
     rank = torch.empty((m,), dtype=torch.int32, device=dev)
     if m == 0:
@@ -154,3 +179,15 @@ def bucket_rank_hist_cuda(digits: torch.Tensor):
         raise RuntimeError(f"radix rank launch failed: CUDA error {err}")
     launches += 1
     return rank, scratch[:NB]
+
+
+def _rank_fake(digits: torch.Tensor):
+    return (digits.new_empty((digits.shape[0],)),
+            digits.new_empty((NB,)))
+
+
+ARGSORT_OP = oplib.define("radix_argsort(Tensor keys, Tensor? hi) -> Tensor",
+                          _argsort_launch, _argsort_fake)
+RANK_OP = oplib.define(
+    "bucket_rank_hist(Tensor digits) -> (Tensor, Tensor)", _rank_launch,
+    _rank_fake)

@@ -37,6 +37,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch.kernels import oplib
 # CUDA launches of the spmv kernel and of the arc-sum kernel since the
 # last reset (kernels/ops.py).
 launches = 0
@@ -83,6 +84,7 @@ def _check_block(csr: ArcCSR, x: torch.Tensor, rows: int, name: str):
     if csr.n * x.shape[1] >= 2 ** 32:  # the kernels' lane index is 32-bit
         raise ValueError(f"n * P must be below 2^32, got {csr.n} * "
                          f"{x.shape[1]}")
+    oplib.check_launchable("spmv", x, *(t for t in csr if torch.is_tensor(t)))
 
 
 def spmv_csr_cuda(csr: ArcCSR, x: torch.Tensor) -> torch.Tensor:

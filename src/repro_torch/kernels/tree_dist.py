@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import oplib
 # CUDA launches of the kernel since the last reset (kernels/ops.py).
 launches = 0
 
@@ -48,6 +49,7 @@ def tree_dist_pairs_cuda(up: torch.Tensor, depth: torch.Tensor,
         raise ValueError(f"bad shapes up{tuple(up.shape)} "
                          f"depth{tuple(depth.shape)} a{tuple(a.shape)} "
                          f"b{tuple(b.shape)}")
+    oplib.check_launchable("tree_dist", up, depth, a, b)
     from repro_torch.kernels._build import library
 
     lib = library()

@@ -1,0 +1,484 @@
+"""The dry-run: the port of `repro.launch.dryrun`.
+
+For every (architecture × input shape × production mesh) cell, and the
+four LGRASS cases, it sizes the port's program for H100s without a card
+and without allocating: the model lives on the meta device, and one
+mesh entry's step is traced by `launch.graph_analysis.analyze_program`.
+Every kernel of the path takes its card route through its operator,
+whose fake answers the meta tensors (`kernels/oplib.py`), so what is
+counted is the card's program. Each record holds:
+
+  * the per-device FLOPs, bytes and peak live bytes of the traced step,
+    and whether that peak fits the card's memory (`fits`);
+  * the bytes the port's mesh moves between devices per step
+    (`collective_bytes_per_device`; see below);
+  * the three roofline terms on the H100 data sheet's rates
+    (`launch/mesh.py`), the compute term over the kernels' work
+    (`flops_work_per_device`: attention over its visible pairs), the
+    dominant one, and the model's FLOPs against what the working devices
+    compute (`flops_per_device`, the reference's convention);
+  * the bytes one device would hold in the reference's layout, from
+    `launch/specs.py` (`reference_layout_bytes_per_device`), beside the
+    traced peak of the port's own.
+
+The port's mesh step (`train/train_step.py`) computes on data shards
+only and keeps whole parameters on each: along 'model' only the first
+entry of each data coordinate works (`devices_with_work`), so the
+dry-run traces one working entry's step at its sizes: its rows of each
+microbatch (the batch split over `launch.mesh.batch_axes_for`'s axes),
+AdamW over the whole leaves, as the mesh's root runs it. The reference
+shards its leaves over 'data' (FSDP) and 'model' (tensor parallel),
+which the port's mesh step does not (ROADMAP Queue 1 item 14), so
+`reference_layout_bytes_per_device` is what that layout would hold: the
+blocks of the train state and the batch, or of the parameters, the
+caches and the batch. The step
+gathers each shard's float32 gradient on the root once per microbatch
+and copies the parameters to each other shard once per step; those
+bytes, which the root receives or sends, are the collective term, at the
+rate of the link that the data axes span. Serving cells have none: each
+data shard serves its own rows. An LGRASS cell traces one shard of
+`core.distributed.make_phase1_sharded` (one MARK call on its block); its
+collective term is the home entry's copies of the tables and the blocks
+to the other shards and of their results back.
+
+Artifacts land in `build/dryrun/<arch>_<shape>_<mesh>.json` at the root
+of the checkout.
+
+Usage:
+    python -m repro_torch.launch.dryrun --all [--mesh both] [--force]
+    python -m repro_torch.launch.dryrun --arch mamba2-370m --shape train_4k
+    python -m repro_torch.launch.dryrun --lgrass
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+import traceback
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.launch import mesh as M
+
+ARTIFACT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "..", "..", "..", "build", "dryrun")
+
+# the bytes of a float32 gradient or parameter element
+_F32 = 4
+# the accept table's width of an LGRASS cell, the reference's default
+K_CAP = 32
+
+
+def n_active_params(cfg) -> int:
+    """Params touched per token (MoE: top-k of experts), excl. embeddings."""
+    total = cfg.n_params()
+    emb = cfg.vocab_size * cfg.d_model * (1 if cfg.tie_embeddings else 2)
+    body = total - emb
+    if cfg.is_moe:
+        nmat = 3 if cfg.act == "swiglu" else 2
+        expert = cfg.n_layers * cfg.n_experts * nmat * cfg.d_model * cfg.d_ff
+        body = body - expert + expert * cfg.moe_top_k / cfg.n_experts
+    return int(body)
+
+
+def model_flops(cfg, shape) -> float:
+    na = n_active_params(cfg)
+    tokens = shape.global_batch * shape.seq_len
+    if shape.kind == "train":
+        return 6.0 * na * tokens
+    if shape.kind == "prefill":
+        return 2.0 * na * tokens
+    return 2.0 * na * shape.global_batch  # decode: one token per sequence
+
+
+def _axes(mesh, rows: int):
+    """(the batch axes of `rows` rows on `mesh` as a tuple, the data
+    shards they make)."""
+    ba = M.batch_axes_for(rows, mesh)
+    axes = () if ba is None else ((ba,) if isinstance(ba, str) else ba)
+    return tuple(axes), int(np.prod([mesh.shape[a] for a in axes],
+                                    dtype=np.int64))
+
+
+def _device_record() -> dict:
+    return dict(name=M.DEVICE_NAME, power_limit_w=M.POWER_LIMIT_W,
+                hbm_bytes=M.HBM_BYTES,
+                rates="data sheet (launch/mesh.py); not measured")
+
+
+def _roofline(flops: float, bytes_: float, coll: float, link_bw: float):
+    t_compute = flops / M.PEAK_FLOPS_BF16
+    t_memory = bytes_ / M.HBM_BW
+    t_coll = coll / link_bw if coll else 0.0
+    dominant = max((("compute", t_compute), ("memory", t_memory),
+                    ("collective", t_coll)), key=lambda kv: kv[1])[0]
+    return dict(t_compute_s=t_compute, t_memory_s=t_memory,
+                t_collective_s=t_coll, dominant=dominant,
+                roofline_fraction=(max(t_compute, 1e-30)
+                                   / max(t_compute, t_memory, t_coll,
+                                         1e-30)))
+
+
+def _save(rec: dict, outdir: str, path: str) -> dict:
+    os.makedirs(outdir, exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(rec, f, indent=2)
+    return rec
+
+
+def kernel_refusal(cfg, kind: str) -> Optional[str]:
+    """Why the card's program of a `kind` cell cannot run `cfg`, or None:
+    a flash head dim that no kernel takes (training, prefill and encode
+    run the flash kernel; decode attention is plain torch)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    if not cfg.has_attention or kind == "decode":
+        return None
+    d = (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+         if cfg.attn_type == "mla" else cfg.resolved_head_dim)
+    if d in fa.HEAD_DIMS:
+        return None
+    return (f"head dim {d} of the config padded for the mesh: no flash "
+            f"kernel takes it (kernels/flash_attention.HEAD_DIMS "
+            f"{fa.HEAD_DIMS})")
+
+
+def _meta_batch(cfg, rows: int, seq: int) -> dict:
+    meta = torch.device("meta")
+    if cfg.is_encoder:
+        return dict(features=torch.empty((rows, seq, cfg.feat_dim),
+                                         device=meta),
+                    labels=torch.empty((rows, seq), dtype=torch.int32,
+                                       device=meta),
+                    mask=torch.empty((rows, seq), dtype=torch.bool,
+                                     device=meta))
+    return dict(tokens=torch.empty((rows, seq), dtype=torch.int32,
+                                   device=meta),
+                labels=torch.empty((rows, seq), dtype=torch.int32,
+                                   device=meta))
+
+
+def _trace_train(cfg, local_rows: int, seq: int, micro: int):
+    from repro_torch.launch.graph_analysis import analyze_program
+    from repro_torch.models.model import LM
+    from repro_torch.optim.optimizer import OptConfig
+    from repro_torch.train.train_step import (make_train_state,
+                                              make_train_step)
+
+    model = LM(cfg, device="meta", param_dtype=torch.float32)
+    state = make_train_state(model)
+    step = make_train_step(model, OptConfig(), micro_batches=micro)
+    batch = _meta_batch(cfg, local_rows * micro, seq)
+    n_params = sum(p.numel() for p in model.parameters())
+    return analyze_program(step, state, batch, name="train_step"), n_params
+
+
+def _trace_serve(cfg, kind: str, local_rows: int, seq: int):
+    from repro_torch.launch.graph_analysis import analyze_program
+    from repro_torch.models.model import LM
+    from repro_torch.serve.serve_step import (make_decode_step,
+                                              make_prefill_step)
+
+    model = LM(cfg, device="meta")
+    params = dict(model.named_parameters())
+    meta = torch.device("meta")
+    with torch.no_grad():
+        if kind == "prefill" and cfg.is_encoder:
+            feats = _meta_batch(cfg, local_rows, seq)["features"]
+            return analyze_program(lambda p, f: model.encode(f), params,
+                                   feats, name="encode")
+        caches = model.init_caches(local_rows, seq)
+        if kind == "prefill":
+            tokens = torch.empty((local_rows, seq), dtype=torch.int32,
+                                 device=meta)
+            prefill = make_prefill_step(model)
+            return analyze_program(lambda p, t, c: prefill(t, c), params,
+                                   tokens, caches, name="prefill_step")
+        tok = torch.empty((local_rows, 1), dtype=torch.int32, device=meta)
+        decode = make_decode_step(model)
+        return analyze_program(lambda p, t, c: decode(t, seq - 1, c),
+                               params, tok, caches, name="decode_step")
+
+
+def _block_bytes(tree) -> int:
+    """The bytes of the first mesh entry's blocks of a LeafSpec tree."""
+    from repro_torch.launch.specs import LeafSpec
+
+    leaves = [x for x in torch.utils._pytree.tree_leaves(tree)
+              if isinstance(x, LeafSpec)]
+    return sum(int(np.prod(x.block, dtype=np.int64)) * x.dtype.itemsize
+               for x in leaves)
+
+
+def reference_layout_bytes(cfg, shape, mesh) -> int:
+    """One device's bytes in the reference's layout, from `launch/specs.py`:
+    the train state and the batch of a train cell; the parameters (FSDP
+    on 'data', as the reference serves), the caches and the batch of a
+    serving cell."""
+    from repro_torch.launch import specs as S
+    from repro_torch.models.model import LM
+
+    model = LM(cfg, device="meta")
+    if shape.kind == "train":
+        return (_block_bytes(S.state_specs(model, mesh)[0])
+                + _block_bytes(S.batch_specs(cfg, shape, mesh)))
+    params = _block_bytes(S.params_specs(model, mesh)[0])
+    if shape.kind == "prefill" and cfg.is_encoder:
+        return params + _block_bytes(S.batch_specs(cfg, shape, mesh))
+    caches = _block_bytes(S.cache_specs(model, shape, mesh))
+    if shape.kind == "prefill":
+        return params + caches + _block_bytes(
+            S.batch_specs(cfg, shape, mesh)["tokens"])
+    return params + caches + _block_bytes(
+        S.decode_token_specs(cfg, shape, mesh))
+
+
+def run_cell(arch: str, shape_name: str, multi_pod: bool,
+             outdir: str, force: bool = False,
+             micro_batches: Optional[int] = None) -> Optional[Dict]:
+    """One (arch × shape × mesh) cell, the reference's paper-faithful
+    baseline. micro_batches: a train cell's microbatches (default 8)."""
+    from repro_torch.configs import SHAPES, cell_skip_reason, get_arch
+
+    mesh_name = M.mesh_name(multi_pod)
+    tag = f"{arch}_{shape_name}_{mesh_name}"
+    path = os.path.join(outdir, f"{tag}.json")
+    if os.path.exists(path) and not force:
+        with open(path) as f:
+            return json.load(f)
+
+    cfg0 = get_arch(arch)
+    shape = SHAPES[shape_name]
+    if micro_batches is None:
+        # 8 microbatches: per-device microbatch 2 (single-pod) / 1
+        # (multi-pod), as the reference's default
+        micro_batches = 8 if shape.kind == "train" else 1
+    skip = cell_skip_reason(cfg0, shape)
+    if skip:
+        rec = dict(cell=tag, arch=arch, shape=shape_name, mesh=mesh_name,
+                   skipped=skip)
+        print(f"[dryrun] {tag}: SKIP ({skip})")
+        return _save(rec, outdir, path)
+
+    t0 = time.time()
+    mesh = M.make_production_mesh(multi_pod=multi_pod)
+    chips = len(mesh.devices)
+    cfg = cfg0.padded_for_mesh(M.TP_SIZE)
+    rows = shape.global_batch // (micro_batches if shape.kind == "train"
+                                  else 1)
+    axes, n_data = _axes(mesh, rows)
+    local = rows // n_data
+    refusal = kernel_refusal(cfg, shape.kind)
+    if refusal:
+        rec = dict(cell=tag, arch=arch, shape=shape_name, mesh=mesh_name,
+                   kind=shape.kind, chips=chips, cannot_run=refusal)
+        print(f"[dryrun] {tag}: CANNOT RUN ({refusal})")
+        return _save(rec, outdir, path)
+    if shape.kind == "train":
+        hlo, n_params = _trace_train(cfg, local, shape.seq_len,
+                                     micro_batches)
+        others = n_data - 1
+        exchange = {"grads->root": float(others * n_params * _F32
+                                         * micro_batches),
+                    "params->shards": float(others * n_params * _F32)}
+        counts = {"grads->root": others * micro_batches,
+                  "params->shards": others}
+    else:
+        hlo = _trace_serve(cfg, shape.kind, local, shape.seq_len)
+        exchange, counts = {}, {}
+
+    flops = float(hlo["flops"])
+    work = float(hlo["flops_work"])
+    bytes_ = float(hlo["mem_bytes"])
+    coll_bytes = float(sum(exchange.values())) + hlo["collective_bytes"]
+    peak = float(hlo["peak_bytes"])
+    mf = model_flops(cfg, shape)
+    rec = dict(
+        cell=tag, arch=arch, shape=shape_name, mesh=mesh_name,
+        kind=shape.kind, chips=chips,
+        micro_batches=micro_batches, batch_axes=list(axes),
+        local_rows=local, devices_with_work=n_data,
+        device=_device_record(),
+        trace_s=round(time.time() - t0, 1),
+        flops_per_device=flops,
+        flops_work_per_device=work,
+        bytes_per_device=bytes_,
+        bytes_upper_per_device=float(hlo["mem_bytes_upper"]),
+        bytes_dots_per_device=float(hlo["mem_bytes_dots"]),
+        collective_bytes_per_device=coll_bytes,
+        collectives={**exchange, **hlo["collective_by_kind"],
+                     **{f"n_{k}": v for k, v in counts.items()},
+                     **{f"n_{k}": v for k, v in
+                        hlo["collective_counts"].items()}},
+        memory=dict(peak_bytes=peak, hbm_bytes=M.HBM_BYTES,
+                    host_syncs=hlo["sync_count"],
+                    transfers=hlo["transfer_count"]),
+        peak_bytes_per_device=peak,
+        fits=peak <= M.HBM_BYTES,
+        reference_layout_bytes_per_device=reference_layout_bytes(
+            cfg, shape, mesh),
+        model_flops_global=mf,
+        useful_flop_ratio=mf / (flops * n_data) if flops else 0.0,
+        **_roofline(work, bytes_, coll_bytes,
+                    M.axis_bandwidth(mesh, axes) if axes else M.NVLINK_BW),
+    )
+    print(f"[dryrun] {tag}: ok in {rec['trace_s']}s | "
+          f"flops/dev={flops:.3e} bytes/dev={bytes_:.3e} "
+          f"coll/dev={coll_bytes:.3e} dominant={rec['dominant']} "
+          f"peak={peak / 2**30:.2f}GiB fits={rec['fits']}")
+    return _save(rec, outdir, path)
+
+
+def run_lgrass_cell(case_name: str, multi_pod: bool, outdir: str,
+                    force: bool = False) -> Optional[Dict]:
+    """The paper's own workload: one shard of the group-sharded phase 1
+    (`core.distributed.make_phase1_sharded`, sharded over every mesh
+    axis) at the case's (LOG, n) tables, LOG = ⌈log2(n + 1)⌉, and its
+    ⌈L / shards⌉ slots, with `K_CAP`."""
+    from repro_torch.configs.lgrass import CASES
+    from repro_torch.core.distributed import _local_phase1
+    from repro_torch.launch.graph_analysis import analyze_program
+
+    mesh_name = M.mesh_name(multi_pod)
+    tag = f"lgrass_{case_name}_{mesh_name}"
+    path = os.path.join(outdir, f"{tag}.json")
+    if os.path.exists(path) and not force:
+        with open(path) as f:
+            return json.load(f)
+
+    t0 = time.time()
+    case = CASES[case_name]
+    mesh = M.make_production_mesh(multi_pod=multi_pod)
+    n_shards = len(mesh.devices)
+    n, L = case.n_nodes, case.n_edges
+    log = max(1, (n + 1).bit_length())
+    lloc = (L + n_shards - 1) // n_shards
+    meta = torch.device("meta")
+
+    def i32(*shape):
+        return torch.empty(shape, dtype=torch.int32, device=meta)
+
+    args = (i32(log, n), i32(n), i32(lloc), i32(lloc), i32(lloc),
+            i32(lloc), torch.empty((lloc,), dtype=torch.bool, device=meta))
+    hlo = analyze_program(lambda *a: _local_phase1(*a, K_CAP), *args,
+                          name="phase1_shard")
+    # the home entry: the replicated tables and each block to the other
+    # shards, (accept, overflow) of each back
+    others = n_shards - 1
+    exchange = {"tables->shards": float(others * (log * n + n) * 4),
+                "blocks->shards": float(others * lloc * (4 * 4 + 1)),
+                "results->home": float(others * lloc * 2)}
+    flops = float(hlo["flops"])
+    bytes_ = float(hlo["mem_bytes"])
+    coll_bytes = float(sum(exchange.values()))
+    peak = float(hlo["peak_bytes"])
+    rec = dict(
+        cell=tag, arch="lgrass", shape=case_name, mesh=mesh_name,
+        kind="sparsify", chips=n_shards, k_cap=K_CAP, lift_levels=log,
+        local_slots=lloc, devices_with_work=n_shards,
+        device=_device_record(),
+        trace_s=round(time.time() - t0, 1),
+        flops_per_device=flops, flops_work_per_device=flops,
+        bytes_per_device=bytes_,
+        collective_bytes_per_device=coll_bytes,
+        collectives={**exchange, **{f"n_{k}": others for k in exchange}},
+        memory=dict(peak_bytes=peak, hbm_bytes=M.HBM_BYTES,
+                    host_syncs=hlo["sync_count"],
+                    transfers=hlo["transfer_count"]),
+        peak_bytes_per_device=peak,
+        fits=peak <= M.HBM_BYTES,
+        **_roofline(flops, bytes_, coll_bytes,
+                    M.axis_bandwidth(mesh, mesh.axis_names)),
+    )
+    print(f"[dryrun] {tag}: ok in {rec['trace_s']}s "
+          f"bytes/dev={bytes_:.3e} coll/dev={coll_bytes:.3e} "
+          f"dominant={rec['dominant']}")
+    return _save(rec, outdir, path)
+
+
+def summary_line(rec: dict) -> str:
+    """One markdown table row of a record: cell, peak GiB, fits, the
+    reference layout's GiB, the dominant term and its time, the working
+    devices."""
+    if "skipped" in rec or "cannot_run" in rec:
+        why = (f"skipped: {rec['skipped']}" if "skipped" in rec
+               else f"cannot run: {rec['cannot_run']}")
+        return f"| {rec['cell']} | {why} ||||||"
+    t = max(rec["t_compute_s"], rec["t_memory_s"], rec["t_collective_s"])
+    ref = rec.get("reference_layout_bytes_per_device")
+    return (f"| {rec['cell']} | {rec['peak_bytes_per_device'] / 2**30:.2f} "
+            f"| {'yes' if rec['fits'] else 'no'} "
+            f"| {'-' if ref is None else f'{ref / 2**30:.2f}'} "
+            f"| {rec['dominant']} | {t:.4g} "
+            f"| {rec['devices_with_work']} of {rec['chips']} |")
+
+
+def _run_one(arch: str, shape: str, multi_pod: bool, outdir: str,
+             force: bool):
+    """(record, None) or (None, the failure) of one cell."""
+    try:
+        if arch == "lgrass":
+            return run_lgrass_cell(shape, multi_pod, outdir, force), None
+        return run_cell(arch, shape, multi_pod, outdir, force), None
+    except Exception as e:
+        print(f"[dryrun] {arch}_{shape}_{M.mesh_name(multi_pod)}: "
+              f"FAIL {e!r}")
+        traceback.print_exc()
+        return None, (arch, shape, multi_pod, repr(e))
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default=None)
+    ap.add_argument("--shape", default=None)
+    ap.add_argument("--mesh", choices=["single", "multi", "both"],
+                    default="both")
+    ap.add_argument("--all", action="store_true")
+    ap.add_argument("--lgrass", action="store_true")
+    ap.add_argument("--force", action="store_true")
+    ap.add_argument("--out", default=os.path.abspath(ARTIFACT_DIR))
+    args = ap.parse_args(argv)
+
+    from repro_torch.configs import ARCHS, SHAPES
+    meshes = {"single": [False], "multi": [True],
+              "both": [False, True]}[args.mesh]
+
+    cells = []
+    if args.lgrass or args.all:
+        from repro_torch.configs.lgrass import CASES
+        for c in CASES:
+            for mp in meshes:
+                cells.append(("lgrass", c, mp))
+    if args.all:
+        for a in ARCHS:
+            for s in SHAPES:
+                for mp in meshes:
+                    cells.append((a, s, mp))
+    elif args.arch:
+        shapes = [args.shape] if args.shape else list(SHAPES)
+        for s in shapes:
+            for mp in meshes:
+                cells.append((args.arch, s, mp))
+
+    results = [_run_one(a, s, mp, args.out, args.force)
+               for a, s, mp in cells]
+    failures = [r[1] for r in results if r[1] is not None]
+    rows = [summary_line(r[0]) for r in results if r[0] is not None]
+    print("| cell | peak GiB / device | fits | reference layout GiB "
+          "| dominant | its time s | devices with work |")
+    print("|---|---|---|---|---|---|---|")
+    for row in rows:
+        print(row)
+    print(f"[dryrun] done; {len(failures)} failures")
+    if failures:
+        for f in failures:
+            print("  FAIL:", f)
+        sys.exit(1)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,20 +1,74 @@
-"""Meshes for training: the port of `repro.launch.mesh`'s host half.
+"""Meshes: the port of `repro.launch.mesh`.
 
 `make_host_mesh` is a 1-D 'data' mesh over the visible CUDA devices, or
 `n` shards of one named device (a card carries 4 shards of `cuda:0`, the
 CPU tests 8 of `cpu`), as `core.distributed.batch_mesh` builds them.
 `batch_axes_for` picks the mesh axes a global batch is split over.
+
+`make_production_mesh` is the reference's production cell laid over
+H100s: (16, 16) on ('data', 'model'), 256 cards ("h100x256"), or
+(2, 16, 16) on ('pod', 'data', 'model'), 512 cards ("h100x512"), with
+`TP_SIZE` = 16 on 'model', so `ArchConfig.padded_for_mesh(TP_SIZE)` and
+the `% 16` rules of `launch/specs.py` pad and shard cell for cell as the
+reference's do. It sizes and never runs: every entry is the meta device
+(`Mesh` allows repeats), for the dry-run (`launch/dryrun.py`), which
+traces one entry's program on meta tensors. Entries are row-major, and
+a node holds `NODE_SIZE` consecutive ones: an axis whose entries lie in
+one node is costed at the NVLink rate, any other at the rate across
+nodes (`axis_bandwidth`).
+
+The hardware constants are an NVIDIA H100 80GB HBM3 (SXM5) at its 700 W
+limit, from NVIDIA's data sheet, except `HBM_BYTES`, the `total_memory`
+that the card reports (`torch.cuda.get_device_properties(0)`, read on
+an NVIDIA H100 80GB HBM3 with a 700.00 W limit by `chip_smoke.py`).
+Importing this module loads no kernel: `chip_smoke.py` reads the rates
+here before it imports the rest of the package.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
-from repro_torch.core.distributed import Mesh, batch_mesh
+import numpy as np
+import torch
+
+TP_SIZE = 16  # 'model' axis extent on both production meshes
+NODE_SIZE = 8  # cards of one node, joined by NVLink
+
+# NVIDIA H100 80GB HBM3 (SXM5), 700 W, data sheet
+PEAK_FLOPS_BF16 = 989e12      # FLOP/s, dense
+PEAK_FLOPS_FP32 = 67e12       # FLOP/s, outside the tensor cores
+HBM_BW = 3.35e12              # B/s
+NVLINK_BW = 450e9             # B/s per direction, within a node of 8
+CROSS_NODE_BW = 50e9          # B/s per card per direction, across nodes
+# torch.cuda.get_device_properties(0).total_memory on an NVIDIA H100 80GB
+# HBM3, 700.00 W limit (chip_smoke.py's dryrun phase prints it)
+HBM_BYTES = 85_017_493_504
+DEVICE_NAME = "NVIDIA H100 80GB HBM3"
+POWER_LIMIT_W = 700.0
+
+PRODUCTION_MESHES = {False: ("h100x256", (16, 16), ("data", "model")),
+                     True: ("h100x512", (2, 16, 16),
+                            ("pod", "data", "model"))}
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The production cell as a sizing-only mesh: 256 (or, multi_pod,
+    512) entries, each the meta device. It sizes and never runs."""
+    from repro_torch.core.distributed import Mesh
+
+    _, shape, axes = PRODUCTION_MESHES[multi_pod]
+    return Mesh((torch.device("meta"),) * int(np.prod(shape)), axes, shape)
+
+
+def mesh_name(multi_pod: bool) -> str:
+    return PRODUCTION_MESHES[multi_pod][0]
 
 
 def make_host_mesh(n: Optional[int] = None, device=None) -> Mesh:
     """A ('data',) mesh: the distinct CUDA devices (all by default; raises
     without a card), or `n` shards of `device` where one is given."""
+    from repro_torch.core.distributed import batch_mesh
+
     return batch_mesh(n, axis="data", device=device)
 
 
@@ -33,3 +87,16 @@ def batch_axes_for(global_batch: int, mesh: Mesh):
     if not chosen:
         return None
     return tuple(chosen) if len(chosen) > 1 else chosen[0]
+
+
+def axis_bandwidth(mesh: Mesh, axes: Sequence[str]) -> float:
+    """B/s per card for traffic along `axes`: NVLink where the entries
+    that differ only on those axes lie in one node, else the rate
+    across nodes."""
+    sizes = dict(zip(mesh.axis_names, mesh.axis_sizes))
+    strides, step = {}, 1
+    for a in reversed(mesh.axis_names):
+        strides[a] = step
+        step *= sizes[a]
+    span = 1 + sum((sizes[a] - 1) * strides[a] for a in axes)
+    return NVLINK_BW if span <= NODE_SIZE else CROSS_NODE_BW

@@ -448,8 +448,16 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
     assert fa.launches == dict.fromkeys(fa.ROUTES, 0)
     with pytest.raises(ValueError):  # the CUDA entry refuses CPU tensors
         fa.flash_attention_cuda(q, k, v, torch.arange(8), torch.arange(8))
-    with pytest.raises(ValueError):
-        ops.flash_attention(q.to("meta"), k.to("meta"), v.to("meta"))
+    # a meta tensor takes the card's route to the operator's fake: the
+    # kernel's output layout, no launch; the launch itself refuses it
+    out = ops.flash_attention(q.to("meta"), k.to("meta"), v.to("meta"))
+    assert out.is_meta and out.shape == q.shape and out.is_contiguous()
+    assert fa.launches == dict.fromkeys(fa.ROUTES, 0)
+    with pytest.raises(RuntimeError, match="fake or meta"):
+        fa._forward_launch(q.to("meta"), k.to("meta"), v.to("meta"),
+                           torch.arange(8, dtype=torch.int32, device="meta"),
+                           torch.arange(8, dtype=torch.int32, device="meta"),
+                           True, None, False)
 
 
 def test_kernel_arg_checks_refuse_what_the_kernel_does_not_take():
@@ -785,10 +793,20 @@ def test_backward_kernel_refuses_what_it_does_not_take():
     with pytest.raises(ValueError):
         fa.flash_attention_backward_cuda(q, q, k, v, q, pos, pos, lse=lse)
     meta = [x.to("meta") for x in (q, k, v)]
-    with pytest.raises(ValueError):
-        fa.flash_attention_backward_cuda(meta[0], *meta, meta[0],
-                                         pos.to("meta"), pos.to("meta"),
-                                         lse=lse.to("meta"))
+    with pytest.raises(ValueError):     # a head dim no kernel takes
+        fa.flash_attention_backward_cuda(
+            *(torch.zeros(1, 8, 2, 24, device="meta"),) * 5, pos.to("meta"),
+            pos.to("meta"), lse=lse.to("meta"))
+    # meta tensors take the operator's fake: the kernels' contiguous
+    # outputs and no launch; the launch itself refuses them
+    grads = fa.flash_attention_backward_cuda(meta[0], *meta, meta[0],
+                                             pos.to("meta"), pos.to("meta"),
+                                             lse=lse.to("meta"))
+    assert [g.shape for g in grads] == [q.shape, k.shape, v.shape]
+    assert fa.bwd_launches == dict.fromkeys(fa.BWD_ROUTES, 0)
+    with pytest.raises(RuntimeError, match="fake or meta"):
+        fa._backward_launch(meta[0], *meta, meta[0], pos.to("meta"),
+                            pos.to("meta"), lse.to("meta"), True, None)
 
 
 def test_backward_refuses_a_missing_lse():

@@ -96,12 +96,19 @@ def test_ops_route_by_device_and_never_count_cpu_calls():
         "radix_hist": 0, "tree_dist": 0, "mark": 0, "rec": 0,
         "laplacian_spmv": 0, "arc_sum": 0, "bitmap_intersect": 0,
         "flash_attention": 0, "flash_attention_bwd": 0}
-    with pytest.raises(ValueError):
-        ops.bucket_rank_hist(torch.zeros(10, dtype=torch.int32,
-                                         device="meta"))
-    with pytest.raises(ValueError):
-        ops.radix_argsort_u32(torch.zeros(4, dtype=torch.int64,
-                                          device="meta"))
+    # a meta tensor takes the card's route to the operator's fake, which
+    # gives the kernel's outputs and launches nothing; the launch itself
+    # refuses it
+    rank, hist = ops.bucket_rank_hist(torch.zeros(10, dtype=torch.int32,
+                                                  device="meta"))
+    assert rank.shape == (10,) and hist.shape == (256,) and rank.is_meta
+    perm = ops.radix_argsort_u32(torch.zeros(4, dtype=torch.int64,
+                                             device="meta"))
+    assert perm.shape == (4,) and perm.dtype == torch.int64
+    assert ops.launch_counts()["radix_hist"] == 0
+    with pytest.raises(RuntimeError, match="fake or meta"):
+        radix_hist._rank_launch(torch.zeros(10, dtype=torch.int32,
+                                            device="meta"))
     with pytest.raises(ValueError):  # the CUDA entries refuse CPU tensors
         radix_hist.bucket_rank_hist_cuda(torch.zeros(4, dtype=torch.int32))
     with pytest.raises(ValueError):
