@@ -2110,33 +2110,117 @@ ESTIMATOR_PROBE_RUNS = 20
 CPU_REFERENCE_RUNS = 3
 
 
+def _stage_log(run) -> tuple:
+    """(the result, [(stage, sha1 of its bytes, float64 checksum)]) of one
+    CPU run of the estimator, each stage's output hashed as the run makes
+    it: the edge arrays the operator holds (the CPU path has no arc CSR:
+    its plain products scatter in edge order), the probes, the sqrt of
+    the weights, the lift, the degree, every spmv round in order, the
+    solve and the result. The stages are wrapped for the run alone."""
+    import hashlib
+
+    from repro_torch.core import spectral_probe as SP
+    from repro_torch.kernels import spmv as KS
+
+    log = []
+
+    def note(stage, t):
+        h = t.detach().contiguous().cpu()
+        log.append((stage, hashlib.sha1(h.numpy().tobytes()).hexdigest()[:16],
+                    float(h.double().sum())))
+        return t
+
+    def noted(stage, fn):
+        return lambda *a, **k: note(stage, fn(*a, **k))
+
+    real = dict(rad=SP._rademacher, sqrt=SP._sqrt_rn,
+                cheby=SP._solve_cheby, jacobi=SP._solve_jacobi,
+                op=SP.laplacian_operator, call=KS.LaplacianOperator.__call__,
+                lift=KS.LaplacianOperator.lift,
+                degree=KS.LaplacianOperator.degree)
+    rounds = []
+
+    def operator(u, v, w, n):
+        op = real["op"](u, v, w, n)
+        for name in ("u", "v", "w"):
+            note(f"operator.{name}", getattr(op, name))
+        return op
+
+    def call(self, x):
+        rounds.append(1)
+        return note(f"spmv {len(rounds)}", real["call"](self, x))
+
+    SP._rademacher = noted("probes", real["rad"])
+    SP._sqrt_rn = noted("sqrt", real["sqrt"])
+    SP._solve_cheby = noted("solve", real["cheby"])
+    SP._solve_jacobi = noted("solve", real["jacobi"])
+    SP.laplacian_operator = operator
+    KS.LaplacianOperator.__call__ = call
+    KS.LaplacianOperator.lift = lambda self, val: note(
+        "lift", real["lift"](self, val))
+    KS.LaplacianOperator.degree = lambda self: note(
+        "degree", real["degree"](self))
+    try:
+        r = run()
+    finally:
+        (SP._rademacher, SP._sqrt_rn, SP._solve_cheby, SP._solve_jacobi,
+         SP.laplacian_operator) = (real["rad"], real["sqrt"], real["cheby"],
+                                   real["jacobi"], real["op"])
+        KS.LaplacianOperator.__call__ = real["call"]
+        KS.LaplacianOperator.lift = real["lift"]
+        KS.LaplacianOperator.degree = real["degree"]
+    note("result", r)
+    return r, log
+
+
+def _first_parting(a, b) -> str:
+    """Where two stage logs of CPU runs first differ, in words."""
+    for (sa, ha, ca), (sb, hb, cb) in zip(a, b):
+        if sa != sb:
+            return f"the stages' order differs at {sa!r} / {sb!r}"
+        if ha != hb:
+            return (f"stage {sa!r} (sha1 {ha} vs {hb}, checksum {ca!r} vs "
+                    f"{cb!r}); every stage before it equal")
+    if len(a) != len(b):
+        return f"one run has {len(a)} stages, the other {len(b)}"
+    return "no stage (every stage's hash equal)"
+
+
 def _cpu_reference(run, tag, on_disagreement=None):
     """The CPU result the card is held against: one that two CPU runs give
     bit for bit, from at most CPU_REFERENCE_RUNS runs. The port's CPU
     estimator is deterministic in a fresh process, but late in this
-    script's process a first CPU run has three times not been repeated by
-    the next (ROADMAP Queue 3 item 1), so a reference is taken only once a
-    second run repeats it. A run that disagrees is printed (and
+    script's process a first CPU run has several times not been repeated
+    by the next (ROADMAP Queue 3 item 1), so a reference is taken only
+    once a second run repeats it. Each run logs a hash and a checksum of
+    every stage's output (`_stage_log`); a run that disagrees is printed
+    with the first stage at which it parts from run 1 (and
     on_disagreement called with the first run); no two runs agreeing
-    fails. Returns (the
-    result, the number of runs made)."""
-    runs = []
+    fails. Returns (the result, the number of runs made)."""
+    runs, logs = [], []
     while len(runs) < CPU_REFERENCE_RUNS:
-        r = run()
+        r, log = _stage_log(run)
         if any(torch.equal(r, q) for q in runs):
             if len(runs) > 1:
                 print(f"estimator {tag}: CPU runs disagreed; the reference "
                       f"is the one that two of {len(runs) + 1} runs gave")
+            else:
+                print(f"estimator {tag}: CPU runs 1 and 2 equal, every "
+                      f"stage's hash equal: "
+                      f"{all(x == y for x, y in zip(log, logs[0]))} "
+                      f"({len(log)} stages)")
             return r, len(runs) + 1
         if runs:
             rel = float(((r - runs[0]).abs()
                          / runs[0].abs().clamp_min(1e-30)).max())
             print(f"estimator {tag}: CPU run {len(runs) + 1} differs from "
                   f"run 1, max rel diff {rel:.3e} (CPU threads "
-                  f"{torch.get_num_threads()}, torch {torch.__version__})")
+                  f"{torch.get_num_threads()}, torch {torch.__version__}); "
+                  f"they part first at {_first_parting(logs[0], log)}")
             if on_disagreement is not None:
                 on_disagreement(runs[0])
         runs.append(r)
+        logs.append(log)
     check(False, f"{tag}: no two of {CPU_REFERENCE_RUNS} CPU runs agree")
 
 
@@ -3974,6 +4058,21 @@ MESH_PARITY_TOL = 1e-4      # fp32, depth 2: of each leaf's max
 MESH_FP32_REL_L2 = 1e-4     # fp32 at full width: each leaf, rel. L2
 MESH_PARITY_BATCH, MESH_PARITY_SEQ = 4, 128
 PSUM_SHARDS, PSUM_SIZE = 8, 1 << 16
+# tensor parallelism on 'model': ('data', 'model') meshes of cuda:0
+MESH_TP = {"tp4": (1, 4), "data2 tp2": (2, 2)}
+# the bf16 TP steps against the unsharded one, per arch: the worst
+# leaf's gradient and updated parameter (rel. L2) and the MoE aux (rel.).
+# The forward's sums round once (float32 partials,
+# `sharding.partial_product`), but a replicated input's gradient is the
+# sum of the entries' bf16 parts, and granite's combine rounds per add
+# unsharded and once under TP, so a few routings flip and their experts'
+# gradients move. Read on an NVIDIA H100 80GB HBM3 (700 W): phi3 1.7e-2
+# and 1.5e-3 on (1, 4) and (2, 2); granite 0.14, 2.5e-3 and 2.9e-5
+MESH_TP_LIMITS = {MESH_ARCH: dict(grad=4e-2, param=5e-3),
+                  MESH_MOE_ARCH: dict(grad=0.3, param=1e-2, aux=1e-4)}
+TP_SERVE_NEW = 32            # decode steps after the prefill
+TP_SERVE_FP32_TOL = 1e-4     # of the logits' largest magnitude, fp32
+TP_SERVE_BF16_REL_L2 = 5e-2  # the serving contract's, bf16
 
 
 def _uneven_mask(b, s, dev, seed=0):
@@ -4008,14 +4107,38 @@ def _rel_l2_leaves(got, want) -> float:
     return worst
 
 
-def _mesh_variants(mesh):
-    """(name, mesh, ZeRO accumulator) of the three steps compared."""
+def _mesh_variants(mesh, tp=()):
+    """(name, mesh, ZeRO accumulator) of the steps compared: unsharded, on
+    the data shards of `mesh`, with ZeRO, then the ('data', 'model')
+    meshes of the card named in `tp` (MESH_TP)."""
+    from repro_torch.core.distributed import Mesh
+
+    dev = mesh.devices[0]
     return (("unsharded", None, False),
             (f"data{MESH_SHARDS}", mesh, False),
-            (f"data{MESH_SHARDS} zero", mesh, True))
+            (f"data{MESH_SHARDS} zero", mesh, True)) + tuple(
+        (name, Mesh((dev,) * int(np.prod(MESH_TP[name])), ("data", "model"),
+                    MESH_TP[name]), False) for name in tp)
 
 
-def _mesh_full(dev, card, arch=MESH_ARCH, grad_limit=MESH_REL_L2) -> dict:
+def _mesh_launches(cfg, m) -> dict:
+    """A step's launches on mesh `m` (None: unsharded): the flash kernels
+    once per 'model' entry of each data shard, the rank entry once per
+    data shard (the MoE layer routes once there)."""
+    from repro_torch.launch.mesh import data_shards
+    from repro_torch.models.sharding import tp_family
+
+    base = _path_counts(cfg)
+    if m is None:
+        return base
+    n_data = len(data_shards(m, MESH_BATCH)[1])
+    tp = m.shape.get("model", 1) if tp_family(cfg) else 1
+    return {k: v * n_data * (1 if k == "radix_hist" else tp)
+            for k, v in base.items()}
+
+
+def _mesh_full(dev, card, arch=MESH_ARCH, grad_limit=MESH_REL_L2,
+               tp=tuple(MESH_TP)) -> dict:
     """`arch` (phi3, or granite's MoE) at full width, MESH_DEPTH layers,
     bf16 activations, remat, B = MESH_BATCH x MESH_SEQ: one step from a
     fresh state unsharded, on MESH_SHARDS data shards of the card, and
@@ -4027,8 +4150,12 @@ def _mesh_full(dev, card, arch=MESH_ARCH, grad_limit=MESH_REL_L2) -> dict:
     MESH_AUX_RTOL, and the mean of the shards' own auxes outside it);
     then per variant MESH_TIMED
     more steps timed and one profiled, with each step's launches. With
-    `grad_limit` None the gradient and parameter distances are printed,
-    not checked (granite's: `_mesh_moe`)."""
+    `grad_limit` None the data-shard steps' gradient and parameter
+    distances are printed, not checked (granite's: `_mesh_moe`). The
+    steps on the ('data', 'model') meshes named in `tp` are tensor
+    parallel: their loss is held as above, their gradients, parameters
+    and aux at `arch`'s MESH_TP_LIMITS; with phi3 the bf16 serving steps
+    follow (`_tp_serve`)."""
     import dataclasses
 
     from repro_torch.configs import get_arch
@@ -4090,13 +4217,12 @@ def _mesh_full(dev, card, arch=MESH_ARCH, grad_limit=MESH_REL_L2) -> dict:
               f"batch's ({own_rel:.3e}): the aux check cannot tell them "
               f"apart")
     rows, first = {}, None
-    for name, m, zero in _mesh_variants(mesh):
+    for name, m, zero in _mesh_variants(mesh, tp):
         load_train_state(state, start)
         torch.cuda.synchronize()
         held_gb = torch.cuda.memory_allocated() / 1e9
         torch.cuda.reset_peak_memory_stats()
-        shards = 1 if m is None else MESH_SHARDS
-        want = {k: v * shards for k, v in _path_counts(cfg).items()}
+        want = _mesh_launches(cfg, m)
         with use_mesh(m):
             step = make_train_step(model, opt, grad_shard_specs=(
                 param_specs(model) if zero else None))
@@ -4119,13 +4245,17 @@ def _mesh_full(dev, card, arch=MESH_ARCH, grad_limit=MESH_REL_L2) -> dict:
                 if i:
                     continue
                 aux = aux_cmp = None
+                tp_step = m is not None and "model" in m.axis_names
+                lim = (MESH_TP_LIMITS[arch] if tp_step else
+                       dict(grad=grad_limit, param=grad_limit))
+                aux_limit = lim.get("aux", MESH_AUX_RTOL)
                 if cfg.is_moe:
                     aux = float(metrics["aux"])
                     aux_rel = abs(aux - aux_whole) / abs(aux_whole)
-                    check(aux_rel <= MESH_AUX_RTOL,
+                    check(aux_rel <= aux_limit,
                           f"mesh_train {arch} {name}: the step's aux {aux} "
                           f"vs the whole batch's {aux_whole} (rel "
-                          f"{aux_rel:.2e}, limit {MESH_AUX_RTOL:g})")
+                          f"{aux_rel:.2e}, limit {aux_limit:g})")
                     aux_cmp = dict(aux=aux, aux_whole_batch=aux_whole,
                                    aux_rel=aux_rel,
                                    aux_mean_of_shards=aux_own,
@@ -4148,10 +4278,11 @@ def _mesh_full(dev, card, arch=MESH_ARCH, grad_limit=MESH_REL_L2) -> dict:
                      for k in out["params"]})
                 check(rel <= MESH_LOSS_RTOL, f"mesh_train {name}: loss "
                       f"{loss} vs unsharded {first['loss']} (rel {rel:.2e})")
-                check(grad_limit is None or (grad_l2 <= grad_limit
-                                             and param_l2 <= grad_limit),
-                      f"mesh_train {name}: gradient rel. L2 {grad_l2:.3e}, "
-                      f"params {param_l2:.3e} (limit {grad_limit})")
+                check(lim["grad"] is None or (
+                    grad_l2 <= lim["grad"] and param_l2 <= lim["param"]),
+                      f"mesh_train {arch} {name}: gradient rel. L2 "
+                      f"{grad_l2:.3e}, params {param_l2:.3e} (limits "
+                      f"{lim['grad']}, {lim['param']})")
                 cmp = dict(loss_rel=rel, grad_rel_l2_worst=grad_l2,
                            param_rel_l2_worst=param_l2,
                            update_rel_l2_worst=update_l2)
@@ -4181,6 +4312,8 @@ def _mesh_full(dev, card, arch=MESH_ARCH, grad_limit=MESH_REL_L2) -> dict:
           f"S={MESH_SEQ}): " + ", ".join(
               f"{k} {r['step_ms']:.1f}" for k, r in rows.items())
           + f"; card {card}")
+    if not cfg.is_moe:
+        rows["serve"] = _tp_serve(dev, card, model, fp32=False)
     del model, state, start, first
     torch.cuda.empty_cache()
     return rows
@@ -4377,13 +4510,16 @@ def _mesh_serve_twin() -> dict:
     return dict(launches=counts)
 
 
-def _mesh_fp32(dev, arch) -> dict:
+def _mesh_fp32(dev, arch, data=True, tp=("tp4",), card="") -> dict:
     """`arch` at full width, MESH_DEPTH layers, fp32 activations, remat,
-    B = MESH_BATCH x MESH_SEQ, one step from one state unsharded, on
-    MESH_SHARDS data shards and with the ZeRO accumulator: the loss
-    within 1e-5 and each gradient leaf (mu) within MESH_FP32_REL_L2 rel.
-    L2 of the unsharded step's; for MoE also the router's top-k of every
-    token in every layer's forward, equal on both."""
+    B = MESH_BATCH x MESH_SEQ, one step from one state unsharded, then
+    (with `data`) on MESH_SHARDS data shards and with the ZeRO
+    accumulator, and tensor parallel on the meshes named in `tp`: the
+    loss within 1e-5 and each gradient leaf (mu) and parameter within
+    MESH_FP32_REL_L2 rel. L2 of the unsharded step's; for MoE also the
+    router's top-k of every token in every layer's forward, equal on
+    both, and the step's aux within MESH_AUX_RTOL of the unsharded
+    step's. With phi3 the fp32 serving steps follow (`_tp_serve`)."""
     import dataclasses
 
     from repro_torch.configs import get_arch
@@ -4418,41 +4554,134 @@ def _mesh_fp32(dev, arch) -> dict:
     opt = OptConfig(peak_lr=3e-4, warmup_steps=2, total_steps=100)
     mesh = make_host_mesh(MESH_SHARDS, device=dev)
     out, first = {}, None
-    for name, m, zero in _mesh_variants(mesh):
+    variants = [v for v in _mesh_variants(mesh, tp)
+                if data or v[1] is None or "model" in v[1].axis_names]
+    for name, m, zero in variants:
         load_train_state(state, start)
         routes.clear()
         with use_mesh(m):
             _, met = make_train_step(model, opt, grad_shard_specs=(
                 param_specs(model) if zero else None))(state, batch)
         loss = float(met["loss"])
-        shards = 1 if m is None else MESH_SHARDS
+        aux = float(met["aux"]) if cfg.is_moe else None
+        from repro_torch.launch.mesh import data_shards
+
+        shards = 1 if m is None else len(data_shards(m, MESH_BATCH)[1])
         # each shard's forward routes, then the recompute's: the forward's
         # by layer over the rows
         fwd = [torch.cat([routes[j * cfg.n_layers + l]
                           for j in range(shards)])
                for l in range(cfg.n_layers)] if hooks else []
         mu = {k: t.clone() for k, t in state["opt"]["mu"].items()}
+        params = {k: t.detach().clone() for k, t in state["params"].items()}
         if first is None:
-            first = (loss, mu, fwd)
+            first = (loss, mu, fwd, params, aux)
             continue
         rel = abs(loss - first[0]) / abs(first[0])
+        aux_rel = None if aux is None else abs(aux - first[4]) / abs(first[4])
+        check(aux is None or aux_rel <= MESH_AUX_RTOL,
+              f"mesh_train fp32 {arch} {name}: aux {aux!r} vs the unsharded "
+              f"step's {first[4]!r} (rel {aux_rel}, limit {MESH_AUX_RTOL:g})")
         grad_l2 = _rel_l2_leaves(mu, first[1])
+        param_l2 = _rel_l2_leaves(params, first[3])
         flips = sum(int((torch.sort(a, -1).values
                          != torch.sort(b, -1).values).any(-1).sum())
                     for a, b in zip(fwd, first[2]))
-        check(rel <= 1e-5 and grad_l2 <= MESH_FP32_REL_L2 and flips == 0,
+        check(rel <= 1e-5 and grad_l2 <= MESH_FP32_REL_L2
+              and param_l2 <= MESH_FP32_REL_L2 and flips == 0,
               f"mesh_train fp32 {arch} {name}: loss rel {rel:.2e}, "
-              f"gradient rel. L2 {grad_l2:.3e} (limit "
-              f"{MESH_FP32_REL_L2:g}), tokens routed otherwise {flips}")
+              f"gradient rel. L2 {grad_l2:.3e}, params {param_l2:.3e} "
+              f"(limit {MESH_FP32_REL_L2:g}), tokens routed otherwise "
+              f"{flips}")
         out[name] = dict(loss_rel=rel, grad_rel_l2_worst=grad_l2,
-                         tokens_routed_otherwise=flips)
+                         param_rel_l2_worst=param_l2,
+                         tokens_routed_otherwise=flips, aux_rel=aux_rel)
     for h in hooks:
         h.remove()
     print(f"mesh_train fp32 {arch} ({cfg.n_layers} layers, full width, "
           f"B={MESH_BATCH} S={MESH_SEQ}) against the unsharded step: "
           f"{json.dumps(out)}")
+    if not cfg.is_moe:
+        out["serve"] = _tp_serve(dev, card, model, fp32=True)
     del model, state, start, first
     torch.cuda.empty_cache()
+    return out
+
+
+def _tp_serve(dev, card, model, fp32: bool) -> dict:
+    """`model`'s serving steps unsharded, then tensor parallel on (1, 4)
+    (`MESH_TP["tp4"]`) fed the unsharded run's tokens (so a near-tie
+    cannot make the runs part): the prefill of B = MESH_BATCH x MESH_SEQ,
+    then TP_SERVE_NEW decode steps. Every step's logits held to the
+    unsharded ones: in fp32 within TP_SERVE_FP32_TOL of their largest
+    magnitude, in bf16 within the serving contract's rel. L2
+    TP_SERVE_BF16_REL_L2. Prefill ms, decode ms a step, launches."""
+    from repro_torch.core.distributed import Mesh
+    from repro_torch.kernels import ops
+    from repro_torch.models.sharding import use_mesh
+    from repro_torch.serve import serve_step as ss
+
+    tag = "fp32" if fp32 else "bf16"
+    prompt = torch.randint(0, model.cfg.vocab_size, (MESH_BATCH, MESH_SEQ),
+                           dtype=torch.int32,
+                           generator=torch.Generator().manual_seed(21)).to(dev)
+    max_len = MESH_SEQ + TP_SERVE_NEW + 1
+    mesh = Mesh((dev,) * 4, ("data", "model"), MESH_TP["tp4"])
+
+    def run(m, feed=None):
+        with use_mesh(m), torch.no_grad():
+            caches = ss.init_caches(model, MESH_BATCH, max_len)
+            prefill, decode = (ss.make_prefill_step(model),
+                               ss.make_decode_step(model))
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            logits, caches = prefill(prompt, caches)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            launches = ops.launch_counts()
+            steps = [logits.float()]
+            toks = [torch.argmax(logits, -1).to(torch.int32)[:, None]]
+            for i in range(TP_SERVE_NEW):
+                tok = toks[-1] if feed is None else feed[i]
+                nxt, logits, caches = decode(tok, MESH_SEQ + i, caches)
+                steps.append(logits.float())
+                toks.append(nxt)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+        return dict(steps=steps, toks=toks, launches=launches,
+                    prefill_ms=(t1 - t0) * 1e3,
+                    decode_ms=(t2 - t1) * 1e3 / TP_SERVE_NEW)
+
+    base = run(None)
+    tp = run(mesh, feed=base["toks"])
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(base["steps"], tp["steps"])):
+        check(bool(torch.isfinite(b).all()), f"tp serve {tag}: step {i} "
+                                             f"logits not finite")
+        if fp32:
+            d = float((a - b).abs().max()) / max(float(a.abs().max()), 1e-30)
+        else:
+            d = _rel_l2(a, b)[0]
+        worst = max(worst, d)
+    limit = TP_SERVE_FP32_TOL if fp32 else TP_SERVE_BF16_REL_L2
+    want_flash = model.cfg.n_layers * int(np.prod(MESH_TP["tp4"]))
+    check(tp["launches"]["flash_attention"] == want_flash,
+          f"tp serve {tag}: prefill launches {tp['launches']}, not "
+          f"{want_flash} flash")
+    check(worst <= limit, f"tp serve {tag}: logits {worst:.3e} from the "
+                          f"unsharded ones (limit {limit:g})")
+    out = dict(worst=worst, limit=limit, measure=(
+        "max |diff| / max |logit|" if fp32 else "rel. L2"),
+        prefill_ms=tp["prefill_ms"], decode_ms=tp["decode_ms"],
+        prefill_ms_unsharded=base["prefill_ms"],
+        decode_ms_unsharded=base["decode_ms"],
+        launches_prefill=tp["launches"],
+        launches_prefill_unsharded=base["launches"])
+    print(f"mesh_train tp serve {model.cfg.name} {tag} ({model.cfg.n_layers}"
+          f" layers, B={MESH_BATCH} prefill S={MESH_SEQ}, {TP_SERVE_NEW} "
+          f"decode steps fed the unsharded tokens) on (1, 4) of {dev}: "
+          f"{json.dumps(out)}; card {card}")
     return out
 
 
@@ -4466,7 +4695,8 @@ def _mesh_moe(dev, card) -> tuple:
     MESH_FP32_REL_L2 and every token routed alike (`_mesh_fp32`); and
     the depth-2 fp32 parity (`_mesh_parity`)."""
     t0 = time.perf_counter()
-    rows = _mesh_full(dev, card, MESH_MOE_ARCH, grad_limit=None)
+    rows = _mesh_full(dev, card, MESH_MOE_ARCH, grad_limit=None,
+                      tp=("tp4",))
     fp32 = _mesh_fp32(dev, MESH_MOE_ARCH)
     parity = _mesh_parity(dev, MESH_MOE_ARCH)
     print(f"mesh_train {MESH_MOE_ARCH}: {time.perf_counter() - t0:.1f} s")
@@ -4475,28 +4705,42 @@ def _mesh_moe(dev, card) -> tuple:
 
 def phase_mesh_train(dev, card) -> dict:
     """Training on a mesh of the card (after phase_train): phi3's
-    full-width step unsharded, on MESH_SHARDS data shards and with the
-    ZeRO accumulator (`_mesh_full`), the depth-2 fp32 parity
-    (`_mesh_parity`), the same two for granite's MoE (`_mesh_moe`), the
-    elastic restart (`_mesh_elastic`), compressed_psum (`_mesh_psum`) and
-    the serve_lm twin. Returns per kernel its launches a step on the
-    dense mesh path ({variant: count}) and on the MoE one ({"moe":
-    {variant: count}})."""
+    full-width step unsharded, on MESH_SHARDS data shards, with the ZeRO
+    accumulator and tensor parallel on (1, 4) and (2, 2), then its bf16
+    serving steps on (1, 4) (`_mesh_full`); its fp32 step on (1, 4) and
+    the fp32 serving steps (`_mesh_fp32`); the depth-2 fp32 parity
+    (`_mesh_parity`); the same for granite's MoE, its TP step on (1, 4)
+    with its experts over 'model' (`_mesh_moe`); the elastic restart
+    (`_mesh_elastic`), compressed_psum (`_mesh_psum`) and the serve_lm
+    twin. Returns per kernel its launches a step on the dense mesh path
+    ({variant: count}), on the MoE one ({"moe": {variant: count}}) and on
+    the tensor-parallel one ({"tp": {variant: count}})."""
     t0 = time.perf_counter()
     rows = _mesh_full(dev, card)
+    tp_fp32 = _mesh_fp32(dev, MESH_ARCH, data=False, card=card)
     parity = _mesh_parity(dev)
     moe_rows, moe_parity = _mesh_moe(dev, card)
     elastic = _mesh_elastic(dev)
     psum = _mesh_psum(dev)
     twin = _mesh_serve_twin()
     wall = time.perf_counter() - t0
-    print(f"mesh_train numbers: {json.dumps(dict(runs=rows, parity=parity, moe_runs=moe_rows, moe_parity=moe_parity, elastic=elastic, psum=psum, serve_twin=twin, wall_s=wall, card=card))}")
+    serve = rows.pop("serve")
+    print(f"mesh_train numbers: {json.dumps(dict(runs=rows, tp_fp32=tp_fp32, tp_serve_bf16=serve, parity=parity, moe_runs=moe_rows, moe_parity=moe_parity, elastic=elastic, psum=psum, serve_twin=twin, wall_s=wall, card=card))}")
     out = {}
+    tp_names = set(MESH_TP)
     for kernel in ("flash_attention", "flash_attention_bwd", "radix_hist"):
         out[kernel] = {k: r["launches_per_step"][kernel]
-                       for k, r in rows.items()}
+                       for k, r in rows.items() if k not in tp_names}
         out[kernel]["moe"] = {k: r["launches_per_step"][kernel]
-                              for k, r in moe_rows.items()}
+                              for k, r in moe_rows.items()
+                              if k not in tp_names}
+        out[kernel]["tp"] = {
+            **{f"phi3 {k}": rows[k]["launches_per_step"][kernel]
+               for k in MESH_TP},
+            "granite tp4": moe_rows["tp4"]["launches_per_step"][kernel],
+            "phi3 tp4 prefill": serve["launches_prefill"][kernel],
+            "phi3 tp4 fp32 prefill":
+                tp_fp32["serve"]["launches_prefill"][kernel]}
     return out
 
 
@@ -4716,6 +4960,8 @@ def _dryrun_vs_card(dev, card) -> dict:
     with FlopCounterMode(display=False) as counter:
         state, metrics = step(state, batch)
     flops = counter.get_total_flops()
+    tp = _dryrun_tp_entry(dev, card, cfg, opt, cpu_batch, step, state, batch)
+    tp["unsharded_card_flops"] = flops
     del model, state, batch, step, metrics
     rel = dry["peak_bytes"] / peak - 1
     row = dict(step=dict(
@@ -4723,7 +4969,7 @@ def _dryrun_vs_card(dev, card) -> dict:
                f"S={MESH_SEQ}", dry_peak_bytes=dry["peak_bytes"],
         card_peak_bytes=peak, peak_rel=rel, dry_flops=dry["flops"],
         dry_flops_work=dry["flops_work"], card_flops=flops, trace_s=dry_s,
-        loss=loss))
+        loss=loss), tp_entry=tp)
     print(f"dryrun {MESH_ARCH} step ({MESH_DEPTH} layers, B={MESH_BATCH} "
           f"S={MESH_SEQ}): peak dry-run {dry['peak_bytes'] / 1e9:.3f} GB, "
           f"card {peak / 1e9:.3f} GB (rel. {rel:+.4f}); FLOPs dry-run "
@@ -4776,6 +5022,81 @@ def _dryrun_vs_card(dev, card) -> dict:
     check(abs(rel) <= DRYRUN_PEAK_RTOL, f"dryrun: prefill peak {rel:+.3f}")
     row["launches"] = launches
     return row
+
+
+def _dryrun_tp_entry(dev, card, cfg, opt, cpu_batch, step, state,
+                     batch) -> dict:
+    """One traced entry of the (1, 4) ('data', 'model') mesh
+    (`sharding.entry_model` + `traced_entry` on meta tensors) of the
+    mesh_train phase's phi3 step against that step on (1, 4) of the card,
+    by `FlopCounterMode` count. With remat's early stop off on both
+    sides, the four entries' traced FLOPs summed equal the card step's.
+    With it on (the real path), the one process that drives the four
+    entries recomputes the last products of the first three, which a
+    lone entry (and an entry on a card of its own) skips: the card step
+    then counts three entries with early stop off and one with it on.
+    Both are held. (With bf16 activations the two traced counts are
+    equal: a float32 partial product, `sharding.partial_product`, saves
+    its inputs once it has run, so the recompute runs it.) Replicated
+    work is counted per entry in the trace and once per data shard on
+    the card: here only the norms and the embedding lookup, which count
+    no FLOPs (phi3's 32 kv heads shard, and it has no router)."""
+    from torch.utils.checkpoint import set_checkpoint_early_stop
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.core.distributed import Mesh
+    from repro_torch.launch.graph_analysis import analyze_program
+    from repro_torch.models import sharding as sh
+    from repro_torch.models.model import LM
+    from repro_torch.train.train_step import (make_train_state,
+                                              make_train_step)
+
+    shape = MESH_TP["tp4"]
+    n = int(np.prod(shape))
+    t0 = time.perf_counter()
+    dry, on_card = {}, {}
+    for early in (False, True):
+        meta = sh.entry_model(LM(cfg, device="meta",
+                                 param_dtype=torch.float32), n)
+        with sh.use_entries(sh.traced_entry(n, "meta")), \
+                set_checkpoint_early_stop(early):
+            dry[early] = analyze_program(
+                make_train_step(meta, opt), make_train_state(meta),
+                {k: _on_meta(x) for k, x in cpu_batch.items()})
+    dry_s = time.perf_counter() - t0
+    for early in (False, True):
+        with sh.use_mesh(Mesh((dev,) * n, ("data", "model"), shape)), \
+                set_checkpoint_early_stop(early):
+            with FlopCounterMode(display=False) as counter:
+                step(state, batch)
+        on_card[early] = counter.get_total_flops()
+    entry, entry_es = dry[False]["flops"], dry[True]["flops"]
+    out = dict(mesh=list(shape), entry_flops=entry,
+               entries_flops=n * entry, card_flops=on_card[False],
+               entry_flops_early_stop=entry_es,
+               card_flops_early_stop=on_card[True],
+               entry_peak_bytes=dry[True]["peak_bytes"],
+               model_collective_bytes=dry[True]["model_collective_bytes"],
+               model_collective_counts=dry[True]["model_collective_counts"],
+               trace_s=dry_s)
+    print(f"dryrun tp entry {MESH_ARCH} step ({cfg.n_layers} layers, "
+          f"B={MESH_BATCH} S={MESH_SEQ}) on {tuple(shape)}: early stop "
+          f"off, one traced entry {entry:.6e} FLOPs x {n} = "
+          f"{n * entry:.6e}, the card's TP step {on_card[False]:.6e}; "
+          f"early stop on (the real path), {n - 1} entries off + one on "
+          f"= {(n - 1) * entry + entry_es:.6e}, the card's "
+          f"{on_card[True]:.6e} (replicated work counted per entry in the "
+          f"trace, once per data shard on the card: norms and the lookup, "
+          f"no FLOPs); its 'model' reductions "
+          f"{json.dumps(out['model_collective_counts'])}, "
+          f"{out['model_collective_bytes'] / 1e9:.3f} GB an entry; traced "
+          f"in {dry_s:.1f} s; card {card}")
+    check(n * entry == on_card[False],
+          "dryrun: the traced TP entries' FLOPs differ from the card's")
+    check((n - 1) * entry + entry_es == on_card[True],
+          "dryrun: with early stop, the traced TP entries' FLOPs differ "
+          "from the card's")
+    return out
 
 
 def _dryrun_donation(dev) -> dict:
@@ -5078,10 +5399,12 @@ def main(argv) -> int:
     mesh_gains = phase_mesh_train(dev, card)
     for entry in (flash_entry, bwd_entry):
         moe = mesh_gains[entry["name"]].pop("moe")
+        entry["launches_tp_path"] = mesh_gains[entry["name"]].pop("tp")
         entry["launches_mesh_train_path"] = mesh_gains[entry["name"]]
         entry["launches_mesh_moe_path"] = moe
     report["radix_hist"]["launches_mesh_moe_path"] = \
         mesh_gains["radix_hist"]["moe"]
+    report["radix_hist"]["launches_tp_path"] = mesh_gains["radix_hist"]["tp"]
     print(f"phase mesh_train: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     dry = phase_dryrun(dev, card, graphs["case3"])

@@ -10,8 +10,11 @@ Each one is an operator of the `repro_torch` library
     nothing else allocated. A meta tensor reaches it (the dry-run,
     `launch/dryrun.py`), and so does a tensor of a `FakeTensorMode`.
 
-A CPU tensor never reaches an operator: `kernels/ops.py` hands it to the
-kernel's plain version, so autograd on the CPU is unchanged. No fake
+A CPU tensor never reaches a kernel's operator: `kernels/ops.py` hands
+it to the kernel's plain version, so autograd on the CPU is unchanged.
+The mesh's 'model' reductions (`models/sharding.py`) are operators of
+the same library with a CPU implementation too: they are collectives,
+not kernels, and one function on every device. No fake
 stands in for a kernel that failed: the CUDA implementation raises.
 
 The operators are defined with `torch.library.Library`'s `define` and
@@ -22,7 +25,7 @@ tensor there raises, since its `data_ptr()` is not device memory.
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
@@ -30,12 +33,17 @@ NAMESPACE = "repro_torch"
 LIB = torch.library.Library(NAMESPACE, "DEF")
 
 
-def define(schema: str, cuda_impl: Callable, fake_impl: Callable):
+def define(schema: str, cuda_impl: Callable, fake_impl: Callable,
+           cpu_impl: Optional[Callable] = None):
     """Define the operator `schema` ("name(args) -> outs"), its CUDA
-    implementation and its fake; returns its default overload."""
+    implementation and its fake (and, for an operator that is not a
+    kernel, such as the mesh's 'model' reductions, its CPU one); returns
+    its default overload."""
     name = schema.split("(", 1)[0]
     LIB.define(schema)
     LIB.impl(name, cuda_impl, "CUDA")
+    if cpu_impl is not None:
+        LIB.impl(name, cpu_impl, "CPU")
     torch.library.register_fake(f"{NAMESPACE}::{name}", fake_impl, lib=LIB)
     return getattr(getattr(torch.ops, NAMESPACE), name).default
 

@@ -9,7 +9,13 @@ whose fake answers the meta tensors (`kernels/oplib.py`), so what is
 counted is the card's program. Each record holds:
 
   * the per-device FLOPs, bytes and peak live bytes of the traced step,
-    and whether that peak fits the card's memory (`fits`);
+    and whether that peak fits the card's memory (`fits`); for a tensor
+    parallel cell the trace holds entry 0's blocks of the state
+    (`state_layout` "entry blocks"), the layout a device of a real mesh
+    would hold, which the port's one-process mesh step does not hold
+    yet: it keeps whole leaves on the model's device, so that device's
+    peak is `port_root_peak_bytes` (`port_root_fits`), the traced peak
+    plus the rest of the whole leaves (`port_root_extra_bytes`);
   * the bytes the port's mesh moves between devices per step
     (`collective_bytes_per_device`; see below);
   * the three roofline terms on the H100 data sheet's rates
@@ -21,25 +27,38 @@ counted is the card's program. Each record holds:
     `launch/specs.py` (`reference_layout_bytes_per_device`), beside the
     traced peak of the port's own.
 
-The port's mesh step (`train/train_step.py`) computes on data shards
-only and keeps whole parameters on each: along 'model' only the first
-entry of each data coordinate works (`devices_with_work`), so the
-dry-run traces one working entry's step at its sizes: its rows of each
-microbatch (the batch split over `launch.mesh.batch_axes_for`'s axes),
-AdamW over the whole leaves, as the mesh's root runs it. The reference
-shards its leaves over 'data' (FSDP) and 'model' (tensor parallel),
-which the port's mesh step does not (ROADMAP Queue 1 item 14), so
-`reference_layout_bytes_per_device` is what that layout would hold: the
-blocks of the train state and the batch, or of the parameters, the
-caches and the batch. The step
-gathers each shard's float32 gradient on the root once per microbatch
-and copies the parameters to each other shard once per step; those
-bytes, which the root receives or sends, are the collective term, at the
-rate of the link that the data axes span. Serving cells have none: each
-data shard serves its own rows. An LGRASS cell traces one shard of
-`core.distributed.make_phase1_sharded` (one MARK call on its block); its
-collective term is the home entry's copies of the tables and the blocks
-to the other shards and of their results back.
+On the production meshes the port's programs are tensor parallel on
+'model' for the GQA families (dense, MoE, the encoder;
+`models.sharding.tp_family`): each ('data', 'model') entry computes on
+its blocks of heads, kv heads where they shard, MLP columns, experts and
+vocab (`models/sharding.py`). So the dry-run traces one working entry,
+'model' coordinate 0 (the largest blocks), at its sizes: an
+`sharding.entry_model` whose sharded leaves are that entry's blocks,
+run under `sharding.traced_entry(TP_SIZE, "meta")`, on its data shard's
+rows of each microbatch (the batch split over
+`launch.mesh.batch_axes_for`'s axes), AdamW over its blocks (see
+`fits` above for the layout the port's step holds). Every
+entry works (`devices_with_work` = the mesh's chips). The MLA and SSM
+families keep whole leaves: only the first entry of each data
+coordinate works, and its whole step is traced.
+
+The collective term per step has two parts. Along 'model', the traced
+entry's reductions (`sharding.model_sum` and its kin, forward and
+backward, remat's recompute included), each the bytes it sends in a
+ring (`launch/graph_analysis.py`), at `axis_bandwidth(mesh,
+('model',))`, by kind in `collectives` ("model:<kind>"). Along the data
+axes, the mesh step's exchange: it gathers each data shard's float32
+gradient of the entry's leaves on the root once per microbatch and
+copies those leaves to each other shard once per step; those bytes,
+which the root receives or sends, at the rate of the link that the data
+axes span. Serving cells have no data exchange: each data shard serves
+its own rows. `reference_layout_bytes_per_device` is what the
+reference's layout would hold (FSDP on 'data' as well as 'model', from
+`launch/specs.py`): the blocks of the train state and the batch, or of
+the parameters, the caches and the batch. An LGRASS cell traces one
+shard of `core.distributed.make_phase1_sharded` (one MARK call on its
+block); its collective term is the home entry's copies of the tables
+and the blocks to the other shards and of their results back.
 
 Artifacts land in `build/dryrun/<arch>_<shape>_<mesh>.json` at the root
 of the checkout.
@@ -110,10 +129,9 @@ def _device_record() -> dict:
                 rates="data sheet (launch/mesh.py); not measured")
 
 
-def _roofline(flops: float, bytes_: float, coll: float, link_bw: float):
+def _roofline(flops: float, bytes_: float, t_coll: float):
     t_compute = flops / M.PEAK_FLOPS_BF16
     t_memory = bytes_ / M.HBM_BW
-    t_coll = coll / link_bw if coll else 0.0
     dominant = max((("compute", t_compute), ("memory", t_memory),
                     ("collective", t_coll)), key=lambda kv: kv[1])[0]
     return dict(t_compute_s=t_compute, t_memory_s=t_memory,
@@ -162,31 +180,74 @@ def _meta_batch(cfg, rows: int, seq: int) -> dict:
                                    device=meta))
 
 
-def _trace_train(cfg, local_rows: int, seq: int, micro: int):
-    from repro_torch.launch.graph_analysis import analyze_program
+def _meta_model(cfg, tp: int, **kw):
+    """The model on the meta device; where `cfg` shards over 'model', its
+    sharded leaves cut to entry 0's blocks of `tp` (`entry_model`), with
+    that one entry to drive (else None)."""
+    from repro_torch.models import sharding as sh
     from repro_torch.models.model import LM
+
+    model = LM(cfg, device="meta", **kw)
+    if tp == 1 or not sh.tp_family(cfg):
+        return model, None
+    return sh.entry_model(model, tp), sh.traced_entry(tp, "meta")
+
+
+def port_root_extra_bytes(cfg, kind: str, tp: int) -> int:
+    """The bytes that a data shard's root device holds in the port's mesh
+    step beyond the traced entry: the step keeps whole leaves on the
+    model's device (train: the float32 parameters, AdamW's mu and nu and
+    the float32 gradient accumulator; serving: the parameters, which the
+    step copies whole to each data shard's device), where the trace of a
+    tensor-parallel cell holds entry 0's blocks of the sharded leaves. 0
+    where the trace holds whole leaves (`tp` 1)."""
+    from repro_torch.models import sharding as sh
+    from repro_torch.models.model import LM
+
+    if tp == 1:
+        return 0
+    train = kind == "train"
+    model = LM(cfg, device="meta",
+               **({"param_dtype": torch.float32} if train else {}))
+    extra = 0
+    for name, p in model.named_parameters():
+        d = sh.model_dim(cfg, name)
+        if d is None:
+            continue
+        blk = sh.tp_block(p.shape[d], tp, 0)
+        extra += (p.numel() // p.shape[d] * (p.shape[d] - (blk.stop
+                                                           - blk.start))
+                  * p.element_size())
+    return extra * (4 if train else 1)
+
+
+def _trace_train(cfg, local_rows: int, seq: int, micro: int, tp: int = 1):
+    from repro_torch.launch.graph_analysis import analyze_program
+    from repro_torch.models.sharding import use_entries
     from repro_torch.optim.optimizer import OptConfig
     from repro_torch.train.train_step import (make_train_state,
                                               make_train_step)
 
-    model = LM(cfg, device="meta", param_dtype=torch.float32)
+    model, entry = _meta_model(cfg, tp, param_dtype=torch.float32)
     state = make_train_state(model)
     step = make_train_step(model, OptConfig(), micro_batches=micro)
     batch = _meta_batch(cfg, local_rows * micro, seq)
     n_params = sum(p.numel() for p in model.parameters())
-    return analyze_program(step, state, batch, name="train_step"), n_params
+    with use_entries(entry):
+        return analyze_program(step, state, batch,
+                               name="train_step"), n_params
 
 
-def _trace_serve(cfg, kind: str, local_rows: int, seq: int):
+def _trace_serve(cfg, kind: str, local_rows: int, seq: int, tp: int = 1):
     from repro_torch.launch.graph_analysis import analyze_program
-    from repro_torch.models.model import LM
+    from repro_torch.models.sharding import use_entries
     from repro_torch.serve.serve_step import (make_decode_step,
                                               make_prefill_step)
 
-    model = LM(cfg, device="meta")
+    model, entry = _meta_model(cfg, tp)
     params = dict(model.named_parameters())
     meta = torch.device("meta")
-    with torch.no_grad():
+    with torch.no_grad(), use_entries(entry):
         if kind == "prefill" and cfg.is_encoder:
             feats = _meta_batch(cfg, local_rows, seq)["features"]
             return analyze_program(lambda p, f: model.encode(f), params,
@@ -272,6 +333,9 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
                                   else 1)
     axes, n_data = _axes(mesh, rows)
     local = rows // n_data
+    from repro_torch.models.sharding import tp_family
+
+    tp = mesh.shape.get("model", 1) if tp_family(cfg) else 1
     refusal = kernel_refusal(cfg, shape.kind)
     if refusal:
         rec = dict(cell=tag, arch=arch, shape=shape_name, mesh=mesh_name,
@@ -280,7 +344,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
         return _save(rec, outdir, path)
     if shape.kind == "train":
         hlo, n_params = _trace_train(cfg, local, shape.seq_len,
-                                     micro_batches)
+                                     micro_batches, tp)
         others = n_data - 1
         exchange = {"grads->root": float(others * n_params * _F32
                                          * micro_batches),
@@ -288,20 +352,28 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
         counts = {"grads->root": others * micro_batches,
                   "params->shards": others}
     else:
-        hlo = _trace_serve(cfg, shape.kind, local, shape.seq_len)
+        hlo = _trace_serve(cfg, shape.kind, local, shape.seq_len, tp)
         exchange, counts = {}, {}
 
     flops = float(hlo["flops"])
     work = float(hlo["flops_work"])
     bytes_ = float(hlo["mem_bytes"])
-    coll_bytes = float(sum(exchange.values())) + hlo["collective_bytes"]
+    data_bytes = float(sum(exchange.values())) + hlo["collective_bytes"]
+    model_bytes = hlo["model_collective_bytes"]
+    coll_bytes = data_bytes + model_bytes
+    t_coll = ((data_bytes / (M.axis_bandwidth(mesh, axes) if axes
+                             else M.NVLINK_BW) if data_bytes else 0.0)
+              + (model_bytes / M.axis_bandwidth(mesh, ("model",))
+                 if model_bytes else 0.0))
     peak = float(hlo["peak_bytes"])
+    root_peak = peak + port_root_extra_bytes(cfg, shape.kind, tp)
     mf = model_flops(cfg, shape)
     rec = dict(
         cell=tag, arch=arch, shape=shape_name, mesh=mesh_name,
         kind=shape.kind, chips=chips,
         micro_batches=micro_batches, batch_axes=list(axes),
-        local_rows=local, devices_with_work=n_data,
+        local_rows=local, model_entries=tp,
+        devices_with_work=n_data * tp,
         device=_device_record(),
         trace_s=round(time.time() - t0, 1),
         flops_per_device=flops,
@@ -310,26 +382,34 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
         bytes_upper_per_device=float(hlo["mem_bytes_upper"]),
         bytes_dots_per_device=float(hlo["mem_bytes_dots"]),
         collective_bytes_per_device=coll_bytes,
+        model_collective_bytes_per_device=model_bytes,
         collectives={**exchange, **hlo["collective_by_kind"],
+                     **{f"model:{k}": v for k, v in
+                        hlo["model_collective_by_kind"].items()},
                      **{f"n_{k}": v for k, v in counts.items()},
                      **{f"n_{k}": v for k, v in
-                        hlo["collective_counts"].items()}},
+                        hlo["collective_counts"].items()},
+                     **{f"n_model:{k}": v for k, v in
+                        hlo["model_collective_counts"].items()}},
         memory=dict(peak_bytes=peak, hbm_bytes=M.HBM_BYTES,
                     host_syncs=hlo["sync_count"],
                     transfers=hlo["transfer_count"]),
         peak_bytes_per_device=peak,
         fits=peak <= M.HBM_BYTES,
+        state_layout="entry blocks" if tp > 1 else "whole leaves",
+        port_root_peak_bytes=root_peak,
+        port_root_fits=root_peak <= M.HBM_BYTES,
         reference_layout_bytes_per_device=reference_layout_bytes(
             cfg, shape, mesh),
         model_flops_global=mf,
-        useful_flop_ratio=mf / (flops * n_data) if flops else 0.0,
-        **_roofline(work, bytes_, coll_bytes,
-                    M.axis_bandwidth(mesh, axes) if axes else M.NVLINK_BW),
+        useful_flop_ratio=mf / (flops * n_data * tp) if flops else 0.0,
+        **_roofline(work, bytes_, t_coll),
     )
     print(f"[dryrun] {tag}: ok in {rec['trace_s']}s | "
           f"flops/dev={flops:.3e} bytes/dev={bytes_:.3e} "
           f"coll/dev={coll_bytes:.3e} dominant={rec['dominant']} "
-          f"peak={peak / 2**30:.2f}GiB fits={rec['fits']}")
+          f"peak={peak / 2**30:.2f}GiB fits={rec['fits']} "
+          f"root={root_peak / 2**30:.2f}GiB")
     return _save(rec, outdir, path)
 
 
@@ -391,8 +471,8 @@ def run_lgrass_cell(case_name: str, multi_pod: bool, outdir: str,
                     transfers=hlo["transfer_count"]),
         peak_bytes_per_device=peak,
         fits=peak <= M.HBM_BYTES,
-        **_roofline(flops, bytes_, coll_bytes,
-                    M.axis_bandwidth(mesh, mesh.axis_names)),
+        **_roofline(flops, bytes_,
+                    coll_bytes / M.axis_bandwidth(mesh, mesh.axis_names)),
     )
     print(f"[dryrun] {tag}: ok in {rec['trace_s']}s "
           f"bytes/dev={bytes_:.3e} coll/dev={coll_bytes:.3e} "
@@ -401,17 +481,19 @@ def run_lgrass_cell(case_name: str, multi_pod: bool, outdir: str,
 
 
 def summary_line(rec: dict) -> str:
-    """One markdown table row of a record: cell, peak GiB, fits, the
-    reference layout's GiB, the dominant term and its time, the working
-    devices."""
+    """One markdown table row of a record: cell, peak GiB, fits, the port's
+    root device's GiB today, the reference layout's GiB, the dominant term
+    and its time, the working devices."""
     if "skipped" in rec or "cannot_run" in rec:
         why = (f"skipped: {rec['skipped']}" if "skipped" in rec
                else f"cannot run: {rec['cannot_run']}")
-        return f"| {rec['cell']} | {why} ||||||"
+        return f"| {rec['cell']} | {why} |||||||"
     t = max(rec["t_compute_s"], rec["t_memory_s"], rec["t_collective_s"])
     ref = rec.get("reference_layout_bytes_per_device")
+    root = rec.get("port_root_peak_bytes", rec["peak_bytes_per_device"])
     return (f"| {rec['cell']} | {rec['peak_bytes_per_device'] / 2**30:.2f} "
             f"| {'yes' if rec['fits'] else 'no'} "
+            f"| {root / 2**30:.2f} "
             f"| {'-' if ref is None else f'{ref / 2**30:.2f}'} "
             f"| {rec['dominant']} | {t:.4g} "
             f"| {rec['devices_with_work']} of {rec['chips']} |")
@@ -468,9 +550,10 @@ def main(argv=None):
                for a, s, mp in cells]
     failures = [r[1] for r in results if r[1] is not None]
     rows = [summary_line(r[0]) for r in results if r[0] is not None]
-    print("| cell | peak GiB / device | fits | reference layout GiB "
-          "| dominant | its time s | devices with work |")
-    print("|---|---|---|---|---|---|---|")
+    print("| cell | peak GiB / device | fits | port root GiB "
+          "| reference layout GiB | dominant | its time s "
+          "| devices with work |")
+    print("|---|---|---|---|---|---|---|---|")
     for row in rows:
         print(row)
     print(f"[dryrun] done; {len(failures)} failures")

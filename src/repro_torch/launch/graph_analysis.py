@@ -31,6 +31,13 @@ of a real run. The report keeps the reference's keys:
   * `mem_bytes_dots`: the same over the ops that have a FLOP formula;
   * `collective_bytes`, `collective_by_kind`, `collective_counts`: copies
     from one device to another (neither the CPU), by "source->destination";
+  * `model_collective_bytes`, `model_collective_by_kind`,
+    `model_collective_counts`: the mesh's 'model' collectives
+    (`models.sharding.MODEL_COLLECTIVES`), by the kind each call names
+    ("attn_out", "mlp_out", "moe_combine", "embed", "ce_*", "logits";
+    ":bwd" for a gradient's), each as the bytes one entry sends in a
+    ring: 2·(tp−1)/tp of the tensor for an all-reduce, (tp−1)/tp of the
+    whole for an all-gather;
   * `transfer_count`: copies from the host to a device, which feed host
     data to the program while it runs (by source line in
     `transfer_sites`);
@@ -73,6 +80,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import FlopCounterMode, flop_registry
 
 from repro_torch.kernels.flash_attention import WORK_FLOPS
+from repro_torch.models.sharding import MODEL_ALLREDUCE, MODEL_COLLECTIVES
 
 _aten = torch.ops.aten
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -136,6 +144,8 @@ class _Recorder(TorchDispatchMode):
         self.mem_dots = 0
         self.coll = collections.Counter()
         self.coll_counts = collections.Counter()
+        self.model_coll = collections.Counter()
+        self.model_counts = collections.Counter()
         self.transfers = collections.Counter()
         self.syncs = collections.Counter()
         self.n_ops = 0
@@ -175,6 +185,11 @@ class _Recorder(TorchDispatchMode):
             return out
         if func in _NO_DATA or func.is_view:
             return out
+        if func in MODEL_COLLECTIVES:
+            tp, kind = args[1], args[3]
+            share = (2 if func is MODEL_ALLREDUCE else 1) * (tp - 1) / tp
+            self.model_coll[kind] += share * _nbytes(out)
+            self.model_counts[kind] += 1
         if func in WORK_FLOPS:
             counted, work = WORK_FLOPS[func](*args)
             self.work_delta += work - counted
@@ -263,6 +278,9 @@ def analyze_program(fn, *args, static_kwargs: Optional[dict] = None,
         collective_bytes=float(sum(rec.coll.values())),
         collective_by_kind=dict(rec.coll),
         collective_counts=dict(rec.coll_counts),
+        model_collective_bytes=float(sum(rec.model_coll.values())),
+        model_collective_by_kind=dict(rec.model_coll),
+        model_collective_counts=dict(rec.model_counts),
         transfer_count=sum(rec.transfers.values()),
         transfer_sites=dict(rec.transfers),
         sync_count=sum(rec.syncs.values()),

@@ -3,7 +3,10 @@
 `make_host_mesh` is a 1-D 'data' mesh over the visible CUDA devices, or
 `n` shards of one named device (a card carries 4 shards of `cuda:0`, the
 CPU tests 8 of `cpu`), as `core.distributed.batch_mesh` builds them.
-`batch_axes_for` picks the mesh axes a global batch is split over.
+`batch_axes_for` picks the mesh axes a global batch is split over, and
+`data_shards` the data shards of its rows (coordinates and device). A
+shard on another device than the model's runs a method of the model on
+a copy of its parameters there (`copy_params`, `call_with`).
 
 `make_production_mesh` is the reference's production cell laid over
 H100s: (16, 16) on ('data', 'model'), 256 cards ("h100x256"), or
@@ -26,7 +29,7 @@ here before it imports the rest of the package.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -87,6 +90,62 @@ def batch_axes_for(global_batch: int, mesh: Mesh):
     if not chosen:
         return None
     return tuple(chosen) if len(chosen) > 1 else chosen[0]
+
+
+def canon_device(dev) -> torch.device:
+    """`dev` with a CUDA device's index filled in (the current one)."""
+    dev = torch.device(dev)
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def data_shards(mesh: Mesh, rows: int
+                ) -> Tuple[Tuple[str, ...], List[Tuple[Dict[str, int],
+                                                       torch.device]]]:
+    """The batch axes of `rows` rows on `mesh` (`batch_axes_for`) and, per
+    data shard in mesh order, its coordinates on them and its device (the
+    first mesh entry there): one shard at {} where no axis divides."""
+    axes = batch_axes_for(rows, mesh)
+    axes = () if axes is None else ((axes,) if isinstance(axes, str)
+                                    else tuple(axes))
+    sizes = [mesh.shape[a] for a in axes]
+    shards = []
+    for k in range(int(np.prod(sizes, dtype=np.int64))):
+        at = dict(zip(axes, (int(c) for c in np.unravel_index(k, sizes))))
+        j = np.ravel_multi_index([at.get(a, 0) for a in mesh.axis_names],
+                                 mesh.axis_sizes)
+        shards.append((at, canon_device(mesh.devices[int(j)])))
+    return axes, shards
+
+
+def copy_params(named, dev, requires_grad: bool = False
+                ) -> Dict[str, torch.Tensor]:
+    """{name: a copy of the tensor on `dev`} of (name, tensor) pairs, such
+    as a model's `named_parameters()`, detached, requiring grad or not."""
+    return {n: p.detach().to(dev).requires_grad_(requires_grad)
+            for n, p in named}
+
+
+class _Method(torch.nn.Module):
+    """A method of `module` as a module call, for `functional_call`."""
+
+    def __init__(self, module: torch.nn.Module):
+        super().__init__()
+        self.module = module
+
+    def forward(self, name: str, *args):
+        return getattr(self.module, name)(*args)
+
+
+def call_with(module: torch.nn.Module, params: Dict[str, torch.Tensor],
+              name: str, *args):
+    """`module.<name>(*args)` with `params` ({parameter name: tensor}, a
+    `copy_params`) in place of its parameters
+    (`torch.func.functional_call`)."""
+    return torch.func.functional_call(
+        _Method(module), {"module." + n: t for n, t in params.items()},
+        (name, *args))
 
 
 def axis_bandwidth(mesh: Mesh, axes: Sequence[str]) -> float:

@@ -32,15 +32,30 @@ there.
 
 The caches are updated in place (`*_fill_cache`, `*_decode`): the
 reference's functional updates would copy the whole cache every step.
+
+Tensor parallelism on 'model': `gqa_attention`, `gqa_fill_cache` and
+`gqa_decode` take a `HeadBlock` (`head_block(cfg, entry)`), and then
+compute one mesh entry's part: its block of q heads [a, a + h) (wq,
+and wo's rows), its kv heads (wk, wv and the cache hold the entry's
+block of them where they shard, `sharding.kv_shards`, else all of
+them, as the reference replicates them), and the output projection's
+partial sum, which the caller adds over the entries. The q heads
+[a, a + h) read kv heads a // g … (a + h − 1) // g, g = H / Kv: where g
+divides h, h / g whole kv heads; where h divides g, one kv head with a
+group of h (granite padded for 16-way TP: 32 / 8 heads, 2 q heads an
+entry); otherwise the kv heads are repeated to the q heads before the
+flash call (`HeadBlock.rep`).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops as kops
+from repro_torch.models import sharding as sh
 from repro_torch.models.layers import (apply_rope, init_normal, rms_scale,
                                        rmsnorm)
 
@@ -65,53 +80,122 @@ def init_gqa(cfg: ArchConfig, dtype: torch.dtype,
     )
 
 
+@dataclasses.dataclass(frozen=True)
+class HeadBlock:
+    """One mesh entry's heads: `q` its q heads, `kv` the kv heads its
+    weights and cache hold (its block, or all), `need` the kv heads its
+    q heads read (global indices), and `rep` (or None) each q head's kv
+    head within `need` where the kv heads must be repeated to the q
+    heads (neither h nor g divides the other)."""
+
+    entry: sh.Entry
+    q: slice
+    kv: slice
+    need: slice
+    rep: Optional[Tuple[int, ...]]
+
+
+def head_block(cfg: ArchConfig, entry: sh.Entry) -> HeadBlock:
+    """`entry`'s heads under `cfg` (see the module docstring)."""
+    n_h, n_kv = cfg.n_heads, cfg.n_kv_heads
+    g = n_h // n_kv
+    q = entry.block(n_h)
+    a, h = q.start, q.stop - q.start
+    kv = entry.block(n_kv) if sh.kv_shards(cfg) else slice(0, n_kv)
+    first, last = a // g, (a + h - 1) // g
+    need = slice(first, last + 1)
+    rep = None
+    if h % g and g % h:
+        rep = tuple((a + i) // g - first for i in range(h))
+    return HeadBlock(entry, q, kv, need, rep)
+
+
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.einsum("bsd,dhk->bshk", x, w.to(x.dtype))
+
+
+def _weights(params: Dict, cfg: ArchConfig, blk: Optional[HeadBlock],
+             kv: str = "need") -> Dict[str, torch.Tensor]:
+    """wq, wk, wv, wo whole, or the block's: q heads of wq and wo, and of
+    wk and wv the kv heads `kv` names ('need' or 'kv')."""
+    if blk is None:
+        return params
+    e, n_h, n_kv = blk.entry, cfg.n_heads, cfg.n_kv_heads
+    kvs = getattr(blk, kv)
+    return dict(wq=e.take(params["wq"], 1, blk.q, n_h),
+                wk=e.take(params["wk"], 1, kvs, n_kv),
+                wv=e.take(params["wv"], 1, kvs, n_kv),
+                wo=e.take(params["wo"], 0, blk.q, n_h))
 
 
 def _qkv(params, x):
     return tuple(_proj(x, params[w]) for w in ("wq", "wk", "wv"))
 
 
-def _out(params, out: torch.Tensor) -> torch.Tensor:
-    return torch.einsum("bshk,hkd->bsd", out, params["wo"].to(out.dtype))
+def _out(params, out: torch.Tensor,
+         blk: Optional[HeadBlock] = None) -> torch.Tensor:
+    """The output projection; a block's is its partial
+    (`sharding.partial_product`: float32 below float32)."""
+    if blk is None or out.dtype == torch.float32:
+        return torch.einsum("bshk,hkd->bsd", out,
+                            params["wo"].to(out.dtype))
+    b, s, h, k = out.shape
+    return sh.partial_product(out.reshape(b, s, h * k),
+                              params["wo"].reshape(h * k, -1))
+
+
+def _repeat(blk: Optional[HeadBlock], k: torch.Tensor) -> torch.Tensor:
+    """k (B, S, n, hd) over the block's needed kv heads, repeated to its q
+    heads where `rep` asks."""
+    if blk is None or blk.rep is None:
+        return k
+    return k[:, :, list(blk.rep)]
 
 
 def gqa_attention(params: Dict, cfg: ArchConfig, x: torch.Tensor,
                   positions: torch.Tensor, *, causal: bool = True,
-                  window: Optional[int] = None) -> torch.Tensor:
+                  window: Optional[int] = None,
+                  blk: Optional[HeadBlock] = None) -> torch.Tensor:
     """Self-attention over full sequences (train / prefill). x: (B, S, d);
-    positions: (B, S), the same row for every sequence (0..S-1)."""
-    q, k, v = _qkv(params, x)
+    positions: (B, S), the same row for every sequence (0..S-1). With
+    `blk`, the entry's heads and its partial output (to be summed over
+    the entries)."""
+    w = _weights(params, cfg, blk)
+    q, k, v = _qkv(w, x)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     pos = positions[0].to(torch.int32)
-    out = kops.flash_attention(q, k, v, causal=causal, window=window,
-                               qpos=pos, kpos=pos)
-    return _out(params, out)
+    out = kops.flash_attention(q, _repeat(blk, k), _repeat(blk, v),
+                               causal=causal, window=window, qpos=pos,
+                               kpos=pos)
+    return _out(w, out, blk)
 
 
 def init_gqa_cache(cfg: ArchConfig, batch: int, max_len: int,
                    window: Optional[int], dtype: torch.dtype,
-                   device=None) -> Dict[str, torch.Tensor]:
+                   device=None,
+                   blk: Optional[HeadBlock] = None) -> Dict[str, torch.Tensor]:
+    """The cache of all kv heads, or of the ones `blk` holds."""
     slots = min(window, max_len) if window else max_len
     hd = cfg.resolved_head_dim
+    n_kv = cfg.n_kv_heads if blk is None else blk.kv.stop - blk.kv.start
     return dict(
-        k=torch.zeros((batch, slots, cfg.n_kv_heads, hd), dtype=dtype,
-                      device=device),
-        v=torch.zeros((batch, slots, cfg.n_kv_heads, hd), dtype=dtype,
-                      device=device),
+        k=torch.zeros((batch, slots, n_kv, hd), dtype=dtype, device=device),
+        v=torch.zeros((batch, slots, n_kv, hd), dtype=dtype, device=device),
         pos=torch.full((slots,), -1, dtype=torch.int32, device=device),
     )
 
 
 def gqa_fill_cache(params, cfg: ArchConfig, x: torch.Tensor,
                    positions: torch.Tensor, cache: Dict,
-                   window: Optional[int]) -> Dict:
+                   window: Optional[int],
+                   blk: Optional[HeadBlock] = None) -> Dict:
     """Prefill: write K/V of a full prompt into the cache (the last
-    `slots` positions of a ring), in place."""
-    k = apply_rope(_proj(x, params["wk"]), positions, cfg.rope_theta)
-    v = _proj(x, params["wv"])
+    `slots` positions of a ring), in place; with `blk`, the kv heads the
+    entry's cache holds."""
+    w = _weights(params, cfg, blk, "kv")
+    k = apply_rope(_proj(x, w["wk"]), positions, cfg.rope_theta)
+    v = _proj(x, w["wv"])
     slots = cache["k"].shape[1]
     s = k.shape[1]
     if window:
@@ -129,19 +213,23 @@ def gqa_fill_cache(params, cfg: ArchConfig, x: torch.Tensor,
 
 
 def gqa_decode(params: Dict, cfg: ArchConfig, x: torch.Tensor, pos: int,
-               cache: Dict, window: Optional[int]
+               cache: Dict, window: Optional[int],
+               blk: Optional[HeadBlock] = None
                ) -> Tuple[torch.Tensor, Dict]:
     """One token per sequence. x: (B, 1, d); pos: its absolute position.
     Writes the token's K/V into the cache in place, then attends over
     every slot with the mask (slot filled) ∧ (pos' <= pos) [∧ window].
     Without a window, a position past the cache's end raises ValueError
-    (the reference clamps the write and overwrites the last slot)."""
+    (the reference clamps the write and overwrites the last slot). With
+    `blk`, the entry's heads against its cache, and its partial
+    output."""
     slots = cache["k"].shape[1]
     if not window and not 0 <= pos < slots:
         raise ValueError(f"decode at position {pos} is past the end of a "
                          f"cache of max_len {slots}")
     hd = cfg.resolved_head_dim
-    q, k, v = _qkv(params, x)
+    w = _weights(params, cfg, blk, "kv")
+    q, k, v = _qkv(w, x)
     posb = torch.full((x.shape[0], 1), pos, dtype=torch.int32,
                       device=x.device)
     q = apply_rope(q, posb, cfg.rope_theta)
@@ -151,9 +239,13 @@ def gqa_decode(params: Dict, cfg: ArchConfig, x: torch.Tensor, pos: int,
     cache["v"][:, slot] = v[:, 0]
     cache["pos"][slot] = pos
     kc, vc, pc = cache["k"], cache["v"], cache["pos"]
+    if blk is not None:        # the kv heads the block's q heads read
+        lo = blk.need.start - blk.kv.start
+        kc = _repeat(blk, kc[:, :, lo:lo + blk.need.stop - blk.need.start])
+        vc = _repeat(blk, vc[:, :, lo:lo + blk.need.stop - blk.need.start])
 
     b, _, h, _ = q.shape
-    n_kv = cfg.n_kv_heads
+    n_kv = kc.shape[2]
     g = h // n_kv
     # fp32 scores of the cache's dtype values (preferred_element_type=f32)
     qg = q.reshape(b, 1, n_kv, g, hd).to(torch.float32)
@@ -166,7 +258,7 @@ def gqa_decode(params: Dict, cfg: ArchConfig, x: torch.Tensor, pos: int,
                                                    device=scores.device))
     p = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgst,btkd->bskgd", p.to(vc.dtype), vc)
-    y = _out(params, out.reshape(b, 1, h, hd))
+    y = _out(w, out.reshape(b, 1, h, hd), blk)
     return y, cache
 
 

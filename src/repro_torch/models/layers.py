@@ -8,13 +8,26 @@ own parameters, which `models/model.py` keeps in that dtype already).
 The reference's `ParamSet` becomes the `nn.Module` parameters of
 `models/model.py`; `init_normal` draws its distributions.
 `cross_entropy` is training's loss, `LM.loss_fn`'s.
+
+Under tensor parallelism on 'model' (`models/sharding.Entries`), `mlp`
+runs each entry on its block of d_ff columns (wi, wg) and rows (wo) and
+sums the partials (`sharding.model_sum`; below float32 each partial is
+float32, `sharding.partial_product`, so the sum rounds once); the
+embedding lookup writes each entry's vocab block's tokens and zeros
+elsewhere, summed;
+`lm_logit_blocks` gives each entry's block of the logits, and
+`cross_entropy_parallel` the CE over those blocks: the logsumexp's max
+and Σ exp reduced over the entries, the gold logit from the entry that
+owns the label.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.models import sharding as sh
 
 
 def init_normal(shape, std: float, dtype: torch.dtype,
@@ -78,28 +91,71 @@ def init_mlp(d_model: int, d_ff: int, act: str, dtype: torch.dtype,
 
 
 def mlp(params: Dict[str, torch.Tensor], x: torch.Tensor,
-        act: str) -> torch.Tensor:
+        act: str, entries: Optional[sh.Entries] = None,
+        d_ff: int = 0) -> torch.Tensor:
     """SwiGLU (silu(x wg) * x wi) or GELU (tanh approximation, which is
-    `jax.nn.gelu`'s default), then wo."""
+    `jax.nn.gelu`'s default), then wo. With `entries`, each entry on its
+    block of the `d_ff` columns, the partials summed."""
+    wg = params["wg"] if act == "swiglu" else None
+    if entries is None:
+        return _mlp(params["wi"], wg, params["wo"], x, act)
+    parts = []
+    for e, xe in zip(entries, sh.model_copy(x, entries, "mlp_in")):
+        sl = e.block(d_ff)
+        parts.append(_mlp(e.take(params["wi"], 1, sl, d_ff),
+                          None if wg is None else e.take(wg, 1, sl, d_ff),
+                          e.take(params["wo"], 0, sl, d_ff), xe, act,
+                          partial=True))
+    return sh.model_sum(parts, entries, "mlp_out", x.dtype)
+
+
+def _mlp(wi, wg, wo, x, act, partial=False):
     dt = x.dtype
-    h = torch.einsum("...d,df->...f", x, params["wi"].to(dt))
+    h = torch.einsum("...d,df->...f", x, wi.to(dt))
     if act == "swiglu":
-        g = torch.einsum("...d,df->...f", x, params["wg"].to(dt))
+        g = torch.einsum("...d,df->...f", x, wg.to(dt))
         h = F.silu(g) * h
     else:
         h = F.gelu(h, approximate="tanh")
-    return torch.einsum("...f,fd->...d", h, params["wo"].to(dt))
+    if partial and dt != torch.float32:
+        return sh.partial_product(h, wo)
+    return torch.einsum("...f,fd->...d", h, wo.to(dt))
 
 
 # ------------------------- embeddings -------------------------
 def embed_tokens(table: torch.Tensor, tokens: torch.Tensor,
-                 dtype: torch.dtype) -> torch.Tensor:
-    return table.to(dtype)[tokens]
+                 dtype: torch.dtype, entries: Optional[sh.Entries] = None,
+                 vocab: int = 0) -> torch.Tensor:
+    """The rows of `tokens`. With `entries`, each entry writes the tokens
+    of its block of the `vocab` rows and zeros elsewhere, summed."""
+    if entries is None:
+        return table.to(dtype)[tokens]
+    parts = []
+    for e in entries:
+        sl = e.block(vocab)
+        local = tokens.to(e.device) - sl.start
+        mine = (local >= 0) & (local < sl.stop - sl.start)
+        rows = e.take(table, 0, sl, vocab).to(dtype)
+        if rows.shape[0] == 0:
+            parts.append(torch.zeros(tokens.shape + (table.shape[1],),
+                                     dtype=dtype, device=e.device))
+            continue
+        got = rows[local.clamp(0, rows.shape[0] - 1)]
+        parts.append(torch.where(mine[..., None], got, got.new_zeros(())))
+    return sh.model_sum(parts, entries, "embed")
 
 
 def lm_logits(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """x · tableᵀ: table is the embedding when tied, else the lm head."""
     return torch.einsum("...d,vd->...v", x, table.to(x.dtype))
+
+
+def lm_logit_blocks(table: torch.Tensor, x: torch.Tensor,
+                    entries: sh.Entries, vocab: int) -> List[torch.Tensor]:
+    """Each entry's block of the `vocab` logits, on its device."""
+    return [lm_logits(e.take(table, 0, e.block(vocab), vocab), xe)
+            for e, xe in zip(entries, sh.model_copy(x, entries,
+                                                     "logits_in"))]
 
 
 def act_dtype(dtype_name: str) -> torch.dtype:
@@ -112,6 +168,31 @@ def rms_scale(dim: int, device=None) -> torch.Tensor:
     return torch.ones((dim,), dtype=torch.float32, device=device)
 
 
+def _vocab_pad(logits: torch.Tensor, cols: slice,
+               real_vocab: int) -> torch.Tensor:
+    """float32 logits of the columns `cols` with -1e9 added (not set) on
+    those past `real_vocab` (0: none)."""
+    logits = logits.to(torch.float32)
+    if real_vocab and real_vocab < cols.stop:
+        # + 0 leaves the real columns as they are
+        pad = torch.zeros((cols.stop - cols.start,), dtype=torch.float32,
+                          device=logits.device)
+        pad[max(real_vocab - cols.start, 0):] = -1e9
+        logits = logits + pad
+    return logits
+
+
+def _mean_nll(nll: torch.Tensor, mask: Optional[torch.Tensor],
+              denominator: Optional[torch.Tensor]) -> torch.Tensor:
+    if mask is not None:
+        mask = mask.to(device=nll.device, dtype=torch.float32)
+        total = torch.sum(nll * mask)
+        return total / (torch.clamp(torch.sum(mask), min=1.0)
+                        if denominator is None else denominator)
+    return torch.mean(nll) if denominator is None else (torch.sum(nll)
+                                                        / denominator)
+
+
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   mask: Optional[torch.Tensor] = None,
                   real_vocab: int = 0,
@@ -122,20 +203,41 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     minus the gold logit (a gather); with `mask`, the masked mean over
     max(Σ mask, 1). With `denominator`, the (masked) sum over it instead:
     a data shard's part of the whole batch's mean."""
-    logits = logits.to(torch.float32)
-    v = logits.shape[-1]
-    if real_vocab and real_vocab < v:
-        # + 0 leaves the real columns as they are
-        pad = torch.zeros((v,), dtype=torch.float32, device=logits.device)
-        pad[real_vocab:] = -1e9
-        logits = logits + pad
+    logits = _vocab_pad(logits, slice(0, logits.shape[-1]), real_vocab)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.to(torch.int64)[..., None])[..., 0]
-    nll = logz - gold
-    if mask is not None:
-        mask = mask.to(torch.float32)
-        total = torch.sum(nll * mask)
-        return total / (torch.clamp(torch.sum(mask), min=1.0)
-                        if denominator is None else denominator)
-    return torch.mean(nll) if denominator is None else (torch.sum(nll)
-                                                        / denominator)
+    return _mean_nll(logz - gold, mask, denominator)
+
+
+def cross_entropy_parallel(blocks: List[torch.Tensor], labels: torch.Tensor,
+                           entries: sh.Entries, vocab: int,
+                           mask: Optional[torch.Tensor] = None,
+                           real_vocab: int = 0,
+                           denominator: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """`cross_entropy` over the entries' blocks of the `vocab` logits
+    (`lm_logit_blocks`): -1e9 on the padded columns wherever they fall,
+    the logsumexp's max and Σ exp(l − max) reduced over the entries, and
+    the gold logit from the entry whose block holds the label (zeros
+    from the others), summed. On the first entry's device."""
+    padded, maxes = [], []
+    for e, lg in zip(entries, blocks):
+        lg = _vocab_pad(lg, e.block(vocab), real_vocab)
+        padded.append(lg)
+        maxes.append(lg.amax(-1) if lg.shape[-1] else torch.full(
+            lg.shape[:-1], -torch.inf, device=lg.device))
+    top = sh.model_max(maxes, entries, "ce_max")
+    sums, golds = [], []
+    for e, lg in zip(entries, padded):
+        sl = e.block(vocab)
+        sums.append(torch.exp(lg - top.to(lg.device)[..., None]).sum(-1))
+        local = labels.to(device=lg.device, dtype=torch.int64) - sl.start
+        mine = (local >= 0) & (local < sl.stop - sl.start)
+        if lg.shape[-1] == 0:
+            golds.append(torch.zeros(lg.shape[:-1], device=lg.device))
+            continue
+        got = torch.gather(lg, -1, local.clamp(0, lg.shape[-1] - 1)[..., None])
+        golds.append(torch.where(mine, got[..., 0], got.new_zeros(())))
+    logz = top + torch.log(sh.model_sum(sums, entries, "ce_sumexp"))
+    nll = logz - sh.model_sum(golds, entries, "ce_gold")
+    return _mean_nll(nll, mask, denominator)

@@ -59,6 +59,21 @@ trainer assembles the whole batch's aux from every shard's statistics
 statistics are outputs of the checkpointed layer, so the backward's
 gradient of gsum flows through the layer's recomputed forward.
 
+Tensor parallelism on 'model': under `models.sharding.use_entries`
+(the train and serving steps set it per data shard), the entry points
+drive those mesh entries: the embedding lookup, each layer's attention
+(`attention.head_block`), dense MLP and MoE experts, and the logits run
+per entry on its blocks of the leaves, and their partial sums meet in
+`sharding.model_sum`; the norms, the router and the frontend run once,
+on the shard's root device. The CE is vocab-parallel
+(`layers.cross_entropy_parallel`); the logits that `forward`,
+`prefill`, `decode_step` and `encode` return are the entries' vocab
+blocks concatenated in order. `init_caches` gives a GQA layer one cache
+per entry (`{"attn": [...]}`), of the kv heads it holds. A model whose
+sharded leaves are one entry's blocks (`sharding.entry_model`) runs
+the same code under that one entry (`sharding.traced_entry`): the
+dry-run's trace. The MLA and SSM families do not shard.
+
 The model lives on the CUDA device unless `device` asks for another
 (`core.sparsify.resolve_device`): without a card the default raises, and
 nothing drops to the CPU unless asked. A model with neither a generator
@@ -76,8 +91,10 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.sparsify import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import moe, ssm
+from repro_torch.models import sharding as sh
 from repro_torch.models.layers import (act_dtype, cross_entropy,
-                                       embed_tokens, init_mlp, init_normal,
+                                       cross_entropy_parallel, embed_tokens,
+                                       init_mlp, init_normal, lm_logit_blocks,
                                        lm_logits, mlp, rms_scale, rmsnorm)
 
 
@@ -124,7 +141,8 @@ class Block(nn.Module):
                         _params(init_mlp(cfg.d_model, cfg.d_ff, cfg.act,
                                          dtype, generator, dev)))
 
-    def _attention(self, cfg, h_in, positions, window, mode, cache, pos):
+    def _attention(self, cfg, h_in, positions, window, mode, cache, pos,
+                   entries=None):
         if cfg.attn_type == "mla":
             if mode == "decode":
                 return attn.mla_decode(self.attn, cfg, h_in, pos,
@@ -135,15 +153,32 @@ class Block(nn.Module):
                 attn.mla_fill_cache(self.attn, cfg, h_in, positions,
                                     cache["attn"])
             return y
-        if mode == "decode":
-            return attn.gqa_decode(self.attn, cfg, h_in, pos, cache["attn"],
-                                   window)[0]
-        y = attn.gqa_attention(self.attn, cfg, h_in, positions,
-                               causal=self.causal, window=window)
-        if mode == "prefill":
-            attn.gqa_fill_cache(self.attn, cfg, h_in, positions,
-                                cache["attn"], window)
-        return y
+        if entries is None:
+            if mode == "decode":
+                return attn.gqa_decode(self.attn, cfg, h_in, pos,
+                                       cache["attn"], window)[0]
+            y = attn.gqa_attention(self.attn, cfg, h_in, positions,
+                                   causal=self.causal, window=window)
+            if mode == "prefill":
+                attn.gqa_fill_cache(self.attn, cfg, h_in, positions,
+                                    cache["attn"], window)
+            return y
+        parts = []
+        hs = sh.model_copy(h_in, entries, "attn_in")
+        for j, (e, h) in enumerate(zip(entries, hs)):
+            blk = attn.head_block(cfg, e)
+            c = None if cache is None else cache["attn"][j]
+            if mode == "decode":
+                parts.append(attn.gqa_decode(self.attn, cfg, h, pos, c,
+                                             window, blk)[0])
+                continue
+            at = positions.to(e.device)
+            parts.append(attn.gqa_attention(self.attn, cfg, h, at,
+                                            causal=self.causal,
+                                            window=window, blk=blk))
+            if mode == "prefill":
+                attn.gqa_fill_cache(self.attn, cfg, h, at, c, window, blk)
+        return sh.model_sum(parts, entries, "attn_out", h_in.dtype)
 
     def _ssm(self, cfg, h_in, mode, cache):
         if mode == "decode":
@@ -156,12 +191,15 @@ class Block(nn.Module):
 
     def run(self, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor,
             window: Optional[int], mode: str, cache: Optional[Dict] = None,
-            pos: Optional[int] = None, stats: bool = False
+            pos: Optional[int] = None, stats: bool = False,
+            entries: Optional[sh.Entries] = None
             ) -> Tuple[torch.Tensor, Optional[Dict], Optional[torch.Tensor]]:
         """mode: 'train' (full sequence), 'prefill' (also fills `cache`,
         in place) or 'decode' (one token at `pos` against `cache`).
         Returns (x, cache, the MoE layer's aux loss in 'train' mode, else
-        None; with `stats`, its router statistics in the loss's place)."""
+        None; with `stats`, its router statistics in the loss's place).
+        With `entries`, the attention and the MLP or experts run per mesh
+        entry on its blocks (the module docstring)."""
         args = (positions, window, mode, cache, pos)
         if cfg.has_attention and cfg.has_ssm:   # hybrid: parallel heads
             h_in = rmsnorm(x, self.attn_norm, cfg.norm_eps)
@@ -170,7 +208,7 @@ class Block(nn.Module):
             x = x + 0.5 * (a + s)
         elif cfg.has_attention:
             h_in = rmsnorm(x, self.attn_norm, cfg.norm_eps)
-            x = x + self._attention(cfg, h_in, *args)
+            x = x + self._attention(cfg, h_in, *args, entries)
         else:                                    # pure SSM
             h_in = rmsnorm(x, self.ssm_norm, cfg.norm_eps)
             x = x + self._ssm(cfg, h_in, mode, cache)
@@ -179,9 +217,9 @@ class Block(nn.Module):
             h_in = rmsnorm(x, self.mlp_norm, cfg.norm_eps)
             if cfg.is_moe:
                 y, aux = self.mlp(cfg, h_in, with_aux=mode == "train",
-                                  stats=stats)
+                                  stats=stats, entries=entries)
             else:
-                y = mlp(self.mlp, h_in, cfg.act)
+                y = mlp(self.mlp, h_in, cfg.act, entries, cfg.d_ff)
             x = x + y
         return x, cache, aux
 
@@ -227,21 +265,31 @@ class LM(nn.Module):
         return self.embedding.device
 
     # ---------- serve ----------
-    def init_caches(self, batch: int, max_len: int) -> List[Dict[str, Any]]:
-        """Each layer's family's cache: GQA's full or ring cache (by
-        `layer_window`), MLA's latent cache, the SSM's state and conv
-        window."""
+    def init_caches(self, batch: int, max_len: int,
+                    device=None) -> List[Dict[str, Any]]:
+        """Each layer's family's cache, on `device` (the model's by
+        default): GQA's full or ring cache (by `layer_window`), MLA's
+        latent cache, the SSM's state and conv window. Under
+        `use_entries`, a GQA layer's is a list of one cache per entry, on
+        its device, of the kv heads it holds."""
         self._decoder("init_caches")
-        cfg, dt, dev = self.cfg, self.dtype, self.device
+        cfg, dt = self.cfg, self.dtype
+        dev = self.device if device is None else device
+        entries = self._entries()
+
+        def gqa(i: int, e=None):
+            return attn.init_gqa_cache(
+                cfg, batch, max_len, layer_window(cfg, i), dt,
+                dev if e is None else e.device,
+                None if e is None else attn.head_block(cfg, e))
 
         def one(i: int) -> Dict[str, Any]:
             c: Dict[str, Any] = {}
             if cfg.has_attention:
                 c["attn"] = (attn.init_mla_cache(cfg, batch, max_len, dt, dev)
                              if cfg.attn_type == "mla" else
-                             attn.init_gqa_cache(cfg, batch, max_len,
-                                                 layer_window(cfg, i), dt,
-                                                 dev))
+                             gqa(i) if entries is None else
+                             [gqa(i, e) for e in entries])
             if cfg.has_ssm:
                 c["ssm"] = ssm.init_ssm_cache(cfg, batch, dt, dev)
             return c
@@ -253,40 +301,45 @@ class LM(nn.Module):
         """tokens: (B, S) int. Returns the logits of the last position
         (B, V) and the caches filled with positions 0..S-1."""
         self._decoder("prefill")
-        x, positions = self._embed_inputs(tokens)
+        entries = self._entries()
+        x, positions = self._embed_inputs(tokens, entries)
         new_caches = []
         for blk, window, cache in zip(self.layers, self.windows, caches):
             x, cache, _ = blk.run(self.cfg, x, positions, window,
-                                  "prefill", cache)
+                                  "prefill", cache, entries=entries)
             new_caches.append(cache)
         x = rmsnorm(x[:, -1:, :], self.final_norm, self.cfg.norm_eps)
-        return self._logits(x)[:, 0, :], new_caches
+        return self._logits(x, entries)[:, 0, :], new_caches
 
     def decode_step(self, tok: torch.Tensor, pos: int, caches: List[Dict]
                     ) -> Tuple[torch.Tensor, List[Dict]]:
         """tok: (B, 1) int; pos: its absolute position (a Python int)."""
         self._decoder("decode_step")
-        x = embed_tokens(self.embedding, tok, self.dtype)
+        entries = self._entries()
+        x = embed_tokens(self.embedding, tok, self.dtype, entries,
+                         self.cfg.vocab_size)
         new_caches = []
         for blk, window, cache in zip(self.layers, self.windows, caches):
             x, cache, _ = blk.run(self.cfg, x, None, window, "decode",
-                                  cache, pos)
+                                  cache, pos, entries=entries)
             new_caches.append(cache)
         x = rmsnorm(x, self.final_norm, self.cfg.norm_eps)
-        return self._logits(x)[:, 0, :], new_caches
+        return self._logits(x, entries)[:, 0, :], new_caches
 
     # ---------- full sequence ----------
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         """Logits (B, S, V) of every position: the layers of the
         reference's `_run_layers_train`, then the final norm and head."""
         self._decoder("forward")
-        x, positions = self._embed_inputs(tokens)
-        x, _ = self.run_layers(x, positions)
+        entries = self._entries()
+        x, positions = self._embed_inputs(tokens, entries)
+        x, _ = self.run_layers(x, positions, entries=entries)
         x = rmsnorm(x, self.final_norm, self.cfg.norm_eps)
-        return self._logits(x)
+        return self._logits(x, entries)
 
     def run_layers(self, x: torch.Tensor, positions: torch.Tensor,
-                   moe_stats: Optional[List] = None
+                   moe_stats: Optional[List] = None,
+                   entries: Optional[sh.Entries] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
         """The layers in 'train' mode, the reference's `_run_layers_train`:
         (x, the MoE aux loss summed over layers over n_layers; 0 without
@@ -294,16 +347,26 @@ class LM(nn.Module):
         is a non-reentrant `torch.utils.checkpoint`: its activations are
         recomputed in the backward. With a `moe_stats` list, each MoE
         layer's (gsum, count) is appended to it in layer order, and the
-        aux returned is 0."""
+        aux returned is 0. `entries` (passed, not read from the context,
+        so that the recompute sees them too) shard each layer. The
+        recompute stops early, once it has the last tensor the backward
+        saved: where one process drives a layer's entries one after
+        another, it then recomputes the last products of every entry
+        but the last, which an entry on a device of its own (and the
+        dry-run's one traced entry) skips. (A float32 partial product,
+        bf16's, saves its inputs once it has run, so every recompute
+        runs it.)"""
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         remat = self.cfg.remat and torch.is_grad_enabled()
         stats = moe_stats is not None
         for blk, window in zip(self.layers, self.windows):
             if remat:
                 x, a = checkpoint(self._train_layer, blk, x, positions,
-                                  window, stats, use_reentrant=False)
+                                  window, stats, entries,
+                                  use_reentrant=False)
             else:
-                x, a = self._train_layer(blk, x, positions, window, stats)
+                x, a = self._train_layer(blk, x, positions, window, stats,
+                                         entries)
             if a is None:
                 continue
             if stats:
@@ -314,9 +377,10 @@ class LM(nn.Module):
 
     def _train_layer(self, blk: Block, x: torch.Tensor,
                      positions: torch.Tensor, window: Optional[int],
-                     stats: bool = False):
+                     stats: bool = False,
+                     entries: Optional[sh.Entries] = None):
         x, _, a = blk.run(self.cfg, x, positions, window, "train",
-                          stats=stats)
+                          stats=stats, entries=entries)
         return x, a
 
     # ---------- train ----------
@@ -332,19 +396,20 @@ class LM(nn.Module):
         it: a data shard's part of a whole batch's mean, whose token count
         (or Σ mask, at least 1) `denominator` is. With a `moe_stats` list
         (see `run_layers`), the MoE layers' statistics are appended to it
-        and the loss is the CE alone: the caller assembles the aux."""
+        and the loss is the CE alone: the caller assembles the aux. Under
+        `use_entries` the CE is vocab-parallel over the entries' blocks."""
         cfg = self.cfg
+        entries = self._entries()
         if cfg.is_encoder:
-            logits = self.encode(batch["features"])
-            loss = cross_entropy(logits, batch["labels"], batch["mask"],
-                                 cfg.real_vocab_size, denominator)
+            x = self._encoded(batch["features"], entries)
+            loss = self._cross_entropy(x, batch["labels"], batch["mask"],
+                                       denominator, entries)
             return loss, {"loss": loss}
-        x, positions = self._embed_inputs(batch["tokens"])
-        x, aux = self.run_layers(x, positions, moe_stats)
+        x, positions = self._embed_inputs(batch["tokens"], entries)
+        x, aux = self.run_layers(x, positions, moe_stats, entries)
         x = rmsnorm(x, self.final_norm, cfg.norm_eps)
-        ce = cross_entropy(self._logits(x), batch["labels"],
-                           batch.get("mask"), cfg.real_vocab_size,
-                           denominator)
+        ce = self._cross_entropy(x, batch["labels"], batch.get("mask"),
+                                 denominator, entries)
         loss = ce if moe_stats is not None else ce + aux
         return loss, {"loss": loss, "ce": ce, "aux": aux}
 
@@ -354,6 +419,12 @@ class LM(nn.Module):
         the reference's `encode`. The features are cast to the activation
         dtype and projected by `frontend.proj`; positions 0..T-1; the
         layers (bidirectional attention) as in `forward`."""
+        entries = self._entries()
+        return self._logits(self._encoded(features, entries), entries)
+
+    def _encoded(self, features: torch.Tensor,
+                 entries: Optional[sh.Entries]) -> torch.Tensor:
+        """The encoder's normed hidden states, before the head."""
         if not self.cfg.is_encoder:
             raise ValueError(f"{self.cfg.name} is a decoder: encode is the "
                              f"encoder's entry")
@@ -363,9 +434,8 @@ class LM(nn.Module):
         b, t, _ = x.shape
         positions = torch.arange(t, dtype=torch.int32,
                                  device=x.device).expand(b, t)
-        x, _ = self.run_layers(x, positions)
-        x = rmsnorm(x, self.final_norm, self.cfg.norm_eps)
-        return self._logits(x)
+        x, _ = self.run_layers(x, positions, entries=entries)
+        return rmsnorm(x, self.final_norm, self.cfg.norm_eps)
 
     # ---------- internals ----------
     def _decoder(self, entry: str) -> None:
@@ -373,14 +443,43 @@ class LM(nn.Module):
             raise ValueError(f"{self.cfg.name} is encoder-only: it has no "
                              f"{entry} (use encode)")
 
-    def _embed_inputs(self, tokens: torch.Tensor):
-        x = embed_tokens(self.embedding, tokens, self.dtype)
+    def _entries(self) -> Optional[sh.Entries]:
+        """The 'model' entries to drive (`sharding.use_entries`), checked
+        against the config."""
+        entries = sh.current_entries()
+        if entries is not None:
+            if not sh.tp_family(self.cfg):
+                raise ValueError(f"{self.cfg.name}: its MLA or SSM layers "
+                                 f"do not shard over 'model'")
+            sh.check_tp(self.cfg, entries.tp)
+        return entries
+
+    def _embed_inputs(self, tokens: torch.Tensor,
+                      entries: Optional[sh.Entries] = None):
+        x = embed_tokens(self.embedding, tokens, self.dtype, entries,
+                         self.cfg.vocab_size)
         b, s = tokens.shape
         positions = torch.arange(s, dtype=torch.int32,
                                  device=tokens.device).expand(b, s)
         return x, positions
 
-    def _logits(self, x: torch.Tensor) -> torch.Tensor:
-        table = (self.embedding if self.cfg.tie_embeddings
-                 else self.lm_head)
-        return lm_logits(table, x)
+    def _table(self) -> torch.Tensor:
+        return self.embedding if self.cfg.tie_embeddings else self.lm_head
+
+    def _logits(self, x: torch.Tensor,
+                entries: Optional[sh.Entries] = None) -> torch.Tensor:
+        if entries is None:
+            return lm_logits(self._table(), x)
+        v = self.cfg.vocab_size
+        return sh.model_gather(lm_logit_blocks(self._table(), x, entries, v),
+                               entries, v, "logits")
+
+    def _cross_entropy(self, x, labels, mask, denominator, entries):
+        cfg = self.cfg
+        if entries is None:
+            return cross_entropy(lm_logits(self._table(), x), labels, mask,
+                                 cfg.real_vocab_size, denominator)
+        v = cfg.vocab_size
+        return cross_entropy_parallel(
+            lm_logit_blocks(self._table(), x, entries, v), labels, entries,
+            v, mask, cfg.real_vocab_size, denominator)

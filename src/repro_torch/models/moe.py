@@ -34,6 +34,16 @@ sequence, so a data shard of the rows routes, keeps and drops exactly
 as the whole batch does, and only these two sums cross the shards. A
 model holds each layer's weights as an `MoE` module, whose call is
 `moe_ffn`, so a caller can hook a layer's inputs.
+
+Tensor parallelism on 'model' (`entries`): the experts split over the
+entries (each its block of E / tp, its wi, wg, wo). The layer routes
+once per data shard, on the shard's root device: the router, softmax,
+top k, the dispatch ranks (one rank call), capacity and the slot tables,
+and the aux or the statistics from that one routing. Each entry then
+gathers the tokens of its experts' slots, runs its experts, and adds the
+kept pairs of its own experts in ascending expert order, in float32;
+the entries' partials are summed in float32 in mesh order and rounded
+once (`sharding.model_sum`).
 """
 from __future__ import annotations
 
@@ -45,6 +55,7 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.sort import bucket_ranks
+from repro_torch.models import sharding as sh
 from repro_torch.models.layers import init_normal
 
 
@@ -128,13 +139,41 @@ def aux_from_stats(cfg: ArchConfig, stats, tokens: int,
     return aux / max(n_layers, 1)
 
 
+def _experts(wi, wg, wo, act, xe, gates, dt):
+    """The experts' products on their slots: xe (B, E, C, d), gates
+    (B, E, C) -> (B, E, C, d), each slot scaled by its gate."""
+    h = torch.einsum("becd,edf->becf", xe, wi.to(dt))
+    if act == "swiglu":
+        g = torch.einsum("becd,edf->becf", xe, wg.to(dt))
+        h = F.silu(g) * h
+    else:
+        h = F.gelu(h, approximate="tanh")
+    ye = torch.einsum("becf,efd->becd", h, wo.to(dt))
+    return ye * gates[..., None].to(dt)
+
+
+def _combine(ye: torch.Tensor, slot: torch.Tensor, rows: torch.Tensor,
+             x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Each token's k contributions, summed from zero in `dtype` in the
+    order of `slot` (B, S, k): rows of ye (B, n, d), where the spare row
+    n (a zero row) stands for a dropped pair."""
+    b, n, d = ye.shape
+    ye_flat = torch.cat([ye, ye.new_zeros((b, 1, d))], dim=1)
+    y = torch.zeros(x.shape, dtype=dtype, device=x.device)
+    for j in range(slot.shape[-1]):
+        y = y + ye_flat[rows, slot[..., j]]
+    return y
+
+
 def moe_ffn(params: Dict, cfg: ArchConfig, x: torch.Tensor,
-            with_aux: bool = True, stats: bool = False
+            with_aux: bool = True, stats: bool = False,
+            entries: Optional[sh.Entries] = None
             ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """x: (B, S, d) -> (y (B, S, d) in x's dtype, the load-balance loss as
     a float32 scalar, or None without `with_aux`). With `stats`, the
     second item is the layer's `router_stats` (gsum, count) instead of
-    the loss."""
+    the loss. With `entries`, the experts split over them (the module
+    docstring)."""
     dt = x.dtype
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.moe_top_k
@@ -169,34 +208,44 @@ def moe_ffn(params: Dict, cfg: ArchConfig, x: torch.Tensor,
         1, slot, gate_vals.reshape(b, s * k))
     tok_of_slot, gate_of_slot = tok_of_slot[:, :dump], gate_of_slot[:, :dump]
 
-    # empty slots read row S, a zero row
-    xpad = torch.cat([x, x.new_zeros((b, 1, d))], dim=1)
     rows = torch.arange(b, device=dev)[:, None]
-    xe = xpad[rows, tok_of_slot].reshape(b, e, cap, d)
-    h = torch.einsum("becd,edf->becf", xe, params["wi"].to(dt))
-    if cfg.act == "swiglu":
-        g = torch.einsum("becd,edf->becf", xe, params["wg"].to(dt))
-        h = F.silu(g) * h
-    else:
-        h = F.gelu(h, approximate="tanh")
-    ye = torch.einsum("becf,efd->becd", h, params["wo"].to(dt))
-    ye = ye * gate_of_slot.reshape(b, e, cap)[..., None].to(dt)
-
-    # the ordered combine: row E·C of ye_flat is zero, for dropped pairs
-    ye_flat = torch.cat([ye.reshape(b, dump, d), ye.new_zeros((b, 1, d))],
-                        dim=1)
+    # the ordered combine visits each token's pairs in ascending expert
+    # order; a dropped pair's slot E·C reads a zero row
     by_expert = torch.argsort(expert_idx, dim=-1)            # (B, S, k)
     slot = torch.gather(slot.reshape(b, s, k), 2, by_expert)
-    y = torch.zeros_like(x)
-    for j in range(k):
-        y = y + ye_flat[rows, slot[..., j]]
-    return y, aux
+    wg = params["wg"] if cfg.act == "swiglu" else None
+    # unsharded: one part, every expert; else each entry's experts
+    parts = [(slice(0, e), x, lambda w: w)] if entries is None else [
+        (ent.block(e), xj, lambda w, ent=ent: ent.take(w, 0, ent.block(e), e))
+        for ent, xj in zip(entries, sh.model_copy(x, entries, "moe_in"))]
+    ys = []
+    for ex, xj, take in parts:
+        n_e, here = ex.stop - ex.start, xj.device
+        cols = slice(ex.start * cap, ex.stop * cap)
+        # empty slots read row S, a zero row
+        xpad = torch.cat([xj, xj.new_zeros((b, 1, d))], dim=1)
+        xe = xpad[rows.to(here), tok_of_slot[:, cols].to(here)]
+        ye = _experts(take(params["wi"]), None if wg is None else take(wg),
+                      take(params["wo"]), cfg.act,
+                      xe.reshape(b, n_e, cap, d),
+                      gate_of_slot[:, cols].reshape(b, n_e, cap).to(here), dt)
+        # the pairs of these experts: their slots within the block; the
+        # others (and dropped pairs) read its zero row
+        local = slot.to(here) - cols.start
+        local = torch.where((local >= 0) & (local < n_e * cap), local,
+                            n_e * cap)
+        # an entry's partial in float32, so that model_sum rounds once
+        ys.append(_combine(ye.reshape(b, n_e * cap, d), local,
+                           rows.to(here), xj,
+                           dt if entries is None else torch.float32))
+    return (ys[0] if entries is None
+            else sh.model_sum(ys, entries, "moe_combine", dt)), aux
 
 
 class MoE(nn.ParameterDict):
     """An MoE layer's weights (`init_moe`; no gradient unless a train
     state sets one) as a module whose call is `moe_ffn(self, cfg, x,
-    with_aux, stats)`."""
+    with_aux, stats, entries)`."""
 
     __call__ = nn.Module.__call__   # a ParameterDict refuses calls
 
@@ -205,6 +254,7 @@ class MoE(nn.ParameterDict):
                           for k, t in tensors.items()})
 
     def forward(self, cfg: ArchConfig, x: torch.Tensor,
-                with_aux: bool = True, stats: bool = False
+                with_aux: bool = True, stats: bool = False,
+                entries: Optional[sh.Entries] = None
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-        return moe_ffn(self, cfg, x, with_aux, stats)
+        return moe_ffn(self, cfg, x, with_aux, stats, entries)

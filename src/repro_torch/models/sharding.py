@@ -26,18 +26,55 @@ reference leaves placement to XLA, the port places a tensor itself:
 
 `shard` and `fsdp_use` return their input: placement constraints are
 XLA's, and the port's eager model has nothing to constrain.
+
+Tensor parallelism on 'model'. Where the reference's partitioner turns
+these specs into a program, the port writes it out. A mesh *entry* is
+one ('data', 'model') coordinate; the entries of one data coordinate
+(`model_entries`, an `Entries`) share that data shard's rows, and each
+computes on the blocks of the leaves that its 'model' coordinate holds
+by `param_specs` (heads, kv heads where they shard, MLP columns,
+experts, vocab), read through `Entry.take`. One process drives every
+entry of a data shard, one after another, inside each layer; the
+layers read the entries from the caller (`use_entries`), and the train
+and serving steps set them per data shard. Only the GQA families
+(dense, MoE, the encoder) shard (`tp_family`); MLA and SSM layers keep
+the whole leaves, and only the first entry of each data coordinate
+works for them.
+
+The partial results meet in `model_sum`: the entries' partials summed
+in mesh order in float32 and cast once to the activation dtype (no
+atomics, so two runs are bit-equal). With bf16 activations the
+row-parallel products hand it float32 partials (`partial_product`; the
+MoE combine adds its pairs in float32), so the sum rounds once, as the
+unsharded product does; the dry-run counts those float32 bytes. It goes
+through the `torch.ops.repro_torch`
+operator `model_allreduce` (CPU and CUDA: the sum; a fake for meta
+tensors), as an autograd function whose backward hands each entry the
+output's gradient. A sharded region's replicated input goes to the
+entries through `model_copy`, whose backward sums their gradients of it
+through the same operator: the gradient's all-reduce (Megatron's f and
+g). The dry-run traces one entry alone (`Entries` of one coordinate of
+`tp`, its model's leaves cut to that entry's blocks by `entry_model`):
+there the operator returns the entry's partial, and
+`launch/graph_analysis.py` records each call as a ring all-reduce,
+2·(tp−1)/tp of the tensor per entry, by kind (":bwd" for a gradient's).
+`model_max` (the CE's max) and `model_gather` (serving's logits: the
+vocab blocks in order) are the other two collectives.
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import re
 import threading
-from typing import Dict, Optional, Sequence, Tuple, Union
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from repro_torch.core.distributed import Mesh
+from repro_torch.kernels import oplib
+from repro_torch.launch.mesh import canon_device
 
 Axes = Union[str, None, Tuple[Union[str, None], ...]]
 
@@ -293,3 +330,302 @@ def param_specs(model) -> Dict[str, P]:
     """{parameter name: its P on the active mesh} of a port `LM`."""
     return {name: spec(*param_axes(model.cfg, name))
             for name, _ in model.named_parameters()}
+
+
+# ------------------------- tensor parallelism on 'model' -------------------------
+def tp_block(n: int, tp: int, coord: int) -> slice:
+    """The block of a dimension of n that 'model' coordinate `coord` of
+    `tp` holds: `block_slices`' rule (blocks of ⌈n / tp⌉, the last ones
+    shorter, as XLA pads)."""
+    step = -(-n // tp)
+    return slice(min(coord * step, n), min((coord + 1) * step, n))
+
+
+def tp_family(cfg) -> bool:
+    """Whether `cfg`'s layers shard over 'model' in the port: the GQA
+    families (dense, MoE, the encoder). MLA and SSM layers keep whole
+    leaves."""
+    return cfg.attn_type == "gqa" and not cfg.has_ssm
+
+
+def kv_shards(cfg) -> bool:
+    """The reference's rule: kv heads go to 'model' only where
+    `n_kv_heads % 16 == 0` (fixed at 16 whatever the mesh)."""
+    return cfg.n_kv_heads % 16 == 0
+
+
+def check_tp(cfg, tp: int) -> None:
+    """Raise ValueError unless `cfg`'s heads, sharded kv heads and experts
+    divide by `tp` (the vocab and d_ff take `tp_block`'s uneven blocks)."""
+    bad = []
+    if cfg.n_heads % tp:
+        bad.append(f"{cfg.n_heads} heads")
+    if kv_shards(cfg) and cfg.n_kv_heads % tp:
+        bad.append(f"{cfg.n_kv_heads} kv heads")
+    if cfg.is_moe and cfg.n_experts % tp:
+        bad.append(f"{cfg.n_experts} experts")
+    if bad:
+        raise ValueError(f"{cfg.name}: {', '.join(bad)} do not divide by the "
+                         f"'model' extent {tp}; pad the config with "
+                         f"ArchConfig.padded_for_mesh({tp})")
+    if opt_enabled("embed_dshard"):
+        raise ValueError("'embed_dshard' puts d_model of the table on "
+                         "'model'; the port's tensor-parallel path shards "
+                         "it by vocab")
+
+
+@dataclasses.dataclass(frozen=True)
+class Entry:
+    """One 'model' coordinate of `tp`, on `device`."""
+
+    tp: int
+    coord: int
+    device: torch.device
+
+    def block(self, n: int) -> slice:
+        return tp_block(n, self.tp, self.coord)
+
+    def take(self, w: torch.Tensor, dim: int, sl: slice,
+             n: int) -> torch.Tensor:
+        """The part `sl` (of a dimension of n) of the leaf `w` along
+        `dim`, on this entry's device: a view where `w` is there already.
+        `w` holds that dimension whole, or as this entry's block (the
+        leaves of an `entry_model`)."""
+        own = self.block(n)
+        held = (slice(0, n) if w.shape[dim] == n else own)
+        if w.shape[dim] != held.stop - held.start or not (
+                held.start <= sl.start and sl.stop <= held.stop):
+            raise ValueError(f"a leaf of {w.shape[dim]} along dim {dim} "
+                             f"holds neither all {n} nor entry "
+                             f"{self.coord}'s block {own}")
+        return w.narrow(dim, sl.start - held.start,
+                        sl.stop - sl.start).to(self.device)
+
+
+@dataclasses.dataclass(frozen=True)
+class Entries:
+    """The 'model' entries that one data shard's forward drives, in mesh
+    order: `coords` of a 'model' extent `tp` on `devices`. All `tp` of
+    them on a real mesh; one in the dry-run's trace (`traced_entry`).
+    The shard's replicated activations live on the first one's device."""
+
+    tp: int
+    coords: Tuple[int, ...]
+    devices: Tuple[torch.device, ...]
+
+    def __iter__(self) -> Iterator[Entry]:
+        return (Entry(self.tp, c, d)
+                for c, d in zip(self.coords, self.devices))
+
+
+def model_entries(mesh: Optional[Mesh], at: Dict[str, int],
+                  cfg) -> Optional[Entries]:
+    """The 'model' entries of the data shard at coordinates `at` (axis ->
+    index; axes absent are 0) of `mesh`, for `cfg`: None without a
+    'model' axis of extent > 1 or for a family that does not shard
+    (`tp_family`). Raises ValueError where `check_tp` does."""
+    if mesh is None or mesh.shape.get("model", 1) == 1 or not tp_family(cfg):
+        return None
+    tp = mesh.shape["model"]
+    check_tp(cfg, tp)
+    devs = []
+    for m in range(tp):
+        c = dict(at, model=m)
+        j = np.ravel_multi_index([c.get(a, 0) for a in mesh.axis_names],
+                                 mesh.axis_sizes)
+        devs.append(canon_device(mesh.devices[int(j)]))
+    return Entries(tp, tuple(range(tp)), tuple(devs))
+
+
+def traced_entry(tp: int, device) -> Entries:
+    """Entry 0 of a 'model' extent `tp` alone (the largest blocks), as the
+    dry-run traces it."""
+    return Entries(tp, (0,), (torch.device(device),))
+
+
+def current_entries() -> Optional[Entries]:
+    return getattr(_state, "entries", None)
+
+
+@contextlib.contextmanager
+def use_entries(entries: Optional[Entries]):
+    """Make `entries` the 'model' entries that the model's entry points
+    (`LM.loss_fn`, `prefill`, `decode_step`, `encode`, `forward`,
+    `init_caches`) drive in the block."""
+    prev = current_entries()
+    _state.entries = entries
+    try:
+        yield
+    finally:
+        _state.entries = prev
+
+
+def model_dim(cfg, name: str) -> Optional[int]:
+    """The dimension of the leaf `name` that its spec puts on 'model', or
+    None (replicated)."""
+    for d, axis in enumerate(param_axes(cfg, name)):
+        if axis is not None and "model" in _entry_axes(AXIS_RULES.get(axis)):
+            return d
+    return None
+
+
+def entry_model(model, tp: int):
+    """`model` (a port `LM`) with each leaf that shards over 'model' cut to
+    entry 0's block of `tp` (`traced_entry`), in place: a copy of the block,
+    or on the meta device an empty one. The dry-run traces such a model
+    under `traced_entry(tp, ...)`: its state holds one entry's blocks."""
+    check_tp(model.cfg, tp)
+    for name, p in list(model.named_parameters()):
+        d = model_dim(model.cfg, name)
+        if d is None:
+            continue
+        sl = tp_block(p.shape[d], tp, 0)
+        block = p.detach().narrow(d, sl.start, sl.stop - sl.start).clone()
+        new = torch.nn.Parameter(block, requires_grad=p.requires_grad)
+        prefix, _, leaf = name.rpartition(".")
+        mod = model.get_submodule(prefix) if prefix else model
+        if isinstance(mod, torch.nn.ParameterDict):
+            mod[leaf] = new
+        else:
+            setattr(mod, leaf, new)
+    return model
+
+
+def _allreduce(parts: List[torch.Tensor], tp: int, op: str,
+               kind: str) -> torch.Tensor:
+    acc = parts[0].to(torch.float32, copy=True)
+    for p in parts[1:]:
+        p = p.to(acc.device, torch.float32)
+        acc = acc + p if op == "sum" else torch.maximum(acc, p)
+    return acc.to(parts[0].dtype)
+
+
+def _allreduce_fake(parts, tp, op, kind):
+    return parts[0].new_empty(parts[0].shape)
+
+
+def _allgather(parts: List[torch.Tensor], tp: int, size: int,
+               kind: str) -> torch.Tensor:
+    dev = parts[0].device
+    out = torch.cat([p.to(dev) for p in parts], dim=-1)
+    short = size - out.shape[-1]
+    return out if short == 0 else torch.nn.functional.pad(out, (0, short))
+
+
+def _allgather_fake(parts, tp, size, kind):
+    return parts[0].new_empty(parts[0].shape[:-1] + (size,))
+
+
+MODEL_ALLREDUCE = oplib.define(
+    "model_allreduce(Tensor[] parts, int tp, str op, str kind) -> Tensor",
+    _allreduce, _allreduce_fake, _allreduce)
+MODEL_ALLGATHER = oplib.define(
+    "model_allgather(Tensor[] parts, int tp, int size, str kind) -> Tensor",
+    _allgather, _allgather_fake, _allgather)
+
+
+class _ModelSum(torch.autograd.Function):
+    """The entries' partials summed (`model_allreduce`), cast once to
+    `dtype`; the backward hands each entry the output's gradient."""
+
+    @staticmethod
+    def forward(ctx, tp, kind, dtype, *parts):
+        ctx.dests = [(p.device, p.dtype) for p in parts]
+        out = MODEL_ALLREDUCE(list(parts), tp, "sum", kind)
+        return out if dtype is None else out.to(dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (None, None, None) + tuple(g.to(dev, dt)
+                                          for dev, dt in ctx.dests)
+
+
+class _PartialMM(torch.autograd.Function):
+    """a @ b of one precision below float32 with a float32 result: the
+    products accumulate in float32 and stay unrounded. The backward
+    rounds the output's gradient to a's dtype, which is exact where it
+    comes from a `model_sum` of that dtype, and runs in it, as the
+    unsharded product's backward does."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        if a.device.type == "cpu":
+            return a.float() @ b.float()
+        return torch.mm(a, b, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.to(a.dtype)
+        return (g @ b.t() if ctx.needs_input_grad[0] else None,
+                a.t() @ g if ctx.needs_input_grad[1] else None)
+
+
+def partial_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """An entry's partial of a row-parallel product (attention's output
+    projection, the MLP's wo) with activations below float32: x (..., K)
+    times w (K, d) cast to x's dtype, as a float32 result, so that
+    `model_sum` rounds the sum once, as the unsharded product rounds its
+    result."""
+    w = w.to(x.dtype)
+    return _PartialMM.apply(x.reshape(-1, x.shape[-1]), w).reshape(
+        x.shape[:-1] + w.shape[-1:])
+
+
+class _ModelCopy(torch.autograd.Function):
+    """A replicated input handed to each entry (on its device); the
+    backward sums the entries' gradients of it (`model_allreduce`): the
+    gradient's all-reduce at the input of a sharded region."""
+
+    @staticmethod
+    def forward(ctx, tp, kind, devices, x):
+        ctx.tp, ctx.kind, ctx.src = tp, kind, (x.device, x.dtype)
+        return tuple(x.to(d).view_as(x) for d in devices)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        dev, dt = ctx.src
+        gs = [g for g in grads if g is not None]
+        if not gs:
+            return None, None, None, None
+        g = MODEL_ALLREDUCE([x.to(dev) for x in gs], ctx.tp, "sum",
+                            ctx.kind + ":bwd")
+        return None, None, None, g.to(dt)
+
+
+def model_copy(x: torch.Tensor, entries: Entries,
+               kind: str) -> List[torch.Tensor]:
+    """`x` (replicated) for each entry, on its device; differentiable: the
+    entries' gradients of it are summed in mesh order in float32 and
+    cast to its dtype. `kind` names the gradient's all-reduce."""
+    return list(_ModelCopy.apply(entries.tp, kind, entries.devices, x))
+
+
+def model_sum(parts: Sequence[torch.Tensor], entries: Entries, kind: str,
+              dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """The entries' partials (one each, in `entries`' order) summed in
+    mesh order in float32, cast once to `dtype` (default: theirs), on the
+    first one's device; differentiable. `kind` names the reduction in the
+    dry-run's records, which count the partials' bytes."""
+    return _ModelSum.apply(entries.tp, kind, dtype, *parts)
+
+
+def model_max(parts: Sequence[torch.Tensor], entries: Entries,
+              kind: str) -> torch.Tensor:
+    """The entries' partials' elementwise max, on the first one's device
+    (no gradient)."""
+    return MODEL_ALLREDUCE([p.detach() for p in parts], entries.tp, "max",
+                           kind)
+
+
+def model_gather(parts: Sequence[torch.Tensor], entries: Entries, size: int,
+                 kind: str) -> torch.Tensor:
+    """The entries' blocks of a last dimension of `size`, concatenated in
+    mesh order on the first one's device (serving's logits; no
+    gradient). A traced entry's gather holds its block, then zeros."""
+    return MODEL_ALLGATHER([p.detach() for p in parts], entries.tp, size,
+                           kind)
+
+
+MODEL_COLLECTIVES = (MODEL_ALLREDUCE, MODEL_ALLGATHER)

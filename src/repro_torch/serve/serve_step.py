@@ -8,6 +8,15 @@ attention layer (GQA or MLA; none for an SSM layer), and every prefill
 and decode step the radix rank kernel once per MoE layer (its dispatch
 ranks); `kernels/ops.py` counts the launches. Decode attention is plain
 torch. An encoder has no steps (`LM.encode` is its entry).
+
+On a mesh (`models.sharding.use_mesh`, read when a step runs), the rows
+split over the data shards (`launch.mesh.data_shards`), each run under
+its 'model' entries (`models.sharding.model_entries`: tensor parallel
+for the GQA families) on its device, on a copy of the parameters made
+per call (`launch.mesh.call_with`) where that is not the model's. The
+caches are then one per data shard (`init_caches`, a list in mesh
+order), and the logits and tokens come back on the model's device, the
+shards' rows in order.
 """
 from __future__ import annotations
 
@@ -15,18 +24,72 @@ from typing import Any, List
 
 import torch
 
+from repro_torch.launch.mesh import call_with, copy_params, data_shards
 from repro_torch.models.model import LM
+from repro_torch.models.sharding import (current_mesh, model_entries,
+                                         use_entries)
+
+
+def _plan(model: LM, rows: int):
+    """Per data shard of the active mesh: (its device, its 'model'
+    entries, its rows' slice)."""
+    mesh = current_mesh()
+    _, shards = data_shards(mesh, rows)
+    per = rows // len(shards)
+    return [(dev, model_entries(mesh, at, model.cfg),
+             slice(j * per, (j + 1) * per))
+            for j, (at, dev) in enumerate(shards)]
+
+
+def _on_shards(model: LM, name: str, x: torch.Tensor, caches, *args):
+    """`model.<name>(x[rows], *args, caches[j])` per data shard j: the
+    shards' logits concatenated on the model's device, and their new
+    caches. A shard on another device runs on a copy of the parameters
+    made for this call, so it reads the model's current weights."""
+    outs, new, copies = [], [], {}
+    for j, (dev, entries, rows) in enumerate(_plan(model, x.shape[0])):
+        call = (x[rows].to(dev), *args, caches[j])
+        with use_entries(entries):
+            if dev == model.device:
+                out = getattr(model, name)(*call)
+            else:
+                if dev not in copies:
+                    copies[dev] = copy_params(model.named_parameters(), dev)
+                out = call_with(model, copies[dev], name, *call)
+        outs.append(out[0].to(model.device))
+        new.append(out[1])
+    return torch.cat(outs), new
+
+
+def init_caches(model: LM, batch: int, max_len: int) -> List[Any]:
+    """The caches of `batch` rows: the model's (`LM.init_caches`), or on a
+    mesh one per data shard, each built under its entries on its
+    device."""
+    if current_mesh() is None:
+        return model.init_caches(batch, max_len)
+    out = []
+    for dev, entries, rows in _plan(model, batch):
+        with use_entries(entries):
+            out.append(model.init_caches(rows.stop - rows.start, max_len,
+                                         device=dev))
+    return out
 
 
 def make_prefill_step(model: LM):
     def prefill_step(tokens: torch.Tensor, caches: List[Any]):
-        return model.prefill(tokens, caches)
+        if current_mesh() is None:
+            return model.prefill(tokens, caches)
+        return _on_shards(model, "prefill", tokens, caches)
     return prefill_step
 
 
 def make_decode_step(model: LM):
     def decode_step(tok: torch.Tensor, pos: int, caches: List[Any]):
-        logits, caches = model.decode_step(tok, pos, caches)
+        if current_mesh() is None:
+            logits, caches = model.decode_step(tok, pos, caches)
+        else:
+            logits, caches = _on_shards(model, "decode_step", tok, caches,
+                                        pos)
         # greedy next token (sampling handled by the server loop)
         next_tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
         return next_tok, logits, caches
@@ -41,7 +104,7 @@ def generate(model: LM, prompt: torch.Tensor, max_new: int,
     device."""
     prompt = prompt.to(device=model.device, dtype=torch.int32)
     b, s = prompt.shape
-    caches = model.init_caches(b, max_len)
+    caches = init_caches(model, b, max_len)
     decode = make_decode_step(model)
     logits, caches = make_prefill_step(model)(prompt, caches)
     tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]

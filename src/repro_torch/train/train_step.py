@@ -30,11 +30,11 @@ blocks, in mesh order; a shard runs on the first mesh entry at its
 coordinates). Each shard runs `LM.loss_fn` and `torch.autograd.grad` on
 its rows on its device: the model's own parameters where the shard is on
 the model's device (shards that repeat a device share them), a copy of
-them through `torch.func.functional_call` elsewhere. A shard's CE is its
-sum over the microbatch's token count (Σ mask, at least 1, where there is
-a mask), so the shards' losses add up to the whole microbatch's mean, as
-the reference's jitted step computes it whatever the sharding, and so do
-their gradients. The gradients are summed in float32 in mesh order (no
+them made per step elsewhere (`launch.mesh.copy_params`, `call_with`).
+A shard's CE is its sum over the microbatch's token count (Σ mask, at
+least 1, where there is a mask), so the shards' losses add up to the
+whole microbatch's mean, as the reference's jitted step computes it
+whatever the sharding, and so do their gradients. The gradients are summed in float32 in mesh order (no
 atomics: two runs are bit-equal); `grad_sync_dtype` rounds the sum, the
 microbatch's gradient, as the reference's does, before it is added to the
 accumulator.
@@ -53,6 +53,19 @@ plus its linear share of the aux, coef·E/(L·B·S)·Σ_l ⟨gsum_s,l, frac_l⟩
 shares add up to the aux and their gradients to its gradient. Every
 shard's forward graph lives until the last forward ends. The loss
 reported is the shards' CE summed plus the assembled aux.
+
+Tensor parallelism: on a mesh with a 'model' axis, each data shard's
+loss runs under its 'model' entries (`models.sharding.model_entries`,
+set by `use_entries`): every entry computes on its blocks of the
+leaves (views of the whole leaves where it shares the model's device, a
+differentiable copy elsewhere), so the entries of a data shard are the
+data shards × the 'model' entries, and a leaf's gradient comes back
+whole: a sharded leaf's is its entries' blocks, a replicated one's the
+sum of their contributions. The state stays whole leaves on the
+model's device, so AdamW, the ZeRO blocks and compression are as above.
+MLA and SSM configs do not shard (`models.sharding.tp_family`): their
+first entry of each data coordinate works. Without a mesh the step runs
+under the caller's entries, if any: the dry-run's one traced entry.
 
 `grad_shard_specs` ({name: P}, `models.sharding.param_specs`' layout),
 on a mesh, makes the accumulator ZeRO-sharded: each data shard keeps
@@ -73,14 +86,15 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
-from torch import nn
 
 from repro_torch.ft.elastic import resolve_spec_for_mesh
-from repro_torch.launch.mesh import batch_axes_for
+from repro_torch.launch.mesh import call_with, copy_params, data_shards
 from repro_torch.models import moe
 from repro_torch.models.model import LM
 from repro_torch.models.sharding import (Placed, block_slices,
-                                         current_mesh, keep_axes)
+                                         current_entries, current_mesh,
+                                         keep_axes, model_entries,
+                                         use_entries)
 from repro_torch.optim import compression as comp
 from repro_torch.optim.optimizer import (OptConfig, adamw_update,
                                          init_opt_state)
@@ -171,41 +185,6 @@ def _compress(fn: Callable, grads: Dict, errs: Dict, groups) -> Tuple[Dict,
     return sent, new_err
 
 
-class _LossOf(nn.Module):
-    """`model.loss_fn` as a module call, for `functional_call` with a copy
-    of the parameters on another device."""
-
-    def __init__(self, model: LM):
-        super().__init__()
-        self.model = model
-
-    def forward(self, batch, denominator, moe_stats=None):
-        return self.model.loss_fn(batch, denominator, moe_stats)
-
-
-def _canon(dev: torch.device) -> torch.device:
-    if dev.type == "cuda" and dev.index is None:
-        return torch.device("cuda", torch.cuda.current_device())
-    return dev
-
-
-def _data_shards(mesh, rows: int) -> Tuple[Tuple[str, ...], List]:
-    """The batch axes of `rows` on `mesh` and, per data shard in mesh
-    order, its coordinates on them and its device (the first mesh entry
-    there)."""
-    axes = batch_axes_for(rows, mesh)
-    axes = () if axes is None else ((axes,) if isinstance(axes, str)
-                                    else tuple(axes))
-    sizes = [mesh.shape[a] for a in axes]
-    shards = []
-    for k in range(int(np.prod(sizes, dtype=np.int64))):
-        at = dict(zip(axes, (int(c) for c in np.unravel_index(k, sizes))))
-        j = np.ravel_multi_index([at.get(a, 0) for a in mesh.axis_names],
-                                 mesh.axis_sizes)
-        shards.append((at, _canon(mesh.devices[int(j)])))
-    return axes, shards
-
-
 def _grad_blocks(params: Dict, specs: Optional[Dict], mesh, axes,
                  shards, root) -> Dict[str, List]:
     """Per leaf, the (slices, device) of each block of its gradient sum
@@ -256,7 +235,6 @@ def make_train_step(model: LM, opt_cfg: OptConfig, micro_batches: int = 1,
         raise ValueError(f"compress must be None, 'topk' or 'int8', got "
                          f"{compress!r}")
     sync_dt = getattr(torch, grad_sync_dtype) if grad_sync_dtype else None
-    loss_of = _LossOf(model)
 
     def compress_grads(state: Dict, grads: Dict) -> Dict:
         fn = ((lambda g, e: comp.topk_compress(g, topk_frac, e))
@@ -269,20 +247,19 @@ def make_train_step(model: LM, opt_cfg: OptConfig, micro_batches: int = 1,
                 state["err"][n].copy_(e)
         return grads
 
-    def shard_loss(names, leaves, rows, dev, den, copies, stats):
+    def shard_loss(names, leaves, rows, dev, den, copies, stats, entries):
         """(loss, loss_fn's metrics, the leaves it reads) of one data
-        shard's rows on its device; `stats` (a list, or None) collects its
-        MoE statistics."""
-        if dev == model.device:
-            return (*model.loss_fn(rows, den, stats), leaves)
-        if dev not in copies:
-            copies[dev] = [p.detach().to(dev).requires_grad_(True)
-                           for p in leaves]
-        use = copies[dev]
-        loss, metrics = torch.func.functional_call(
-            loss_of, {"model." + n: t for n, t in zip(names, use)},
-            (rows, den, stats))
-        return loss, metrics, use
+        shard's rows on its device, under its 'model' `entries`; `stats`
+        (a list, or None) collects its MoE statistics."""
+        with use_entries(entries):
+            if dev == model.device:
+                return (*model.loss_fn(rows, den, stats), leaves)
+            if dev not in copies:
+                copies[dev] = copy_params(zip(names, leaves), dev,
+                                          requires_grad=True)
+            loss, metrics = call_with(model, copies[dev], "loss_fn", rows,
+                                      den, stats)
+            return loss, metrics, list(copies[dev].values())
 
     def grads_of(loss, use):
         grads = torch.autograd.grad(loss, use, allow_unused=True)
@@ -291,7 +268,7 @@ def make_train_step(model: LM, opt_cfg: OptConfig, micro_batches: int = 1,
                 for p, g in zip(use, grads)]
 
     def shard_grads(names, leaves, mb, shards, per, den, copies, root,
-                    auxes):
+                    auxes, groups):
         """Per data shard in mesh order, (loss on `root`, grads); an MoE
         config appends the microbatch's aux (on `root`) to `auxes`. On
         more than one shard it runs every shard's forward first, then
@@ -304,7 +281,8 @@ def make_train_step(model: LM, opt_cfg: OptConfig, micro_batches: int = 1,
             loss, metrics, use = shard_loss(
                 names, leaves,
                 {k: x[j * per:(j + 1) * per].to(dev) for k, x in mb.items()},
-                dev, None if den is None else den.to(dev), copies, stats)
+                dev, None if den is None else den.to(dev), copies, stats,
+                groups[j])
             if not moe_mesh:       # one shard's graph alive at a time
                 if model.cfg.is_moe:
                     auxes.append(metrics["aux"].detach().to(root))
@@ -336,7 +314,10 @@ def make_train_step(model: LM, opt_cfg: OptConfig, micro_batches: int = 1,
                if micro_batches > 1 else [batch])
         rows = next(iter(mbs[0].values())).shape[0]
         axes, shards = (((), [({}, root)]) if mesh is None
-                        else _data_shards(mesh, rows))
+                        else data_shards(mesh, rows))
+        # without a mesh, the caller's entries (the dry-run's one entry)
+        groups = ([current_entries()] if mesh is None else
+                  [model_entries(mesh, at, model.cfg) for at, _ in shards])
         blocks = _grad_blocks(params, grad_shard_specs if mesh else None,
                               mesh, axes, shards, root)
         per = rows // len(shards)
@@ -347,7 +328,8 @@ def make_train_step(model: LM, opt_cfg: OptConfig, micro_batches: int = 1,
             den = _denominator(mb, root) if len(shards) > 1 else None
             part, mloss = None, None
             for loss, grads in shard_grads(names, leaves, mb, shards, per,
-                                           den, copies, root, auxes):
+                                           den, copies, root, auxes,
+                                           groups):
                 mloss = loss if mloss is None else mloss + loss
                 if part is None:
                     part = [[g[sl].to(bdev, torch.float32,

@@ -357,3 +357,51 @@ def test_lgrass_cell_traces_the_mark_operator(small_production_mesh,
     assert rec["devices_with_work"] == 8 and rec["fits"]
     assert rec["collectives"]["n_tables->shards"] == 7
     assert ops.launch_counts()["mark"] == 0   # a fake launches nothing
+
+
+def test_tp_cells_trace_one_working_entry(small_production_mesh, tmp_path):
+    """On the (4, 2) test mesh a GQA cell is tensor parallel: granite's
+    decode_32k traces one entry at its blocks (its 48 experts padded for
+    16 ways, 24 an entry on a 'model' extent of 2), every one of the 8
+    entries works, and its collective term holds the 'model' reductions
+    by kind at the NVLink rate; mamba2 (SSM) keeps its 4 data shards and
+    no 'model' term."""
+    rec = D.run_cell("granite-moe-3b-a800m", "decode_32k", False,
+                     str(tmp_path), force=True)
+    assert rec["devices_with_work"] == 8 and rec["model_entries"] == 2
+    assert rec["model_collective_bytes_per_device"] > 0
+    # the port's step holds whole leaves on a data shard's root device
+    assert rec["state_layout"] == "entry blocks"
+    assert rec["port_root_peak_bytes"] > rec["peak_bytes_per_device"]
+    kinds = {k for k in rec["collectives"] if k.startswith("model:")}
+    assert kinds == {"model:embed", "model:attn_out", "model:moe_combine",
+                     "model:logits"}
+    layers = tconfigs.get_arch("granite-moe-3b-a800m").n_layers
+    assert rec["collectives"]["n_model:attn_out"] == layers  # one a layer
+    mesh = M.make_production_mesh()
+    assert rec["t_collective_s"] == pytest.approx(
+        rec["model_collective_bytes_per_device"]
+        / M.axis_bandwidth(mesh, ("model",)))
+    ssm = D.run_cell("mamba2-370m", "decode_32k", False, str(tmp_path),
+                     force=True)
+    assert ssm["devices_with_work"] == 4 and ssm["model_entries"] == 1
+    assert ssm["model_collective_bytes_per_device"] == 0
+    assert ssm["state_layout"] == "whole leaves"
+    assert ssm["port_root_peak_bytes"] == ssm["peak_bytes_per_device"]
+    # the root's extra: the whole parameters less entry 0's blocks
+    # (serving), four float32 copies of that (train)
+    from repro_torch.models import sharding as sh
+
+    cfg = tconfigs.get_arch("granite-moe-3b-a800m").padded_for_mesh(
+        M.TP_SIZE)
+
+    def nbytes(m):
+        return sum(p.numel() * p.element_size() for p in m.parameters())
+
+    for kind, kw, copies in (("decode", {}, 1),
+                             ("train", {"param_dtype": torch.float32}, 4)):
+        whole = nbytes(LM(cfg, device="meta", **kw))
+        block = nbytes(sh.entry_model(LM(cfg, device="meta", **kw), 2))
+        assert D.port_root_extra_bytes(cfg, kind, 2) == \
+            copies * (whole - block) > 0
+    assert D.port_root_extra_bytes(cfg, "train", 1) == 0
