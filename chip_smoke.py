@@ -138,18 +138,19 @@ Phases, in order; any failed check exits non-zero:
      layers); the `Trainer` on phi3's reduced config, 12 steps, a failure
      at step 9 (one restart, equal replayed losses);
   8. mesh_train: training on a mesh of the card (`models.sharding`,
-     `launch.mesh`): phi3-mini-3.8b at full width, 4 of 32 layers (the
-     cut keeps the phase short), B = 4 x 2,048, bf16 activations, remat:
+     `launch.mesh`): phi3-mini-3.8b at full width, 2 of 32 layers
+     (`MESH_DEPTH`: the cut keeps the script inside its time limit), B =
+     4 x 2,048, bf16 activations, remat:
      one step from a fresh state unsharded, on 4 data shards of cuda:0
      and with the ZeRO accumulator (`grad_shard_specs=param_specs`),
      each against the unsharded step (loss rel. 1e-3, each gradient leaf
      (mu after the first step) and parameter rel. L2 2e-2), then 2 more
      steps of each timed (ms side by side, peak memory, busy share,
-     launches a step: flash forward 8 / 32 / 32, backward 4 / 16 / 16);
+     launches a step: flash forward 4 / 16 / 16, backward 2 / 8 / 8);
      the depth-2 fp32 parity of the 4-shard step against the unsharded
      one on an uneven mask (1e-4 of each leaf's max); the same two for
-     MoE, granite-moe-3b-a800m at 4 of 32 layers, capacity factor 1.25
-     (launches a step: rank 8 / 32 / 32 beside the flash ones; the aux
+     MoE, granite-moe-3b-a800m at 2 of 32 layers, capacity factor 1.25
+     (launches a step: rank 4 / 16 / 16 beside the flash ones; the aux
      each step reports (`metrics["aux"]`; on the mesh assembled from the
      shards' router statistics) against the whole batch's, rel. 1e-5,
      and the mean of the shards' own auxes, which must lie outside that
@@ -4045,7 +4046,9 @@ def phase_train(dev) -> tuple:
 
 MESH_ARCH = "phi3-mini-3.8b"
 MESH_MOE_ARCH = "granite-moe-3b-a800m"
-MESH_DEPTH = 4              # of the 32 layers of each, at full width
+MESH_DEPTH = 2              # of the 32 layers of each, at full width: 2
+#   keeps the whole script inside its time limit (at 4 the mesh phase
+#   took 108.5 s against 47.5 and a slow host took the run to 1,091 s)
 MESH_SHARDS = 4             # data shards of cuda:0
 MESH_BATCH, MESH_SEQ, MESH_TIMED = 4, 2048, 2
 MESH_LOSS_RTOL = 1e-3       # bf16 activations: the sharded GEMMs round
@@ -4066,10 +4069,14 @@ MESH_TP = {"tp4": (1, 4), "data2 tp2": (2, 2)}
 # `sharding.partial_product`), but a replicated input's gradient is the
 # sum of the entries' bf16 parts, and granite's combine rounds per add
 # unsharded and once under TP, so a few routings flip and their experts'
-# gradients move. Read on an NVIDIA H100 80GB HBM3 (700 W): phi3 1.7e-2
-# and 1.5e-3 on (1, 4) and (2, 2); granite 0.14, 2.5e-3 and 2.9e-5
-MESH_TP_LIMITS = {MESH_ARCH: dict(grad=4e-2, param=5e-3),
-                  MESH_MOE_ARCH: dict(grad=0.3, param=1e-2, aux=1e-4)}
+# gradients move. Read on an NVIDIA H100 80GB HBM3 (700 W) at MESH_DEPTH
+# = 2 (the same in every run): phi3 1.10e-2 and 1.18e-3 on (1, 4) and
+# (2, 2); granite 8.48e-2, 1.92e-3 and 3.35e-5. Each limit is the
+# reading times the ratio the limit had to the 4-layer reading (phi3
+# 4e-2 / 1.69e-2 and 5e-3 / 1.55e-3; granite 0.3 / 0.136, 1e-2 / 2.46e-3),
+# rounded down; granite's aux keeps 1e-4 (its 4-layer reading was 2.85e-5)
+MESH_TP_LIMITS = {MESH_ARCH: dict(grad=2.5e-2, param=3.8e-3),
+                  MESH_MOE_ARCH: dict(grad=0.18, param=7.8e-3, aux=1e-4)}
 TP_SERVE_NEW = 32            # decode steps after the prefill
 TP_SERVE_FP32_TOL = 1e-4     # of the logits' largest magnitude, fp32
 TP_SERVE_BF16_REL_L2 = 5e-2  # the serving contract's, bf16
@@ -4084,10 +4091,19 @@ def _uneven_mask(b, s, dev, seed=0):
     return torch.from_numpy(keep).to(dev)
 
 
+def _whole(x):
+    """A leaf of a train state as a whole tensor on its device (a Placed
+    one gathered; a copy either way)."""
+    from repro_torch.models.sharding import Placed
+
+    return x.full() if isinstance(x, Placed) else x.detach().clone()
+
+
 def _train_snapshot(state) -> dict:
-    """A copy of a train state's params and moments (no "err")."""
+    """A copy of a train state's params and moments (no "err"), whole
+    leaves."""
     def copy(tree):
-        return {n: t.detach().clone() for n, t in tree.items()}
+        return {n: _whole(t) for n, t in tree.items()}
 
     opt = state["opt"]
     return dict(params=copy(state["params"]),
@@ -4095,12 +4111,18 @@ def _train_snapshot(state) -> dict:
                          step=opt["step"].clone()))
 
 
-def _rel_l2_leaves(got, want) -> float:
-    """The worst relative L2 distance over the leaves."""
+def _rel_l2_leaves(got, want, base=None) -> float:
+    """The worst relative L2 distance over the leaves, each compared on
+    got's device (a Placed leaf gathered there); with `base`, of got -
+    base against want - base (the updates)."""
     worst = 0.0
     for name, w in want.items():
-        g = got[name].detach().double()
-        w = w.detach().double()
+        g = _whole(got[name])
+        w = w.detach().to(g.device)
+        if base is not None:
+            b = base[name].to(g.device)
+            g, w = g - b, w - b
+        g, w = g.double(), w.double()
         worst = max(worst, float(torch.linalg.vector_norm(g - w)
                                  / max(float(torch.linalg.vector_norm(w)),
                                        1e-30)))
@@ -4166,7 +4188,8 @@ def _mesh_full(dev, card, arch=MESH_ARCH, grad_limit=MESH_REL_L2,
     from repro_torch.models.model import LM
     from repro_torch.models.sharding import param_specs, use_mesh
     from repro_torch.optim.optimizer import OptConfig
-    from repro_torch.train.train_step import (load_train_state,
+    from repro_torch.train.train_step import (entry_bytes, lay_out_state,
+                                              load_train_state,
                                               make_train_state,
                                               make_train_step)
 
@@ -4179,7 +4202,6 @@ def _mesh_full(dev, card, arch=MESH_ARCH, grad_limit=MESH_REL_L2,
     model = LM(cfg, generator=torch.Generator(dev).manual_seed(0),
                device=dev, param_dtype=torch.float32)
     state = make_train_state(model)
-    start = _train_snapshot(state)
     n = sum(p.numel() for p in model.parameters())
     batch = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size,
                                      seq_len=MESH_SEQ,
@@ -4188,7 +4210,8 @@ def _mesh_full(dev, card, arch=MESH_ARCH, grad_limit=MESH_REL_L2,
     mesh = make_host_mesh(MESH_SHARDS, device=dev)
     opt = OptConfig(peak_lr=3e-4, warmup_steps=2, total_steps=100)
     print(f"mesh_train {arch}: depth cut to {cut} (full width; the "
-          f"cut keeps the phase short), {n / 1e9:.3f} B params, "
+          f"cut keeps the script inside its time limit), "
+          f"{n / 1e9:.3f} B params, "
           f"{16 * n / 1e9:.1f} GB of float32 params, grads and moments, "
           f"B={MESH_BATCH} S={MESH_SEQ}, bf16 activations, remat"
           + (f", capacity factor {cfg.capacity_factor}" if cfg.is_moe
@@ -4216,16 +4239,31 @@ def _mesh_full(dev, card, arch=MESH_ARCH, grad_limit=MESH_REL_L2,
               f"the shards' auxes is within {MESH_AUX_RTOL:g} of the whole "
               f"batch's ({own_rel:.3e}): the aux check cannot tell them "
               f"apart")
-    rows, first = {}, None
+    # the start and the unsharded step's result (`first`), both made
+    # before any row: every row holds them, and their bytes (`harness`)
+    # come off each row's held and peak bytes, which are then its state's
+    base = _held_bytes(dev)
+    start = _train_snapshot(state)
+    first_loss = float(make_train_step(model, opt)(state, batch)[1]["loss"])
+    snap = _train_snapshot(state)
+    first = dict(loss=first_loss, mu=snap["opt"]["mu"], params=snap["params"])
+    del snap
+    harness = _held_bytes(dev) - base
+    rows = {}
     for name, m, zero in _mesh_variants(mesh, tp):
+        # each variant's layout (a TP mesh: every entry its blocks) before
+        # its held bytes are read
+        with use_mesh(m):
+            lay_out_state(model, state)
+            specs = param_specs(model) if zero else None
         load_train_state(state, start)
-        torch.cuda.synchronize()
-        held_gb = torch.cuda.memory_allocated() / 1e9
+        held_gb = (_held_bytes(dev) - harness) / 1e9
+        with use_mesh(m):
+            per_entry = entry_bytes(model, state, MESH_BATCH, specs)
         torch.cuda.reset_peak_memory_stats()
         want = _mesh_launches(cfg, m)
         with use_mesh(m):
-            step = make_train_step(model, opt, grad_shard_specs=(
-                param_specs(model) if zero else None))
+            step = make_train_step(model, opt, grad_shard_specs=specs)
             walls, losses = [], []
             for i in range(1 + MESH_TIMED):
                 torch.cuda.synchronize()
@@ -4260,22 +4298,11 @@ def _mesh_full(dev, card, arch=MESH_ARCH, grad_limit=MESH_REL_L2,
                                    aux_rel=aux_rel,
                                    aux_mean_of_shards=aux_own,
                                    aux_mean_of_shards_rel=own_rel)
-                out = dict(loss=loss, mu={k: t.clone() for k, t in
-                                          state["opt"]["mu"].items()},
-                           params={k: t.detach().clone() for k, t in
-                                   state["params"].items()})
-                if first is None:
-                    first = out
-                    cmp = dict(aux_cmp or {})
-                    continue
                 rel = abs(loss - first["loss"]) / abs(first["loss"])
-                grad_l2 = _rel_l2_leaves(out["mu"], first["mu"])
-                param_l2 = _rel_l2_leaves(out["params"], first["params"])
-                update_l2 = _rel_l2_leaves(
-                    {k: out["params"][k] - start["params"][k]
-                     for k in out["params"]},
-                    {k: first["params"][k] - start["params"][k]
-                     for k in out["params"]})
+                grad_l2 = _rel_l2_leaves(state["opt"]["mu"], first["mu"])
+                param_l2 = _rel_l2_leaves(state["params"], first["params"])
+                update_l2 = _rel_l2_leaves(state["params"], first["params"],
+                                           start["params"])
                 check(rel <= MESH_LOSS_RTOL, f"mesh_train {name}: loss "
                       f"{loss} vs unsharded {first['loss']} (rel {rel:.2e})")
                 check(lim["grad"] is None or (
@@ -4287,17 +4314,32 @@ def _mesh_full(dev, card, arch=MESH_ARCH, grad_limit=MESH_REL_L2,
                            param_rel_l2_worst=param_l2,
                            update_rel_l2_worst=update_l2)
                 cmp.update(aux_cmp or {})
-                del out
             prof = _profile(lambda: step(state, batch))
         torch.cuda.synchronize()
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        peak_gb = (torch.cuda.max_memory_allocated() - harness) / 1e9
         step_ms = statistics.median(walls[1:])
         rows[name] = dict(step_ms=step_ms, step_ms_runs=walls,
                           tokens_per_s=MESH_BATCH * MESH_SEQ / step_ms * 1e3,
                           losses=losses, peak_memory_gb=peak_gb,
                           held_before_gb=held_gb,
+                          state_bytes_per_entry=per_entry,
                           busy_share=prof["busy_share"], profile_ms=prof,
                           launches_per_step=counts, **cmp)
+        entry_gb = [round(sum(e.values()) / 1e9, 4) for e in per_entry]
+        print(f"mesh_train {arch} {name} state per entry (params / mu / nu "
+              f"/ accumulator GB): " + "; ".join(
+                  f"{j}: " + " / ".join(f"{v / 1e9:.4f}" for v in e.values())
+                  for j, e in enumerate(per_entry))
+              + f"; all {entry_gb} GB; held before the step "
+              f"{held_gb:.2f} GB, peak {peak_gb:.2f} GB (the card's less "
+              f"this phase's snapshots, {harness / 1e9:.2f} GB)"
+              + ("" if name == "unsharded" else
+                 f" (unsharded: state " + " / ".join(
+                     f"{v / 1e9:.4f}" for v in
+                     rows["unsharded"]["state_bytes_per_entry"][0].values())
+                 + f" GB, held {rows['unsharded']['held_before_gb']:.2f} GB, "
+                 f"peak {rows['unsharded']['peak_memory_gb']:.2f} GB)")
+              + f"; card {card}")
         print(f"mesh_train {arch} {name} ({cut}): step {step_ms:.1f} ms "
               f"(median of {MESH_TIMED}; warm-up {walls[0]:.1f} ms), peak "
               f"memory {peak_gb:.2f} GB ({held_gb:.2f} GB held before the "
@@ -4393,9 +4435,10 @@ def _mesh_elastic(dev) -> dict:
     """tests/test_distributed.py:137-183 on the card at phi3's reduced
     config: 6 steps on MESH_SHARDS data shards of the card, a checkpoint,
     restore(shardings=) onto that mesh, a fresh model, `remesh_state`
-    onto a (2, 2) ('data', 'model') mesh, 6 more steps; the 12 losses
-    against 12 unsharded steps on the card within 1e-5, the optimizer's
-    step at 12."""
+    onto a (2, 2) ('data', 'model') mesh, 6 more steps (the first lays
+    the state out there: each entry its blocks); the 12 losses against
+    12 unsharded steps on the card within 1e-5, the optimizer's step at
+    12."""
     import tempfile
 
     from repro_torch.ckpt.checkpoint import Checkpointer
@@ -4405,7 +4448,7 @@ def _mesh_elastic(dev) -> dict:
     from repro_torch.ft.elastic import remesh_state
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models.model import LM
-    from repro_torch.models.sharding import P, use_mesh
+    from repro_torch.models.sharding import P, Placed, use_mesh
     from repro_torch.optim.optimizer import OptConfig
     from repro_torch.train.train_step import (load_train_state,
                                               make_train_state,
@@ -4453,6 +4496,8 @@ def _mesh_elastic(dev) -> dict:
             losses.append(float(step(state, data.batch(i))[1]["loss"]))
     diff = max(abs(a - b) for a, b in zip(losses, want))
     opt_step = int(state["opt"]["step"])
+    check(isinstance(state["params"]["embedding"], Placed),
+          "mesh_train elastic: the state on (2, 2) is not placed")
     check(diff <= 1e-5 and opt_step == 12,
           f"mesh_train elastic: losses differ by {diff} from the unsharded "
           f"run, opt step {opt_step}")
@@ -4572,18 +4617,18 @@ def _mesh_fp32(dev, arch, data=True, tp=("tp4",), card="") -> dict:
         fwd = [torch.cat([routes[j * cfg.n_layers + l]
                           for j in range(shards)])
                for l in range(cfg.n_layers)] if hooks else []
-        mu = {k: t.clone() for k, t in state["opt"]["mu"].items()}
-        params = {k: t.detach().clone() for k, t in state["params"].items()}
         if first is None:
-            first = (loss, mu, fwd, params, aux)
+            snap = _train_snapshot(state)
+            first = (loss, snap["opt"]["mu"], fwd, snap["params"], aux)
+            del snap
             continue
         rel = abs(loss - first[0]) / abs(first[0])
         aux_rel = None if aux is None else abs(aux - first[4]) / abs(first[4])
         check(aux is None or aux_rel <= MESH_AUX_RTOL,
               f"mesh_train fp32 {arch} {name}: aux {aux!r} vs the unsharded "
               f"step's {first[4]!r} (rel {aux_rel}, limit {MESH_AUX_RTOL:g})")
-        grad_l2 = _rel_l2_leaves(mu, first[1])
-        param_l2 = _rel_l2_leaves(params, first[3])
+        grad_l2 = _rel_l2_leaves(state["opt"]["mu"], first[1])
+        param_l2 = _rel_l2_leaves(state["params"], first[3])
         flips = sum(int((torch.sort(a, -1).values
                          != torch.sort(b, -1).values).any(-1).sum())
                     for a, b in zip(fwd, first[2]))
@@ -4622,6 +4667,7 @@ def _tp_serve(dev, card, model, fp32: bool) -> dict:
     from repro_torch.serve import serve_step as ss
 
     tag = "fp32" if fp32 else "bf16"
+    # the steps lay the model out: whole leaves unsharded, placed on (1, 4)
     prompt = torch.randint(0, model.cfg.vocab_size, (MESH_BATCH, MESH_SEQ),
                            dtype=torch.int32,
                            generator=torch.Generator().manual_seed(21)).to(dev)
@@ -4697,9 +4743,13 @@ def _mesh_moe(dev, card) -> tuple:
     t0 = time.perf_counter()
     rows = _mesh_full(dev, card, MESH_MOE_ARCH, grad_limit=None,
                       tp=("tp4",))
+    t1 = time.perf_counter()
     fp32 = _mesh_fp32(dev, MESH_MOE_ARCH)
+    t2 = time.perf_counter()
     parity = _mesh_parity(dev, MESH_MOE_ARCH)
-    print(f"mesh_train {MESH_MOE_ARCH}: {time.perf_counter() - t0:.1f} s")
+    t3 = time.perf_counter()
+    print(f"mesh_train {MESH_MOE_ARCH}: {t3 - t0:.1f} s (bf16 steps "
+          f"{t1 - t0:.1f}, fp32 steps {t2 - t1:.1f}, parity {t3 - t2:.1f})")
     return rows, dict(parity, fp32_full_width=fp32)
 
 
@@ -4715,15 +4765,25 @@ def phase_mesh_train(dev, card) -> dict:
     twin. Returns per kernel its launches a step on the dense mesh path
     ({variant: count}), on the MoE one ({"moe": {variant: count}}) and on
     the tensor-parallel one ({"tp": {variant: count}})."""
-    t0 = time.perf_counter()
-    rows = _mesh_full(dev, card)
-    tp_fp32 = _mesh_fp32(dev, MESH_ARCH, data=False, card=card)
-    parity = _mesh_parity(dev)
-    moe_rows, moe_parity = _mesh_moe(dev, card)
-    elastic = _mesh_elastic(dev)
-    psum = _mesh_psum(dev)
-    twin = _mesh_serve_twin()
+    t0, parts = time.perf_counter(), {}
+
+    def timed(name, fn, *args, **kw):
+        t = time.perf_counter()
+        out = fn(*args, **kw)
+        parts[name] = time.perf_counter() - t
+        return out
+
+    rows = timed(f"{MESH_ARCH} bf16", _mesh_full, dev, card)
+    tp_fp32 = timed(f"{MESH_ARCH} fp32", _mesh_fp32, dev, MESH_ARCH,
+                    data=False, card=card)
+    parity = timed(f"{MESH_ARCH} parity", _mesh_parity, dev)
+    moe_rows, moe_parity = timed(MESH_MOE_ARCH, _mesh_moe, dev, card)
+    elastic = timed("elastic", _mesh_elastic, dev)
+    psum = timed("psum", _mesh_psum, dev)
+    twin = timed("serve twin", _mesh_serve_twin)
     wall = time.perf_counter() - t0
+    print("mesh_train seconds by part: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in parts.items()))
     serve = rows.pop("serve")
     print(f"mesh_train numbers: {json.dumps(dict(runs=rows, tp_fp32=tp_fp32, tp_serve_bf16=serve, parity=parity, moe_runs=moe_rows, moe_parity=moe_parity, elastic=elastic, psum=psum, serve_twin=twin, wall_s=wall, card=card))}")
     out = {}
@@ -4960,7 +5020,8 @@ def _dryrun_vs_card(dev, card) -> dict:
     with FlopCounterMode(display=False) as counter:
         state, metrics = step(state, batch)
     flops = counter.get_total_flops()
-    tp = _dryrun_tp_entry(dev, card, cfg, opt, cpu_batch, step, state, batch)
+    tp = _dryrun_tp_entry(dev, card, cfg, opt, cpu_batch, model, step,
+                          state, batch)
     tp["unsharded_card_flops"] = flops
     del model, state, batch, step, metrics
     rel = dry["peak_bytes"] / peak - 1
@@ -5024,13 +5085,16 @@ def _dryrun_vs_card(dev, card) -> dict:
     return row
 
 
-def _dryrun_tp_entry(dev, card, cfg, opt, cpu_batch, step, state,
+def _dryrun_tp_entry(dev, card, cfg, opt, cpu_batch, model, step, state,
                      batch) -> dict:
     """One traced entry of the (1, 4) ('data', 'model') mesh
-    (`sharding.entry_model` + `traced_entry` on meta tensors) of the
-    mesh_train phase's phi3 step against that step on (1, 4) of the card,
-    by `FlopCounterMode` count. With remat's early stop off on both
-    sides, the four entries' traced FLOPs summed equal the card step's.
+    (`sharding.entry_model`, `place_model` for entry 0 alone, +
+    `traced_entry` on meta tensors) of the mesh_train phase's phi3 step
+    against that step on (1, 4) of the card, on the state placed there
+    (`lay_out_state`), by `FlopCounterMode` count; the traced entry's
+    leaves are entry 0's blocks of the card's placed model. With remat's
+    early stop off on both sides, the four entries' traced FLOPs summed
+    equal the card step's.
     With it on (the real path), the one process that drives the four
     entries recomputes the last products of the first three, which a
     lone entry (and an entry on a card of its own) skips: the card step
@@ -5048,11 +5112,15 @@ def _dryrun_tp_entry(dev, card, cfg, opt, cpu_batch, step, state,
     from repro_torch.launch.graph_analysis import analyze_program
     from repro_torch.models import sharding as sh
     from repro_torch.models.model import LM
-    from repro_torch.train.train_step import (make_train_state,
+    from repro_torch.train.train_step import (lay_out_state,
+                                              make_train_state,
                                               make_train_step)
 
     shape = MESH_TP["tp4"]
     n = int(np.prod(shape))
+    mesh = Mesh((dev,) * n, ("data", "model"), shape)
+    with sh.use_mesh(mesh):
+        lay_out_state(model, state)
     t0 = time.perf_counter()
     dry, on_card = {}, {}
     for early in (False, True):
@@ -5064,9 +5132,16 @@ def _dryrun_tp_entry(dev, card, cfg, opt, cpu_batch, step, state,
                 make_train_step(meta, opt), make_train_state(meta),
                 {k: _on_meta(x) for k, x in cpu_batch.items()})
     dry_s = time.perf_counter() - t0
+    traced = dict(sh.named_leaves(meta))
+    for name, leaf in sh.named_leaves(model):
+        local = leaf.shards[0] if isinstance(leaf, sh.Placed) else leaf
+        other = traced[name]
+        other = other.shards[0] if isinstance(other, sh.Placed) else other
+        check(local.shape == other.shape, f"dryrun: the traced entry's "
+              f"{name} {tuple(other.shape)} is not entry 0's block "
+              f"{tuple(local.shape)} of the card's placed model")
     for early in (False, True):
-        with sh.use_mesh(Mesh((dev,) * n, ("data", "model"), shape)), \
-                set_checkpoint_early_stop(early):
+        with sh.use_mesh(mesh), set_checkpoint_early_stop(early):
             with FlopCounterMode(display=False) as counter:
                 step(state, batch)
         on_card[early] = counter.get_total_flops()

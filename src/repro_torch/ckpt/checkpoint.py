@@ -11,8 +11,14 @@ process, so every leaf is whole in `proc_0.npz`; a checkpoint that the
 reference's `Checkpointer` wrote on one process restores here (and the
 reverse), since the layout is the same (its leaves named by the
 reference's tree; `models/convert.from_reference_train_state` maps them
-to the port's). `restore(..., shardings=)` places each restored leaf on a
-mesh (`models/sharding.place`), as the reference's `device_put`s it.
+to the port's). A placed leaf (a `Placed` value: a tensor-parallel
+state's blocks, `models/sharding.place_model`) is gathered into its
+whole leaf (`Placed.full`) as it is saved, so a checkpoint of a placed
+state holds the arrays an unsharded save of the same state writes, and
+restores onto any layout. `restore(..., shardings=)` places each
+restored leaf on a mesh (`models/sharding.place`), as the reference's
+`device_put`s it; `train_step.load_train_state` copies either into a
+placed state block by block.
 """
 from __future__ import annotations
 
@@ -26,12 +32,15 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from repro_torch.models.sharding import place
+from repro_torch.models.sharding import Placed, place
 
 
 def _host(x) -> np.ndarray:
     """A host copy of x (a copy even of a CPU tensor, which the next step
-    overwrites while an async save may still be writing it)."""
+    overwrites while an async save may still be writing it); a Placed
+    value's whole tensor."""
+    if isinstance(x, Placed):
+        return x.full("cpu").numpy()
     if torch.is_tensor(x):
         return x.detach().to("cpu", copy=True).numpy()
     return np.array(x)

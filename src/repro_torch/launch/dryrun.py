@@ -11,11 +11,9 @@ counted is the card's program. Each record holds:
   * the per-device FLOPs, bytes and peak live bytes of the traced step,
     and whether that peak fits the card's memory (`fits`); for a tensor
     parallel cell the trace holds entry 0's blocks of the state
-    (`state_layout` "entry blocks"), the layout a device of a real mesh
-    would hold, which the port's one-process mesh step does not hold
-    yet: it keeps whole leaves on the model's device, so that device's
-    peak is `port_root_peak_bytes` (`port_root_fits`), the traced peak
-    plus the rest of the whole leaves (`port_root_extra_bytes`);
+    (`state_layout` "entry blocks"): the layout that the port's mesh
+    step holds on every entry (`models.sharding.place_model`), so `fits`
+    is the port's own;
   * the bytes the port's mesh moves between devices per step
     (`collective_bytes_per_device`; see below);
   * the three roofline terms on the H100 data sheet's rates
@@ -32,25 +30,28 @@ On the production meshes the port's programs are tensor parallel on
 `models.sharding.tp_family`): each ('data', 'model') entry computes on
 its blocks of heads, kv heads where they shard, MLP columns, experts and
 vocab (`models/sharding.py`). So the dry-run traces one working entry,
-'model' coordinate 0 (the largest blocks), at its sizes: an
-`sharding.entry_model` whose sharded leaves are that entry's blocks,
+'model' coordinate 0 (the largest blocks), at its sizes: the model
+placed for that entry alone (`sharding.entry_model`, `place_model`'s
+one-entry case, whose blocks are those entry 0 of a real mesh holds),
 run under `sharding.traced_entry(TP_SIZE, "meta")`, on its data shard's
 rows of each microbatch (the batch split over
-`launch.mesh.batch_axes_for`'s axes), AdamW over its blocks (see
-`fits` above for the layout the port's step holds). Every
+`launch.mesh.batch_axes_for`'s axes), AdamW over its blocks. Every
 entry works (`devices_with_work` = the mesh's chips). The MLA and SSM
 families keep whole leaves: only the first entry of each data
 coordinate works, and its whole step is traced.
 
 The collective term per step has two parts. Along 'model', the traced
 entry's reductions (`sharding.model_sum` and its kin, forward and
-backward, remat's recompute included), each the bytes it sends in a
-ring (`launch/graph_analysis.py`), at `axis_bandwidth(mesh,
-('model',))`, by kind in `collectives` ("model:<kind>"). Along the data
-axes, the mesh step's exchange: it gathers each data shard's float32
-gradient of the entry's leaves on the root once per microbatch and
-copies those leaves to each other shard once per step; those bytes,
-which the root receives or sends, at the rate of the link that the data
+backward, remat's recompute included), each the bytes it sends in a ring
+(`launch/graph_analysis.py`), at `axis_bandwidth(mesh, ('model',))`, by
+kind in `collectives` ("model:<kind>"). Along the data axes, the mesh
+step's exchange: each data shard's float32 gradient of the entry's
+leaves goes to the first data shard's entry, which keeps the sum, once
+per microbatch ("grads->root"); once per step AdamW's updated parameter,
+mu and nu of each block go back to the entry of each other data shard
+that holds the block ("state->replicas"), and the replicated leaves are
+copied to each other shard ("params->shards"); those bytes, which the
+keeping entry receives or sends, at the rate of the link that the data
 axes span. Serving cells have no data exchange: each data shard serves
 its own rows. `reference_layout_bytes_per_device` is what the
 reference's layout would hold (FSDP on 'data' as well as 'model', from
@@ -181,9 +182,9 @@ def _meta_batch(cfg, rows: int, seq: int) -> dict:
 
 
 def _meta_model(cfg, tp: int, **kw):
-    """The model on the meta device; where `cfg` shards over 'model', its
-    sharded leaves cut to entry 0's blocks of `tp` (`entry_model`), with
-    that one entry to drive (else None)."""
+    """The model on the meta device; where `cfg` shards over 'model',
+    placed for entry 0 of `tp` alone (`entry_model`), with that one entry
+    to drive (else None)."""
     from repro_torch.models import sharding as sh
     from repro_torch.models.model import LM
 
@@ -193,32 +194,18 @@ def _meta_model(cfg, tp: int, **kw):
     return sh.entry_model(model, tp), sh.traced_entry(tp, "meta")
 
 
-def port_root_extra_bytes(cfg, kind: str, tp: int) -> int:
-    """The bytes that a data shard's root device holds in the port's mesh
-    step beyond the traced entry: the step keeps whole leaves on the
-    model's device (train: the float32 parameters, AdamW's mu and nu and
-    the float32 gradient accumulator; serving: the parameters, which the
-    step copies whole to each data shard's device), where the trace of a
-    tensor-parallel cell holds entry 0's blocks of the sharded leaves. 0
-    where the trace holds whole leaves (`tp` 1)."""
-    from repro_torch.models import sharding as sh
-    from repro_torch.models.model import LM
+def _entry_elements(model) -> tuple:
+    """(elements of every leaf the traced entry holds, of its placed
+    blocks alone)."""
+    from repro_torch.models.sharding import Placed, named_leaves
 
-    if tp == 1:
-        return 0
-    train = kind == "train"
-    model = LM(cfg, device="meta",
-               **({"param_dtype": torch.float32} if train else {}))
-    extra = 0
-    for name, p in model.named_parameters():
-        d = sh.model_dim(cfg, name)
-        if d is None:
-            continue
-        blk = sh.tp_block(p.shape[d], tp, 0)
-        extra += (p.numel() // p.shape[d] * (p.shape[d] - (blk.stop
-                                                           - blk.start))
-                  * p.element_size())
-    return extra * (4 if train else 1)
+    total = blocks = 0
+    for _, leaf in named_leaves(model):
+        n = leaf.shards[0].numel() if isinstance(leaf, Placed) else \
+            leaf.numel()
+        total += n
+        blocks += n if isinstance(leaf, Placed) else 0
+    return total, blocks
 
 
 def _trace_train(cfg, local_rows: int, seq: int, micro: int, tp: int = 1):
@@ -232,20 +219,19 @@ def _trace_train(cfg, local_rows: int, seq: int, micro: int, tp: int = 1):
     state = make_train_state(model)
     step = make_train_step(model, OptConfig(), micro_batches=micro)
     batch = _meta_batch(cfg, local_rows * micro, seq)
-    n_params = sum(p.numel() for p in model.parameters())
     with use_entries(entry):
         return analyze_program(step, state, batch,
-                               name="train_step"), n_params
+                               name="train_step"), _entry_elements(model)
 
 
 def _trace_serve(cfg, kind: str, local_rows: int, seq: int, tp: int = 1):
     from repro_torch.launch.graph_analysis import analyze_program
-    from repro_torch.models.sharding import use_entries
+    from repro_torch.models.sharding import named_leaves, use_entries
     from repro_torch.serve.serve_step import (make_decode_step,
                                               make_prefill_step)
 
     model, entry = _meta_model(cfg, tp)
-    params = dict(model.named_parameters())
+    params = dict(named_leaves(model))
     meta = torch.device("meta")
     with torch.no_grad(), use_entries(entry):
         if kind == "prefill" and cfg.is_encoder:
@@ -343,14 +329,17 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
         print(f"[dryrun] {tag}: CANNOT RUN ({refusal})")
         return _save(rec, outdir, path)
     if shape.kind == "train":
-        hlo, n_params = _trace_train(cfg, local, shape.seq_len,
-                                     micro_batches, tp)
+        hlo, (n_params, n_blocks) = _trace_train(cfg, local, shape.seq_len,
+                                                 micro_batches, tp)
         others = n_data - 1
         exchange = {"grads->root": float(others * n_params * _F32
                                          * micro_batches),
-                    "params->shards": float(others * n_params * _F32)}
+                    "state->replicas": float(others * 3 * n_blocks
+                                             * _F32),
+                    "params->shards": float(others * (n_params - n_blocks)
+                                            * _F32)}
         counts = {"grads->root": others * micro_batches,
-                  "params->shards": others}
+                  "state->replicas": others, "params->shards": others}
     else:
         hlo = _trace_serve(cfg, shape.kind, local, shape.seq_len, tp)
         exchange, counts = {}, {}
@@ -366,7 +355,6 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
               + (model_bytes / M.axis_bandwidth(mesh, ("model",))
                  if model_bytes else 0.0))
     peak = float(hlo["peak_bytes"])
-    root_peak = peak + port_root_extra_bytes(cfg, shape.kind, tp)
     mf = model_flops(cfg, shape)
     rec = dict(
         cell=tag, arch=arch, shape=shape_name, mesh=mesh_name,
@@ -397,8 +385,6 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
         peak_bytes_per_device=peak,
         fits=peak <= M.HBM_BYTES,
         state_layout="entry blocks" if tp > 1 else "whole leaves",
-        port_root_peak_bytes=root_peak,
-        port_root_fits=root_peak <= M.HBM_BYTES,
         reference_layout_bytes_per_device=reference_layout_bytes(
             cfg, shape, mesh),
         model_flops_global=mf,
@@ -408,8 +394,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
     print(f"[dryrun] {tag}: ok in {rec['trace_s']}s | "
           f"flops/dev={flops:.3e} bytes/dev={bytes_:.3e} "
           f"coll/dev={coll_bytes:.3e} dominant={rec['dominant']} "
-          f"peak={peak / 2**30:.2f}GiB fits={rec['fits']} "
-          f"root={root_peak / 2**30:.2f}GiB")
+          f"peak={peak / 2**30:.2f}GiB fits={rec['fits']}")
     return _save(rec, outdir, path)
 
 
@@ -481,19 +466,17 @@ def run_lgrass_cell(case_name: str, multi_pod: bool, outdir: str,
 
 
 def summary_line(rec: dict) -> str:
-    """One markdown table row of a record: cell, peak GiB, fits, the port's
-    root device's GiB today, the reference layout's GiB, the dominant term
-    and its time, the working devices."""
+    """One markdown table row of a record: cell, peak GiB, fits, the
+    reference layout's GiB, the dominant term and its time, the working
+    devices."""
     if "skipped" in rec or "cannot_run" in rec:
         why = (f"skipped: {rec['skipped']}" if "skipped" in rec
                else f"cannot run: {rec['cannot_run']}")
-        return f"| {rec['cell']} | {why} |||||||"
+        return f"| {rec['cell']} | {why} ||||||"
     t = max(rec["t_compute_s"], rec["t_memory_s"], rec["t_collective_s"])
     ref = rec.get("reference_layout_bytes_per_device")
-    root = rec.get("port_root_peak_bytes", rec["peak_bytes_per_device"])
     return (f"| {rec['cell']} | {rec['peak_bytes_per_device'] / 2**30:.2f} "
             f"| {'yes' if rec['fits'] else 'no'} "
-            f"| {root / 2**30:.2f} "
             f"| {'-' if ref is None else f'{ref / 2**30:.2f}'} "
             f"| {rec['dominant']} | {t:.4g} "
             f"| {rec['devices_with_work']} of {rec['chips']} |")
@@ -550,10 +533,10 @@ def main(argv=None):
                for a, s, mp in cells]
     failures = [r[1] for r in results if r[1] is not None]
     rows = [summary_line(r[0]) for r in results if r[0] is not None]
-    print("| cell | peak GiB / device | fits | port root GiB "
+    print("| cell | peak GiB / device | fits "
           "| reference layout GiB | dominant | its time s "
           "| devices with work |")
-    print("|---|---|---|---|---|---|---|---|")
+    print("|---|---|---|---|---|---|---|")
     for row in rows:
         print(row)
     print(f"[dryrun] done; {len(failures)} failures")

@@ -44,7 +44,11 @@ partial sum, which the caller adds over the entries. The q heads
 divides h, h / g whole kv heads; where h divides g, one kv head with a
 group of h (granite padded for 16-way TP: 32 / 8 heads, 2 q heads an
 entry); otherwise the kv heads are repeated to the q heads before the
-flash call (`HeadBlock.rep`).
+flash call (`HeadBlock.rep`). The weights are read through
+`Entry.take`: of a placed model (`sharding.place_model`) a view of the
+block the entry holds (wq, wo and, where kv heads shard, wk and wv),
+of a whole leaf (wk and wv where they do not) the part cut and moved to
+the entry's device.
 """
 from __future__ import annotations
 
@@ -117,7 +121,8 @@ def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def _weights(params: Dict, cfg: ArchConfig, blk: Optional[HeadBlock],
              kv: str = "need") -> Dict[str, torch.Tensor]:
     """wq, wk, wv, wo whole, or the block's: q heads of wq and wo, and of
-    wk and wv the kv heads `kv` names ('need' or 'kv')."""
+    wk and wv the kv heads `kv` names ('need' or 'kv'), each read by
+    `Entry.take` (a view of the entry's own block of a placed leaf)."""
     if blk is None:
         return params
     e, n_h, n_kv = blk.entry, cfg.n_heads, cfg.n_kv_heads

@@ -22,12 +22,17 @@ anything `np.asarray` reads) into the state dict of
     optimisation) are refused: the port has the unfused layout only.
 
 `from_reference(cfg, params, device)` builds the port's `LM` from them,
-on the card unless `device` names another.
+on the card unless `device` names another; with `mesh=` (a mesh whose
+'model' axis the config shards over), placed on that mesh
+(`models/sharding.place_model`): built on the meta device and filled
+block by block, so no device ever holds a whole sharded leaf.
 `from_reference_train_state(cfg, state)` carries a train state across:
 the reference's {"params", "opt": {"mu", "nu", "step"}, ["err"]} (as
 numpy arrays: a restored checkpoint, or `jax.device_get` of a live
 state) becomes the port's (`train/train_step.make_train_state`), every
-leaf float32, keyed by the port's parameter names, from either layout.
+leaf float32, keyed by the port's parameter names, from either layout;
+`train_step.load_train_state` copies it into a train state, a placed
+one block by block.
 The tests use this, not the port's own init, for parity with the
 reference: the port's init draws the same distributions from a
 `torch.Generator`, whose bits differ from `jax.random`'s.
@@ -42,6 +47,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.sparsify import resolve_device
 from repro_torch.models.layers import act_dtype
+from repro_torch.models import sharding as sh
 from repro_torch.models.model import LM
 
 FUSED = ("wqkv", "wig")
@@ -120,10 +126,15 @@ def from_reference_train_state(cfg: ArchConfig,
 
 
 def from_reference(cfg: ArchConfig, params: Dict[str, Any],
-                   device=None) -> LM:
+                   device=None, mesh=None) -> LM:
     """The port's LM on `device` holding the reference's weights: the
     card unless another device is asked for (`core.sparsify.
-    resolve_device`), which raises without one."""
+    resolve_device`), which raises without one. With `mesh`, where the
+    config shards over its 'model' axis, the LM placed on it
+    (`sharding.place_model`; `device` is then the mesh's)."""
+    if sh.shards_over_model(mesh, cfg):
+        return sh.place_model(LM(cfg, device="meta"), mesh,
+                              values=reference_state_dict(cfg, params))
     model = LM(cfg, device=resolve_device(device))
     model.load_state_dict(reference_state_dict(cfg, params), strict=True)
     return model

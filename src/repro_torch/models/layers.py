@@ -9,7 +9,9 @@ The reference's `ParamSet` becomes the `nn.Module` parameters of
 `models/model.py`; `init_normal` draws its distributions.
 `cross_entropy` is training's loss, `LM.loss_fn`'s.
 
-Under tensor parallelism on 'model' (`models/sharding.Entries`), `mlp`
+Under tensor parallelism on 'model' (`models/sharding.Entries`), each
+entry reads its blocks through `Entry.take` (of a placed model, views of
+the blocks it holds; of whole leaves, the parts cut). `mlp`
 runs each entry on its block of d_ff columns (wi, wg) and rows (wo) and
 sums the partials (`sharding.model_sum`; below float32 each partial is
 float32, `sharding.partial_product`, so the sum rounds once); the

@@ -69,10 +69,16 @@ on the shard's root device. The CE is vocab-parallel
 (`layers.cross_entropy_parallel`); the logits that `forward`,
 `prefill`, `decode_step` and `encode` return are the entries' vocab
 blocks concatenated in order. `init_caches` gives a GQA layer one cache
-per entry (`{"attn": [...]}`), of the kv heads it holds. A model whose
-sharded leaves are one entry's blocks (`sharding.entry_model`) runs
-the same code under that one entry (`sharding.traced_entry`): the
-dry-run's trace. The MLA and SSM families do not shard.
+per entry (`{"attn": [...]}`), of the kv heads it holds. The train
+and serving steps place the model on their mesh
+(`sharding.place_model`): each sharded leaf (`sharding.model_dim`) is
+then a `Placed` value, each entry's block on its device, read by
+`Entry.take` as a view; `named_leaves` lists the leaves, as
+`named_parameters` no longer yields the placed ones. A placed model runs
+under its mesh's entries only (its entry points raise without them); a
+model placed for one entry alone (`sharding.entry_model`) runs the same
+code under that one entry (`sharding.traced_entry`): the dry-run's
+trace. The MLA and SSM families do not shard.
 
 The model lives on the CUDA device unless `device` asks for another
 (`core.sparsify.resolve_device`): without a card the default raises, and
@@ -262,7 +268,8 @@ class LM(nn.Module):
 
     @property
     def device(self) -> torch.device:
-        return self.embedding.device
+        """The device of the replicated leaves: a placed model's root."""
+        return self.final_norm.device
 
     # ---------- serve ----------
     def init_caches(self, batch: int, max_len: int,
@@ -447,6 +454,10 @@ class LM(nn.Module):
         """The 'model' entries to drive (`sharding.use_entries`), checked
         against the config."""
         entries = sh.current_entries()
+        if entries is None and sh.placed_mesh(self) is not None:
+            raise ValueError(f"{self.cfg.name} is placed on a mesh "
+                             f"(sharding.place_model): run it under that "
+                             f"mesh's steps")
         if entries is not None:
             if not sh.tp_family(self.cfg):
                 raise ValueError(f"{self.cfg.name}: its MLA or SSM layers "

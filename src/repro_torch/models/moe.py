@@ -36,7 +36,8 @@ model holds each layer's weights as an `MoE` module, whose call is
 `moe_ffn`, so a caller can hook a layer's inputs.
 
 Tensor parallelism on 'model' (`entries`): the experts split over the
-entries (each its block of E / tp, its wi, wg, wo). The layer routes
+entries (each its block of E / tp, its wi, wg, wo, which a placed
+model's entry holds: `Entry.take` reads a view of it). The layer routes
 once per data shard, on the shard's root device: the router, softmax,
 top k, the dispatch ranks (one rank call), capacity and the slot tables,
 and the aux or the statistics from that one routing. Each entry then

@@ -16,9 +16,11 @@ reference leaves placement to XLA, the port places a tensor itself:
     those axes, the first axis major; blocks of ⌈n / parts⌉ rows, the
     last ones shorter, as XLA pads), whole where the entry is None.
     `place(x, mesh, p)` is the counterpart of
-    `jax.device_put(x, NamedSharding(mesh, p))`; `.full()` gathers it.
-    A local tensor that is already on its entry's device is a view of
-    the input, so shards of one device share its memory.
+    `jax.device_put(x, NamedSharding(mesh, p))`; `.full()` gathers it,
+    `.load_(x)` fills it. Entries of one device that hold the same block
+    share one local tensor; one already on its entry's device is a view
+    of the input unless `own` asks for a copy. A Placed value is a
+    pytree node whose children are its local tensors.
   * `param_specs(model)`: each parameter name of the port's `LM` to the
     `P` of its logical axes, the specs `LM.init` returns in the
     reference, with the `scan` layout's leading `stack` axis dropped
@@ -41,6 +43,24 @@ and serving steps set them per data shard. Only the GQA families
 the whole leaves, and only the first entry of each data coordinate
 works for them.
 
+The state is laid out as the reference lays it out over 'model'.
+`place_model(model, mesh)` makes each leaf whose spec puts a dimension
+on 'model' (`model_dim`) a Placed value of the model (`leaf_spec`: that
+dimension on 'model', the rest whole): each entry holds its `tp_block`
+on its device as a tensor of its own, and no device holds the whole
+leaf. The other leaves (norms, router, frontend, whole wk / wv) stay
+whole Parameters on the mesh's first device, the data shards' root.
+`named_leaves(model)` lists both kinds in the parameter order (a placed
+leaf is no longer in `named_parameters`), `gather_model` undoes the
+placement, and `Entry.take` reads a view of the entry's own block (mesh
+entry `Entry.index`), or cuts and moves a whole leaf. The train step
+(`train/train_step.py`) and the serving steps lay the model out for
+their mesh (`lay_out_model`: placed on a mesh whose 'model' axis the
+config shards over, gathered otherwise); checkpoints gather the blocks
+(`Placed.full`). The dry-run traces entry 0 alone: `entry_model` is
+`place_model` for that one entry (`traced_entry`), so the traced state
+holds what entry 0 of a real mesh holds.
+
 The partial results meet in `model_sum`: the entries' partials summed
 in mesh order in float32 and cast once to the activation dtype (no
 atomics, so two runs are bit-equal). With bf16 activations the
@@ -53,9 +73,8 @@ tensors), as an autograd function whose backward hands each entry the
 output's gradient. A sharded region's replicated input goes to the
 entries through `model_copy`, whose backward sums their gradients of it
 through the same operator: the gradient's all-reduce (Megatron's f and
-g). The dry-run traces one entry alone (`Entries` of one coordinate of
-`tp`, its model's leaves cut to that entry's blocks by `entry_model`):
-there the operator returns the entry's partial, and
+g). In the dry-run's trace of one entry alone (`entry_model`,
+`traced_entry`) the operator returns the entry's partial, and
 `launch/graph_analysis.py` records each call as a ring all-reduce,
 2·(tp−1)/tp of the tensor per entry, by kind (":bwd" for a gradient's).
 `model_max` (the CE's max) and `model_gather` (serving's logits: the
@@ -224,10 +243,13 @@ def entry_coords(mesh: Mesh, j: int) -> Dict[str, int]:
 
 class Placed:
     """A tensor laid out over a mesh by a `P` (see the module docstring):
-    `shards[j]` is mesh entry j's block, on `mesh.devices[j]`."""
+    `shards[j]` is mesh entry j's block, on `mesh.devices[j]`, or None
+    where the value was placed for some entries only (`place(...,
+    only=)`). Entries of one device that hold the same block share one
+    tensor."""
 
-    def __init__(self, shards: Sequence[torch.Tensor], mesh: Mesh, p: P,
-                 shape: Tuple[int, ...]):
+    def __init__(self, shards: Sequence[Optional[torch.Tensor]], mesh: Mesh,
+                 p: P, shape: Tuple[int, ...]):
         self.shards = tuple(shards)
         self.mesh = mesh
         self.spec = p
@@ -235,7 +257,33 @@ class Placed:
 
     @property
     def dtype(self) -> torch.dtype:
-        return self.shards[0].dtype
+        return self.distinct()[0][1].dtype
+
+    def block(self, j: int) -> Tuple[slice, ...]:
+        """The slices of the whole tensor that entry j holds."""
+        return block_slices(self.shape, self.spec, self.mesh.shape,
+                            entry_coords(self.mesh, j))
+
+    def block_key(self, j: int) -> Tuple[Tuple[int, int], ...]:
+        return tuple((s.start, s.stop) for s in self.block(j))
+
+    def distinct(self) -> List[Tuple[int, torch.Tensor]]:
+        """(the first entry that holds it, the tensor) of each distinct
+        local tensor, in mesh order."""
+        seen, out = set(), []
+        for j, t in enumerate(self.shards):
+            if t is not None and id(t) not in seen:
+                seen.add(id(t))
+                out.append((j, t))
+        return out
+
+    def map(self, fn) -> "Placed":
+        """A Placed value of `fn` of each distinct local tensor, shared by
+        the same entries."""
+        made = {id(t): fn(t) for _, t in self.distinct()}
+        return Placed([None if t is None else made[id(t)]
+                       for t in self.shards], self.mesh, self.spec,
+                      self.shape)
 
     def full(self, device=None) -> torch.Tensor:
         """The whole tensor (a new one) on `device`, mesh entry 0's by
@@ -244,14 +292,36 @@ class Placed:
             device)
         out = torch.empty(self.shape, dtype=self.dtype, device=dev)
         seen = set()
-        for j, local in enumerate(self.shards):
-            sl = block_slices(self.shape, self.spec, self.mesh.shape,
-                              entry_coords(self.mesh, j))
-            key = tuple((s.start, s.stop) for s in sl)
+        for j, local in self.distinct():
+            key = self.block_key(j)
             if key not in seen:
                 seen.add(key)
-                out[sl] = local.to(dev)
+                out[self.block(j)] = local.detach().to(dev)
+        want = {self.block_key(j) for j in range(len(self.shards))}
+        if seen != want:
+            raise ValueError(f"{self!r} holds {len(seen)} of its "
+                             f"{len(want)} blocks: it cannot be gathered")
         return out
+
+    def load_(self, src) -> "Placed":
+        """Copy `src` (a whole tensor or numpy array, or a Placed value of
+        the same shape) into every local tensor's block, in place."""
+        with torch.no_grad():
+            if (isinstance(src, Placed) and src.mesh == self.mesh
+                    and src.spec == self.spec and src.shape == self.shape
+                    and all(src.shards[j] is not None
+                            for j, _ in self.distinct())):
+                for j, t in self.distinct():
+                    t.copy_(src.shards[j])
+                return self
+            whole = (src.full() if isinstance(src, Placed)
+                     else torch.as_tensor(src))
+            if tuple(whole.shape) != self.shape:
+                raise ValueError(f"a value of {tuple(whole.shape)} for "
+                                 f"{self!r}")
+            for j, t in self.distinct():
+                t.copy_(whole[self.block(j)])
+        return self
 
     def __repr__(self):
         return (f"Placed(shape={self.shape}, dtype={self.dtype}, "
@@ -259,16 +329,47 @@ class Placed:
                 f"{self.mesh.axis_sizes})")
 
 
-def place(x, mesh: Mesh, p: Sequence = ()) -> Placed:
+# a Placed value's local tensors are its pytree children, so that what
+# walks a state's tensors (the dry-run's analyzer) sees the blocks
+torch.utils._pytree.register_pytree_node(
+    Placed, lambda x: (list(x.shards), (x.mesh, x.spec, x.shape)),
+    lambda shards, ctx: Placed(list(shards), *ctx))
+
+
+def local_tensors(x) -> List[torch.Tensor]:
+    """The distinct tensors that hold a leaf: a Placed value's local
+    tensors, or the tensor itself."""
+    return ([t for _, t in x.distinct()] if isinstance(x, Placed)
+            else [x])
+
+
+def place(x, mesh: Mesh, p: Sequence = (), *, own: bool = False,
+          only: Optional[Sequence[int]] = None,
+          dtype: Optional[torch.dtype] = None) -> Placed:
     """`x` (a tensor, a numpy array or a Placed value) laid out over
-    `mesh` by `p`: each entry's block on its device."""
+    `mesh` by `p`: each entry's block on its device (in `dtype`, where
+    given), one tensor per device and block. A block already on its
+    device is a view of `x`, unless `own` asks for a copy (so that the
+    whole of `x` can be freed). With `only` (mesh entry indices), the
+    other entries hold None."""
     if isinstance(x, Placed):
         x = x.full()
     t = x if torch.is_tensor(x) else torch.as_tensor(np.asarray(x))
     p = _check_spec(p, t.dim(), mesh)
-    shards = [t[block_slices(t.shape, p, mesh.shape,
-                             entry_coords(mesh, j))].to(dev)
-              for j, dev in enumerate(mesh.devices)]
+    made: Dict[tuple, torch.Tensor] = {}
+    shards: List[Optional[torch.Tensor]] = []
+    for j, dev in enumerate(mesh.devices):
+        if only is not None and j not in only:
+            shards.append(None)
+            continue
+        sl = block_slices(t.shape, p, mesh.shape, entry_coords(mesh, j))
+        key = (canon_device(dev), tuple((s.start, s.stop) for s in sl))
+        if key not in made:
+            block = t[sl]
+            made[key] = (block.detach().to(
+                dev, dtype, copy=True, memory_format=torch.contiguous_format)
+                if own else block.to(dev, dtype))
+        shards.append(made[key])
     return Placed(shards, mesh, p, tuple(t.shape))
 
 
@@ -329,7 +430,7 @@ def param_axes(cfg, name: str) -> Tuple[Axes, ...]:
 def param_specs(model) -> Dict[str, P]:
     """{parameter name: its P on the active mesh} of a port `LM`."""
     return {name: spec(*param_axes(model.cfg, name))
-            for name, _ in model.named_parameters()}
+            for name, _ in named_leaves(model)}
 
 
 # ------------------------- tensor parallelism on 'model' -------------------------
@@ -376,46 +477,65 @@ def check_tp(cfg, tp: int) -> None:
 
 @dataclasses.dataclass(frozen=True)
 class Entry:
-    """One 'model' coordinate of `tp`, on `device`."""
+    """One 'model' coordinate of `tp`, on `device`: mesh entry `index`
+    (None for entries made without a mesh, which read whole leaves
+    only)."""
 
     tp: int
     coord: int
     device: torch.device
+    index: Optional[int] = None
 
     def block(self, n: int) -> slice:
         return tp_block(n, self.tp, self.coord)
 
-    def take(self, w: torch.Tensor, dim: int, sl: slice,
-             n: int) -> torch.Tensor:
-        """The part `sl` (of a dimension of n) of the leaf `w` along
-        `dim`, on this entry's device: a view where `w` is there already.
-        `w` holds that dimension whole, or as this entry's block (the
-        leaves of an `entry_model`)."""
-        own = self.block(n)
-        held = (slice(0, n) if w.shape[dim] == n else own)
-        if w.shape[dim] != held.stop - held.start or not (
-                held.start <= sl.start and sl.stop <= held.stop):
-            raise ValueError(f"a leaf of {w.shape[dim]} along dim {dim} "
-                             f"holds neither all {n} nor entry "
-                             f"{self.coord}'s block {own}")
-        return w.narrow(dim, sl.start - held.start,
-                        sl.stop - sl.start).to(self.device)
+    def take(self, w, dim: int, sl: slice, n: int) -> torch.Tensor:
+        """The part `sl` (of a dimension of n) of the leaf `w` along `dim`.
+        Of a placed leaf (a `Placed` value, `place_model`), a view of the
+        block this entry holds, which must contain `sl`; of a whole
+        tensor (a replicated leaf), the part cut and moved to this
+        entry's device (a view where it is there already)."""
+        if isinstance(w, Placed):
+            local = None if self.index is None else w.shards[self.index]
+            held = None if local is None else w.block(self.index)[dim]
+            if (local is None or w.shape[dim] != n
+                    or canon_device(w.mesh.devices[self.index]) != self.device
+                    or not held.start <= sl.start <= sl.stop <= held.stop):
+                raise ValueError(
+                    f"{w!r}: mesh entry {self.index} on {self.device} holds "
+                    f"no block with {sl} of a dimension of {n}")
+            return local.narrow(dim, sl.start - held.start,
+                                sl.stop - sl.start)
+        if w.shape[dim] != n:
+            raise ValueError(f"a whole leaf of {w.shape[dim]} along dim {dim}"
+                             f", not {n}")
+        return w.narrow(dim, sl.start, sl.stop - sl.start).to(self.device)
 
 
 @dataclasses.dataclass(frozen=True)
 class Entries:
     """The 'model' entries that one data shard's forward drives, in mesh
-    order: `coords` of a 'model' extent `tp` on `devices`. All `tp` of
-    them on a real mesh; one in the dry-run's trace (`traced_entry`).
-    The shard's replicated activations live on the first one's device."""
+    order: `coords` of a 'model' extent `tp` on `devices`, mesh entries
+    `indices` (the blocks they read of a placed model). All `tp` of them
+    on a real mesh; one in the dry-run's trace (`traced_entry`). The
+    shard's replicated activations live on the first one's device."""
 
     tp: int
     coords: Tuple[int, ...]
     devices: Tuple[torch.device, ...]
+    indices: Optional[Tuple[int, ...]] = None
 
     def __iter__(self) -> Iterator[Entry]:
-        return (Entry(self.tp, c, d)
-                for c, d in zip(self.coords, self.devices))
+        idx = self.indices or (None,) * len(self.coords)
+        return (Entry(self.tp, c, d, j)
+                for c, d, j in zip(self.coords, self.devices, idx))
+
+
+def shards_over_model(mesh: Optional[Mesh], cfg) -> bool:
+    """Whether `cfg`'s leaves shard over `mesh`'s 'model' axis: an extent
+    above 1 and a family that shards (`tp_family`)."""
+    return (mesh is not None and mesh.shape.get("model", 1) > 1
+            and tp_family(cfg))
 
 
 def model_entries(mesh: Optional[Mesh], at: Dict[str, int],
@@ -424,23 +544,24 @@ def model_entries(mesh: Optional[Mesh], at: Dict[str, int],
     index; axes absent are 0) of `mesh`, for `cfg`: None without a
     'model' axis of extent > 1 or for a family that does not shard
     (`tp_family`). Raises ValueError where `check_tp` does."""
-    if mesh is None or mesh.shape.get("model", 1) == 1 or not tp_family(cfg):
+    if not shards_over_model(mesh, cfg):
         return None
     tp = mesh.shape["model"]
     check_tp(cfg, tp)
-    devs = []
+    devs, idx = [], []
     for m in range(tp):
         c = dict(at, model=m)
-        j = np.ravel_multi_index([c.get(a, 0) for a in mesh.axis_names],
-                                 mesh.axis_sizes)
-        devs.append(canon_device(mesh.devices[int(j)]))
-    return Entries(tp, tuple(range(tp)), tuple(devs))
+        j = int(np.ravel_multi_index([c.get(a, 0) for a in mesh.axis_names],
+                                     mesh.axis_sizes))
+        devs.append(canon_device(mesh.devices[j]))
+        idx.append(j)
+    return Entries(tp, tuple(range(tp)), tuple(devs), tuple(idx))
 
 
 def traced_entry(tp: int, device) -> Entries:
     """Entry 0 of a 'model' extent `tp` alone (the largest blocks), as the
-    dry-run traces it."""
-    return Entries(tp, (0,), (torch.device(device),))
+    dry-run traces it: mesh entry 0 of `entry_model`'s placement."""
+    return Entries(tp, (0,), (torch.device(device),), (0,))
 
 
 def current_entries() -> Optional[Entries]:
@@ -469,26 +590,167 @@ def model_dim(cfg, name: str) -> Optional[int]:
     return None
 
 
-def entry_model(model, tp: int):
-    """`model` (a port `LM`) with each leaf that shards over 'model' cut to
-    entry 0's block of `tp` (`traced_entry`), in place: a copy of the block,
-    or on the meta device an empty one. The dry-run traces such a model
-    under `traced_entry(tp, ...)`: its state holds one entry's blocks."""
-    check_tp(model.cfg, tp)
-    for name, p in list(model.named_parameters()):
-        d = model_dim(model.cfg, name)
-        if d is None:
-            continue
-        sl = tp_block(p.shape[d], tp, 0)
-        block = p.detach().narrow(d, sl.start, sl.stop - sl.start).clone()
-        new = torch.nn.Parameter(block, requires_grad=p.requires_grad)
-        prefix, _, leaf = name.rpartition(".")
-        mod = model.get_submodule(prefix) if prefix else model
-        if isinstance(mod, torch.nn.ParameterDict):
-            mod[leaf] = new
-        else:
-            setattr(mod, leaf, new)
+def leaf_spec(cfg, name: str, ndim: int) -> P:
+    """The 'model' layout of the leaf `name`: its `model_dim` on 'model',
+    every other dimension whole (the 'data' axes of `param_specs` are
+    FSDP's, which the port does not shard)."""
+    d = model_dim(cfg, name)
+    return P(*[("model" if i == d else None) for i in range(ndim)])
+
+
+def _owner(model, name: str):
+    prefix, _, leaf = name.rpartition(".")
+    return (model.get_submodule(prefix) if prefix else model), leaf
+
+
+def _get_leaf(model, name: str):
+    """The leaf `name` of `model`: a Parameter, or a Placed value."""
+    mod, leaf = _owner(model, name)
+    return (mod[leaf] if isinstance(mod, torch.nn.ParameterDict)
+            else getattr(mod, leaf))
+
+
+def _set_leaf(model, name: str, value) -> None:
+    mod, leaf = _owner(model, name)
+    mod._parameters.pop(leaf, None)
+    mod.__dict__.pop(leaf, None)
+    if isinstance(mod, torch.nn.ParameterDict):
+        mod[leaf] = value
+    else:
+        setattr(mod, leaf, value)
+
+
+def placed_mesh(model) -> Optional[Mesh]:
+    """The mesh `place_model` laid `model` out on, or None."""
+    return getattr(model, "_placed_on", None)
+
+
+def named_leaves(model) -> List[Tuple[str, object]]:
+    """(name, leaf) of every parameter of `model` in `named_parameters`'
+    order: a placed leaf as its Placed value (which `named_parameters`
+    no longer yields), a replicated one as its Parameter."""
+    names = getattr(model, "_leaf_names", None)
+    if names is None:
+        return list(model.named_parameters())
+    return [(n, _get_leaf(model, n)) for n in names]
+
+
+def place_model(model, mesh: Mesh, values: Optional[Dict] = None,
+                only: Optional[Sequence[int]] = None):
+    """`model` (a port `LM`) laid out on `mesh`, in place, and returned:
+    each leaf whose spec puts a dimension on 'model' (`model_dim`)
+    becomes a Placed value (`leaf_spec`), each mesh entry holding its
+    `tp_block` of it on its device as a tensor of its own (entries of one
+    device share one per block); every other leaf stays a whole
+    Parameter on the mesh's first device (its data shard's root). No
+    reference to a whole sharded leaf is kept. The values are the
+    model's own (a placed model is laid out anew), or `values` ({name:
+    a whole tensor or array}), cut block by block. With `only` (mesh
+    entry indices) the other entries hold nothing: `entry_model`.
+    Parameter names and `named_leaves`' order stay the reference's."""
+    cfg = model.cfg
+    if not shards_over_model(mesh, cfg):
+        raise ValueError(f"{cfg.name} does not shard over the 'model' axis "
+                         f"of a mesh of {mesh.shape}")
+    check_tp(cfg, mesh.shape["model"])
+    root = canon_device(mesh.devices[0])
+    leaves = named_leaves(model)
+    # (a serving step may place the model inside inference mode: the
+    # blocks stay ordinary tensors, which a train step may update)
+    with torch.inference_mode(False), torch.no_grad():
+        _place_leaves(model, mesh, leaves, root, values, only)
+    model._leaf_names = [n for n, _ in leaves]
+    model._placed_on = mesh
+    model._placed_only = only
+    _restore_order(model)
     return model
+
+
+def _place_leaves(model, mesh, leaves, root, values, only) -> None:
+    cfg = model.cfg
+    for name, leaf in leaves:
+        src = leaf if values is None else values[name]
+        if isinstance(src, Placed):
+            src = src.full()
+        src = src if torch.is_tensor(src) else torch.as_tensor(
+            np.asarray(src))
+        grad = local_tensors(leaf)[0].requires_grad
+        if model_dim(cfg, name) is None:
+            if values is None and not isinstance(leaf, Placed) and (
+                    canon_device(leaf.device) == root):
+                continue
+            new = torch.nn.Parameter(src.detach().to(
+                root, leaf.dtype, copy=True), requires_grad=grad)
+        else:
+            new = place(src, mesh, leaf_spec(cfg, name, src.dim()),
+                        own=True, only=only, dtype=leaf.dtype)
+            for t in local_tensors(new):
+                t.requires_grad_(grad)
+        _set_leaf(model, name, new)
+        del src
+
+
+def gather_model(model):
+    """The inverse of `place_model`, in place: each placed leaf a whole
+    Parameter again on the model's device (`Placed.full`)."""
+    if placed_mesh(model) is None:
+        return model
+    root = model.device
+    with torch.inference_mode(False), torch.no_grad():
+        for name, leaf in named_leaves(model):
+            if isinstance(leaf, Placed):
+                grad = local_tensors(leaf)[0].requires_grad
+                _set_leaf(model, name, torch.nn.Parameter(
+                    leaf.full(root), requires_grad=grad))
+    _restore_order(model)
+    del model._leaf_names, model._placed_on, model._placed_only
+    return model
+
+
+def _restore_order(model) -> None:
+    """Each module's Parameters registered in `_leaf_names`' order, the
+    order of a model never placed (`_set_leaf` registers a leaf anew at
+    the end), so `named_parameters`, the state dict and the global
+    norm's sums keep it."""
+    owners: Dict[int, Tuple[torch.nn.Module, List[str]]] = {}
+    for name in model._leaf_names:
+        mod, leaf = _owner(model, name)
+        owners.setdefault(id(mod), (mod, []))[1].append(leaf)
+    for mod, names in owners.values():
+        params = mod._parameters
+        order = [k for k in names if k in params] + [
+            k for k in params if k not in names]
+        items = [(k, params[k]) for k in order]
+        params.clear()
+        params.update(items)
+
+
+def lay_out_model(model):
+    """`model` laid out, in place, for the active mesh (`use_mesh`), and
+    returned: placed on it where its config shards over its 'model' axis
+    (`place_model`; a model placed on another mesh is laid out anew),
+    whole leaves otherwise (`gather_model`). A model placed for some
+    entries alone (`entry_model`, the dry-run's traced entry) cannot be
+    gathered and stays as it is without such a mesh. The train and
+    serving steps call it first."""
+    mesh = current_mesh()
+    target = mesh if shards_over_model(mesh, model.cfg) else None
+    placed = placed_mesh(model)
+    if placed == target or (target is None and getattr(
+            model, "_placed_only", None) is not None):
+        return model
+    if target is None:
+        return gather_model(model)
+    return place_model(model, target)
+
+
+def entry_model(model, tp: int):
+    """`place_model` for mesh entry 0 alone (`traced_entry`) of a 'model'
+    extent `tp` on `model`'s device: the dry-run traces such a model,
+    whose state holds that entry's blocks, as entry 0 of a real mesh
+    does."""
+    mesh = Mesh((model.device,) * tp, ("model",), (tp,))
+    return place_model(model, mesh, only=(0,))
 
 
 def _allreduce(parts: List[torch.Tensor], tp: int, op: str,

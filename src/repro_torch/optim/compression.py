@@ -20,6 +20,8 @@ from typing import Dict, List, Sequence, Tuple
 
 import torch
 
+from repro_torch.models.sharding import Placed
+
 
 def topk_compress(g: torch.Tensor, frac: float, err: torch.Tensor
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -81,6 +83,11 @@ def compressed_psum(contributions: Sequence[torch.Tensor]
 
 def init_error_state(params: Dict[str, torch.Tensor]
                      ) -> Dict[str, torch.Tensor]:
-    """Zero float32 error feedback for each parameter."""
-    return {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-            for k, p in params.items()}
+    """Zero float32 error feedback for each parameter (a placed leaf's
+    block for block)."""
+    def zeros(p):
+        if isinstance(p, Placed):
+            return p.map(zeros)
+        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+
+    return {k: zeros(p) for k, p in params.items()}

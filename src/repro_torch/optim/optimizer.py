@@ -11,6 +11,9 @@ applies to every leaf, norm scales included, as in the reference.
 `global_norm` sums each leaf's squares in the dict's order; the
 reference sums its pytree leaves in theirs (sorted keys, scan layers
 stacked into one leaf), so the two norms can differ in the last bits.
+A tree's leaves may lie on several devices: each leaf is updated on its
+own, and the norm's partial sums and the step's scalars move to where
+they are used.
 """
 from __future__ import annotations
 
@@ -62,9 +65,11 @@ def init_opt_state(params: Dict[str, torch.Tensor]) -> Dict:
 
 
 def global_norm(tree: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum over leaves of each leaf's float32 sum of squares."""
-    return torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
-                          for g in tree.values()))
+    """sqrt of the sum over leaves of each leaf's float32 sum of squares,
+    on the first leaf's device."""
+    dev = next(iter(tree.values())).device
+    return torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32))).to(
+        dev) for g in tree.values()))
 
 
 def clip_by_global_norm(grads: Dict[str, torch.Tensor], max_norm: float
@@ -72,7 +77,8 @@ def clip_by_global_norm(grads: Dict[str, torch.Tensor], max_norm: float
     """grads scaled by min(1, max_norm / max(norm, 1e-9)), and the norm."""
     gnorm = global_norm(grads)
     scale = torch.clamp(max_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
-    return {k: g * scale.to(g.dtype) for k, g in grads.items()}, gnorm
+    return {k: g * scale.to(g.device, g.dtype)
+            for k, g in grads.items()}, gnorm
 
 
 def adamw_update(params: Dict[str, torch.Tensor],
@@ -94,10 +100,12 @@ def adamw_update(params: Dict[str, torch.Tensor],
         for k, p in params.items():
             g = grads[k].to(torch.float32)
             p32 = p.to(torch.float32)
+            lr_p, bc1_p, bc2_p = (x.to(p.device) for x in (lr, bc1, bc2))
             m = b1 * opt_state["mu"][k] + (1 - b1) * g
             v = b2 * opt_state["nu"][k] + (1 - b2) * torch.square(g)
-            newp = p32 - lr * ((m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
-                               + cfg.weight_decay * p32)
+            newp = p32 - lr_p * ((m / bc1_p)
+                                 / (torch.sqrt(v / bc2_p) + cfg.eps)
+                                 + cfg.weight_decay * p32)
             p.copy_(newp)
             opt_state["mu"][k].copy_(m)
             opt_state["nu"][k].copy_(v)

@@ -12,8 +12,15 @@ torch. An encoder has no steps (`LM.encode` is its entry).
 On a mesh (`models.sharding.use_mesh`, read when a step runs), the rows
 split over the data shards (`launch.mesh.data_shards`), each run under
 its 'model' entries (`models.sharding.model_entries`: tensor parallel
-for the GQA families) on its device, on a copy of the parameters made
-per call (`launch.mesh.call_with`) where that is not the model's. The
+for the GQA families) on its device. The steps lay the model out for the
+mesh first (`models.sharding.lay_out_model`, as the train step does):
+placed on it where the config shards over its 'model' axis (a model
+placed on another mesh is laid out anew), so each entry reads the blocks
+it holds and no sharded leaf is copied; gathered into whole leaves on
+any other mesh, or without one. A shard on another device than the
+model's runs on a copy of the whole leaves (every leaf of an unplaced
+model, the replicated ones of a placed one) made per call
+(`launch.mesh.call_with`), so it reads the model's current weights. The
 caches are then one per data shard (`init_caches`, a list in mesh
 order), and the logits and tokens come back on the model's device, the
 shards' rows in order.
@@ -26,14 +33,16 @@ import torch
 
 from repro_torch.launch.mesh import call_with, copy_params, data_shards
 from repro_torch.models.model import LM
-from repro_torch.models.sharding import (current_mesh, model_entries,
-                                         use_entries)
+from repro_torch.models.sharding import (current_mesh, lay_out_model,
+                                         model_entries, use_entries)
 
 
 def _plan(model: LM, rows: int):
     """Per data shard of the active mesh: (its device, its 'model'
-    entries, its rows' slice)."""
+    entries, its rows' slice); the model laid out for the mesh first
+    (`lay_out_model`)."""
     mesh = current_mesh()
+    lay_out_model(model)
     _, shards = data_shards(mesh, rows)
     per = rows // len(shards)
     return [(dev, model_entries(mesh, at, model.cfg),
@@ -44,8 +53,9 @@ def _plan(model: LM, rows: int):
 def _on_shards(model: LM, name: str, x: torch.Tensor, caches, *args):
     """`model.<name>(x[rows], *args, caches[j])` per data shard j: the
     shards' logits concatenated on the model's device, and their new
-    caches. A shard on another device runs on a copy of the parameters
-    made for this call, so it reads the model's current weights."""
+    caches. A shard on another device runs on a copy of the whole
+    leaves made for this call, so it reads the model's current
+    weights."""
     outs, new, copies = [], [], {}
     for j, (dev, entries, rows) in enumerate(_plan(model, x.shape[0])):
         call = (x[rows].to(dev), *args, caches[j])
@@ -66,7 +76,7 @@ def init_caches(model: LM, batch: int, max_len: int) -> List[Any]:
     mesh one per data shard, each built under its entries on its
     device."""
     if current_mesh() is None:
-        return model.init_caches(batch, max_len)
+        return lay_out_model(model).init_caches(batch, max_len)
     out = []
     for dev, entries, rows in _plan(model, batch):
         with use_entries(entries):
@@ -78,7 +88,7 @@ def init_caches(model: LM, batch: int, max_len: int) -> List[Any]:
 def make_prefill_step(model: LM):
     def prefill_step(tokens: torch.Tensor, caches: List[Any]):
         if current_mesh() is None:
-            return model.prefill(tokens, caches)
+            return lay_out_model(model).prefill(tokens, caches)
         return _on_shards(model, "prefill", tokens, caches)
     return prefill_step
 
@@ -86,7 +96,8 @@ def make_prefill_step(model: LM):
 def make_decode_step(model: LM):
     def decode_step(tok: torch.Tensor, pos: int, caches: List[Any]):
         if current_mesh() is None:
-            logits, caches = model.decode_step(tok, pos, caches)
+            logits, caches = lay_out_model(model).decode_step(tok, pos,
+                                                              caches)
         else:
             logits, caches = _on_shards(model, "decode_step", tok, caches,
                                         pos)

@@ -365,14 +365,17 @@ def test_tp_cells_trace_one_working_entry(small_production_mesh, tmp_path):
     16 ways, 24 an entry on a 'model' extent of 2), every one of the 8
     entries works, and its collective term holds the 'model' reductions
     by kind at the NVLink rate; mamba2 (SSM) keeps its 4 data shards and
-    no 'model' term."""
+    no 'model' term. The traced entry is the port's own layout: its
+    leaves are entry 0's blocks of `place_model` on a real CPU mesh of
+    the same 'model' extent, and the bytes of the state that a CPU
+    (2, 4) mesh step holds on entry 0 (parameters, mu, nu, the
+    accumulator's tiles) equal those of the traced entry's state."""
     rec = D.run_cell("granite-moe-3b-a800m", "decode_32k", False,
                      str(tmp_path), force=True)
     assert rec["devices_with_work"] == 8 and rec["model_entries"] == 2
     assert rec["model_collective_bytes_per_device"] > 0
-    # the port's step holds whole leaves on a data shard's root device
     assert rec["state_layout"] == "entry blocks"
-    assert rec["port_root_peak_bytes"] > rec["peak_bytes_per_device"]
+    assert not any(k.startswith("port_root") for k in rec)
     kinds = {k for k in rec["collectives"] if k.startswith("model:")}
     assert kinds == {"model:embed", "model:attn_out", "model:moe_combine",
                      "model:logits"}
@@ -387,21 +390,42 @@ def test_tp_cells_trace_one_working_entry(small_production_mesh, tmp_path):
     assert ssm["devices_with_work"] == 4 and ssm["model_entries"] == 1
     assert ssm["model_collective_bytes_per_device"] == 0
     assert ssm["state_layout"] == "whole leaves"
-    assert ssm["port_root_peak_bytes"] == ssm["peak_bytes_per_device"]
-    # the root's extra: the whole parameters less entry 0's blocks
-    # (serving), four float32 copies of that (train)
     from repro_torch.models import sharding as sh
+    from repro_torch.optim.optimizer import OptConfig
+    from repro_torch.train import train_step as tts
 
-    cfg = tconfigs.get_arch("granite-moe-3b-a800m").padded_for_mesh(
-        M.TP_SIZE)
-
-    def nbytes(m):
-        return sum(p.numel() * p.element_size() for p in m.parameters())
-
-    for kind, kw, copies in (("decode", {}, 1),
-                             ("train", {"param_dtype": torch.float32}, 4)):
-        whole = nbytes(LM(cfg, device="meta", **kw))
-        block = nbytes(sh.entry_model(LM(cfg, device="meta", **kw), 2))
-        assert D.port_root_extra_bytes(cfg, kind, 2) == \
-            copies * (whole - block) > 0
-    assert D.port_root_extra_bytes(cfg, "train", 1) == 0
+    cpu = torch.device("cpu")
+    for name, tp in (("granite-moe-3b-a800m", 2), ("phi3-mini-3.8b", 4)):
+        cfg = tconfigs.get_arch(name).reduced()
+        traced, entry = D._meta_model(cfg, tp, param_dtype=torch.float32)
+        real = Mesh((cpu,) * 8, ("data", "model"), (8 // tp, tp))
+        model = sh.place_model(
+            LM(cfg, generator=torch.Generator().manual_seed(0),
+               device="cpu", param_dtype=torch.float32), real)
+        got = dict(sh.named_leaves(traced))
+        assert list(got) == [n for n, _ in sh.named_leaves(model)]
+        for n, leaf in sh.named_leaves(model):
+            if isinstance(leaf, sh.Placed):
+                assert isinstance(got[n], sh.Placed), n
+                assert got[n].shards[0].shape == leaf.shards[0].shape, n
+                assert got[n].block(0) == leaf.block(0), n
+            else:
+                assert got[n].shape == leaf.shape, n
+        if tp != 4:
+            continue
+        # entry 0's bytes in a (2, 4) step, and the traced entry's
+        with sh.use_mesh(real):
+            state = tts.make_train_state(model)
+            held = tts.entry_bytes(model, state, rows=8)
+        tstate = tts.make_train_state(traced)
+        with sh.use_entries(entry):
+            want = tts.entry_bytes(traced, tstate, rows=4)
+        assert held[0] == want[0] and want[0]["accumulator"] > 0
+        assert held[0]["params"] == held[0]["mu"] == held[0]["nu"]
+        # the other entries hold their blocks alone; the accumulator's
+        # tiles are kept by data shard 0's entries
+        assert all(h["params"] < held[0]["params"] for h in held[1:])
+        assert all(h["accumulator"] == 0 for h in held[4:])
+        with sh.use_entries(entry):
+            tts.make_train_step(traced, OptConfig())(
+                tstate, D._meta_batch(cfg, 4, 8))

@@ -1,22 +1,29 @@
 """The port's tensor parallelism on 'model' against the JAX package, on the
-CPU: 8 shards of `cpu` laid out as ('data', 'model') meshes of (4, 2) and
-(2, 4), each held against the reference's jitted computation of the same
-config on one device, with the reference's weights carried across
-(`models/convert`).
+CPU: ('data', 'model') meshes of (4, 2) and (2, 4) over `cpu`, and the
+same with data shard 1's entries on `cpu:1` (which compares unequal to
+`cpu`, so each block has two tensors to keep equal), each held against
+the reference's jitted computation of the same config on one device,
+with the reference's weights carried across (`models/convert`).
 
-The train step (two microbatches, the uneven-mask batch of
-`test_torch_mesh_train.py`) for phi3's reduced config (vocab 97: uneven
-vocab blocks), granite's (experts over 'model', with and without
+The state is placed (`models.sharding.place_model`): each entry holds
+its blocks of the parameters, mu, nu and the accumulator, and no whole
+sharded leaf is held or copied (`check_layout`, after the placement and
+after a step). The train step (two microbatches, the uneven-mask batch
+of `test_torch_mesh_train.py`) for phi3's reduced config (vocab 97:
+uneven vocab blocks), granite's (experts over 'model', with and without
 capacity drops), hubert's (encode and the masked CE), a config whose 16
 kv heads shard, and one where neither the q-heads block nor the group
 divides the other (kv heads repeated); the ZeRO accumulator on (4, 2);
-prefill logits, three decode steps' logits and `generate`'s tokens on
-(2, 4) against the reference's serving steps; the vocab-parallel CE
-against the reference's `cross_entropy` on padded vocabularies; the
-error on heads that 'model' does not divide; MLA and SSM configs on a
-'model' axis (they do not shard) as before; a state trained under TP
-restored and remeshed onto another ('data', 'model') shape; and the
-dry-run's one traced entry against the mesh it stands for.
+the global norm against the unsharded step's; compression on the placed
+state; the step laying a state out for its mesh; prefill logits, three
+decode steps' logits and `generate`'s tokens on (2, 4) against the
+reference's serving steps; the vocab-parallel CE against the
+reference's `cross_entropy` on padded vocabularies; the error on heads
+that 'model' does not divide; MLA and SSM configs on a 'model' axis
+(they do not shard) as before; a state trained under TP saved (whole
+leaves, as an unsharded save writes them), restored and remeshed onto
+another ('data', 'model') shape; and the dry-run's one traced entry
+against the mesh it stands for.
 
 Tolerances are `test_torch_train.py`'s, for the reasons given there:
 loss 1e-5; gradients, mu and nu at 1e-4 of a leaf's max; params through
@@ -46,13 +53,18 @@ from repro_torch.optim.optimizer import OptConfig
 from repro_torch.serve import serve_step as tserve
 from repro_torch.train import train_step as tts
 from test_torch_mesh_train import B, S, uneven_batch
-from test_torch_train import (GRAD_TOL, LOSS_TOL, OPT, close_step,
-                              host_tree, port_state, ref_state)
+from test_torch_train import (FLIPS, GRAD_TOL, LOSS_TOL, OPT, batch_for,
+                              close_grads, close_step, host_tree, leaves,
+                              port_state, ref_state)
 
 torch.set_num_threads(1)
 
 CPU = torch.device("cpu")
+CPU1 = torch.device("cpu", 1)   # compares unequal to `cpu`
 MESHES = {"4x2": (4, 2), "2x4": (2, 4)}
+# the meshes of the train cases: all on `cpu`, or data shard 1's entries
+# on `cpu:1`, so that each block has two tensors (replicas) to keep equal
+TRAIN_MESHES = ("4x2", "2x4", "4x2 cpu1", "2x4 cpu1")
 # (reduced config, field changes): the cases of the train step
 CASES = {
     "phi3": ("phi3-mini-3.8b", ()),
@@ -72,15 +84,83 @@ CASES = {
 @pytest.fixture(scope="module")
 def J():
     for ref in reference_fixture():
+        from repro.optim import compression as jcomp
         from repro.optim import optimizer as jopt
         from repro.train import train_step as jts
 
-        ref.opt, ref.train_step = jopt, jts
+        ref.opt, ref.comp, ref.train_step = jopt, jcomp, jts
         yield ref
 
 
 def mesh_of(name: str) -> Mesh:
-    return Mesh((CPU,) * 8, ("data", "model"), MESHES[name])
+    """A mesh of `MESHES`; with " cpu1", data shard 1's entries on
+    `cpu:1`."""
+    shape, _, two = name.partition(" ")
+    d, m = MESHES[shape]
+    devs = [CPU1 if two and j // m == 1 else CPU for j in range(d * m)]
+    return Mesh(tuple(devs), ("data", "model"), (d, m))
+
+
+def whole_state(state):
+    """A train state's params and moments as whole CPU tensors."""
+    def whole(tree):
+        return {n: (x.full(CPU) if isinstance(x, sh.Placed) else x).detach()
+                for n, x in tree.items()}
+
+    return dict(params=whole(state["params"]),
+                opt=dict(mu=whole(state["opt"]["mu"]),
+                         nu=whole(state["opt"]["nu"]),
+                         step=state["opt"]["step"]))
+
+
+def reachable(model):
+    """Every tensor and Placed value that `model`'s modules hold."""
+    out = []
+    for mod in model.modules():
+        out += [x for x in (*mod._parameters.values(),
+                            *mod._buffers.values(), *vars(mod).values())
+                if torch.is_tensor(x) or isinstance(x, sh.Placed)]
+    return out
+
+
+def check_layout(model, state, mesh):
+    """The placed layout (see `test_tp_train_step_matches_reference_whole_
+    batch`): each entry holds exactly its `tp_block` of every sharded leaf
+    in the parameters, mu and nu, as a tensor of its own; the model holds
+    nothing else but the replicated leaves, whole Parameters on the first
+    device; a block's tensors (one per device) are equal. Returns the
+    sharded names."""
+    cfg, tp = model.cfg, mesh.shape["model"]
+    assert sh.placed_mesh(model) == mesh
+    leaves = dict(sh.named_leaves(model))
+    assert list(leaves) == list(state["params"])
+    sharded = [n for n in leaves if sh.model_dim(cfg, n) is not None]
+    replicated = [n for n in leaves if n not in sharded]
+    assert sharded and list(dict(model.named_parameters())) == replicated
+    held = {id(x) for x in reachable(model)}
+    assert held == {id(leaves[n]) for n in leaves}
+    for name in leaves:
+        d = sh.model_dim(cfg, name)
+        assert state["params"][name] is leaves[name], name
+        for tree in (state["params"], state["opt"]["mu"],
+                     state["opt"]["nu"]):
+            x = tree[name]
+            if d is None:
+                assert not isinstance(x, sh.Placed) and x.device == CPU, name
+                continue
+            assert isinstance(x, sh.Placed) and x.mesh == mesh, name
+            assert len(x.distinct()) == tp * len(set(mesh.devices)), name
+            for j, local in enumerate(x.shards):
+                m = j % tp
+                want = list(x.shape)
+                blk = sh.tp_block(want[d], tp, m)
+                want[d] = blk.stop - blk.start
+                assert list(local.shape) == want, (name, j)
+                assert x.block(j)[d] == blk, (name, j)
+                assert local.untyped_storage().nbytes() == \
+                    local.numel() * local.element_size(), (name, j)
+                assert torch.equal(local, x.shards[m]), (name, j)
+    return sharded
 
 
 def batch_of(cfg):
@@ -114,13 +194,48 @@ def reference_step(J, case):
     return _WANT[case]
 
 
-def tp_step(cfg, start, batch, mesh, **kw):
-    model, state = port_state(cfg, start)
+def tp_step(cfg, start, batch, mesh, check=False, **kw):
+    """The port's state made and loaded under `mesh` (placed), one step
+    there; with `check`, `check_layout` after the placement and after
+    the step, and the step's AdamW gradients (`adamw_update`'s) of each
+    sharded leaf checked to be its blocks."""
     with sh.use_mesh(mesh):
+        model, state = port_state(cfg, start)
+        if check:
+            check_layout(model, state, mesh)
         step = tts.make_train_step(model, OptConfig(**OPT), micro_batches=2,
                                    **kw)
-        state, got = step(state, {k: torch.from_numpy(v)
-                                  for k, v in batch.items()})
+        seen = []
+        real = tts.adamw_update
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(tts, "adamw_update",
+                       lambda p, g, *a, **k: seen.append(g) or real(p, g, *a,
+                                                                    **k))
+            state, got = step(state, {k: torch.from_numpy(v)
+                                      for k, v in batch.items()})
+    if check:
+        sharded = check_layout(model, state, mesh)
+        tp = mesh.shape["model"]
+        grads, = seen
+        for name in sharded:
+            leaf = state["params"][name]
+            tiles = [g for k, g in grads.items() if k.split("#")[0] == name]
+            # the accumulator: each entry of the first data shard keeps
+            # its block's sum (with ZeRO, each entry its 'data' block of
+            # it), no tile larger than a block; AdamW updates each tile
+            # once, on its keeper, which `check_layout` found copied to
+            # the block's other tensors
+            if "grad_shard_specs" in kw:
+                assert len(tiles) > tp, name
+            else:
+                assert [(g.shape, g.device) for g in tiles] == [
+                    (leaf.shards[m].shape, leaf.shards[m].device)
+                    for m in range(tp)], name
+            # every element once: the global norm's terms
+            assert sum(g.numel() for g in tiles) == np.prod(leaf.shape)
+            block = leaf.shards[0].numel() * 4
+            assert all(g.untyped_storage().nbytes() <= block
+                       for g in tiles), name
     return model, state, got
 
 
@@ -129,23 +244,40 @@ def check_step(got, state, want, want_state, cfg):
     close(got["grad_norm"], want["grad_norm"], GRAD_TOL, "grad_norm")
     np.testing.assert_allclose(float(got["lr"]), float(want["lr"]),
                                rtol=1e-6)
-    close_step(state, want_state, cfg, float(want["lr"]))
+    close_step(whole_state(state), want_state, cfg, float(want["lr"]))
 
 
-@pytest.mark.parametrize("mesh", sorted(MESHES))
+@pytest.mark.parametrize("mesh", TRAIN_MESHES)
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_tp_train_step_matches_reference_whole_batch(J, case, mesh, monkeypatch):
-    """The step on a ('data', 'model') mesh against the reference's
-    whole-batch step; the 'model' reductions run (counted), and where kv
-    heads shard the attention leaves' blocks are each entry's."""
+    """The step on a ('data', 'model') mesh, on the placed state, against
+    the reference's whole-batch step; the 'model' reductions run
+    (counted). The layout, after the placement and after the step: each
+    entry holds exactly its `tp_block` of every sharded leaf (parameters,
+    mu, nu, and the accumulator's tiles that AdamW reads), as a tensor of
+    its own no larger than the block; the tensors of one block (on `cpu`
+    and on `cpu:1`) are equal; no sharded leaf is copied per step
+    (`copy_params` sees the replicated ones only)."""
     cfg, _, _, batch, start, want_state, want = reference_step(J, case)
-    calls = []
+    calls, copied = [], []
     real = sh._ModelSum.forward
     monkeypatch.setattr(sh._ModelSum, "forward", staticmethod(
         lambda ctx, tp, kind, dtype, *p: calls.append((tp, kind, len(p)))
         or real(ctx, tp, kind, dtype, *p)))
-    _, state, got = tp_step(cfg, start, batch, mesh_of(mesh))
-    tp = MESHES[mesh][1]
+    real_copy = tts.copy_params
+
+    def copy_params(named, *a, **k):
+        named = list(named)
+        copied.extend(n for n, _ in named)
+        return real_copy(named, *a, **k)
+
+    monkeypatch.setattr(tts, "copy_params", copy_params)
+    _, state, got = tp_step(cfg, start, batch, mesh_of(mesh), check=True)
+    tp = MESHES[mesh.split()[0]][1]
+    sharded = {n for n in state["params"]
+               if sh.model_dim(port_cfg(cfg), n) is not None}
+    assert bool(copied) == mesh.endswith("cpu1")
+    assert not sharded & set(copied)
     kinds = {k for _, k, _ in calls}
     assert {"attn_out", "ce_sumexp", "ce_gold"} <= kinds
     assert ("moe_combine" if cfg.is_moe else "mlp_out") in kinds
@@ -162,12 +294,14 @@ def test_tp_moe_with_drops_drops_pairs_and_reports_the_aux(J):
 
     cfg, _, _, batch, start, want_state, want = reference_step(
         J, "granite_drops")
-    model, state = port_state(cfg, start)
+    model, _ = port_state(cfg, start)
     with torch.no_grad():
         aux = sum(model.loss_fn({k: torch.from_numpy(v[i * B // 2:
                                                        (i + 1) * B // 2])
                                  for k, v in batch.items()})[1]["aux"]
                   for i in range(2)) / 2
+    with sh.use_mesh(mesh_of("2x4")):
+        model, state = port_state(cfg, start)
     seen, routes = [], []
     model.layers[0].mlp.register_forward_pre_hook(
         lambda mod, args: seen.append(args[1].detach()))
@@ -187,17 +321,72 @@ def test_tp_moe_with_drops_drops_pairs_and_reports_the_aux(J):
     check_step(got, state, want, want_state, cfg)
 
 
-def test_tp_zero_accumulator_matches_reference(J):
+@pytest.mark.parametrize("mesh", ["4x2", "4x2 cpu1"])
+def test_tp_zero_accumulator_matches_reference(J, mesh):
     """The ZeRO accumulator (`grad_shard_specs=param_specs`) on (4, 2):
-    its blocks along 'data' of the whole gradients that TP assembles."""
+    each entry keeps its 'data' block of its 'model' block of every
+    sharded leaf's gradient sum, AdamW runs on those tiles."""
     cfg, _, _, batch, start, want_state, want = reference_step(J, "phi3")
     model, _ = port_state(cfg, start)
-    with sh.use_mesh(mesh_of("4x2")):
+    with sh.use_mesh(mesh_of(mesh)):
         specs = sh.param_specs(model)
     assert specs["layers.0.mlp.wi"] == sh.P("data", "model")
-    _, state, got = tp_step(cfg, start, batch, mesh_of("4x2"),
+    _, state, got = tp_step(cfg, start, batch, mesh_of(mesh), check=True,
                             grad_shard_specs=specs)
     check_step(got, state, want, want_state, cfg)
+
+
+@pytest.mark.parametrize("mesh", TRAIN_MESHES)
+@pytest.mark.parametrize("case", ["phi3", "granite"])
+def test_tp_global_norm_counts_each_block_once(J, case, mesh):
+    """The placed step's grad_norm (each sharded block once, not once per
+    data coordinate or per tensor that holds it; each replicated leaf
+    once) against the port's unsharded step's from the same state, at
+    GRAD_TOL."""
+    cfg, _, _, batch, start, _, _ = reference_step(J, case)
+    model, state = port_state(cfg, start)
+    _, one = tts.make_train_step(model, OptConfig(**OPT), micro_batches=2)(
+        state, {k: torch.from_numpy(v) for k, v in batch.items()})
+    _, _, got = tp_step(cfg, start, batch, mesh_of(mesh))
+    close(got["grad_norm"], one["grad_norm"].numpy(), GRAD_TOL, "grad_norm")
+
+
+@pytest.mark.parametrize("compress", ["topk", "int8"])
+def test_tp_compressed_step_matches_reference(J, compress):
+    """Compression with error feedback on the placed state ("2x4 cpu1"):
+    the tiles of the gradient sum gathered on the model's device into the
+    reference's leaves, compressed, cut back; the error feedback a placed
+    value, each entry its blocks. Params, moments and the new error
+    against the reference's step, as `test_torch_train.py` holds the
+    one-device step (with its FLIPS)."""
+    cfg, m, params = ref_model(J, "phi3-mini-3.8b", seed=4)
+    batch = batch_for(cfg, b=4, seed=3)
+    kw = dict(compress=compress, topk_frac=0.05)
+    want_state, want = J.jax.jit(J.train_step.make_train_step(
+        m, J.opt.OptConfig(**OPT), **kw))(
+        ref_state(J, m, params, True),
+        {k: J.jnp.asarray(v) for k, v in batch.items()})
+    mesh = mesh_of("2x4 cpu1")
+    with sh.use_mesh(mesh):
+        model, state = port_state(cfg, ref_state(J, m, params, True))
+        state, got = tts.make_train_step(model, OptConfig(**OPT), **kw)(
+            state, {k: torch.from_numpy(v) for k, v in batch.items()})
+    check_layout(model, state, mesh)
+    err = state["err"]["layers.0.mlp.wi"]
+    assert isinstance(err, sh.Placed) and len(err.distinct()) == 8
+    want_state = host_tree(want_state)
+    flips = FLIPS.get(compress)
+    close(got["loss"], want["loss"], LOSS_TOL, "loss")
+    close(got["grad_norm"], want["grad_norm"], GRAD_TOL, "grad_norm")
+    tops = close_step(whole_state(state), want_state, cfg, float(want["lr"]),
+                      flips)
+    clip = min(1.0, 1.0 / float(want["grad_norm"]))
+    errs = leaves(cfg, want_state["err"])
+    got_err = {n: x.full(CPU) if isinstance(x, sh.Placed) else x
+               for n, x in state["err"].items()}
+    close_grads(got_err, errs, "err", (flips or {}).get("err", 0),
+                {n: max(t / clip, float(errs[n].abs().max()))
+                 for n, t in tops.items()})
 
 
 SERVED = ("phi3", "granite", "kv16", "repeat")
@@ -209,9 +398,16 @@ def test_tp_serving_matches_reference(J, case):
     against the reference's `prefill` / `decode_step`, fed the same
     tokens; `generate`'s tokens equal the reference's greedy loop through
     those steps. Each entry's cache holds its block of the kv heads where
-    they shard, else all of them."""
+    they shard, else all of them. The model is placed on the mesh by
+    `from_reference(..., mesh=)` for phi3 and kv16, by the first step
+    for the others."""
     cfg, m, params = reference_step(J, case)[:3]
-    model = convert.from_reference(port_cfg(cfg), params, device="cpu")
+    # placed by `from_reference` (on the meta device, then block by
+    # block), or by the first step
+    model = convert.from_reference(
+        port_cfg(cfg), params, device="cpu",
+        mesh=mesh_of("2x4") if case in ("phi3", "kv16") else None)
+    assert (sh.placed_mesh(model) is None) == (case not in ("phi3", "kv16"))
     b, s, max_len = 4, 12, 32
     toks = np.random.default_rng(8).integers(0, cfg.vocab_size,
                                              (b, s)).astype(np.int32)
@@ -327,10 +523,13 @@ def test_mla_and_ssm_on_a_model_axis_keep_the_data_shards_step(name):
 
 
 def test_state_trained_under_tp_restores_and_remeshes(tmp_path):
-    """4 steps on (2, 4), a checkpoint, restore(shardings=) onto that mesh,
-    `remesh_state` onto (4, 2) with the parameter specs, a fresh model,
-    4 more steps: the 8 losses against 8 unsharded steps (1e-5), and the
-    remeshed leaves equal the saved ones (they are whole leaves)."""
+    """4 steps on (2, 4) on the placed state, a checkpoint (whole leaves in
+    the reference's layout: the arrays an unsharded save of the same
+    state writes, byte for byte), restore(shardings=) onto that mesh,
+    `remesh_state` onto (4, 2) with the parameter specs, a fresh model
+    placed there and filled from it, 4 more steps: the 8 losses against
+    8 unsharded steps (1e-5), and the filled leaves equal the saved
+    ones."""
     cfg = tconfigs.get_arch("granite-moe-3b-a800m").reduced()
     opt = OptConfig(peak_lr=5e-3, warmup_steps=2, total_steps=20)
     data = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=16,
@@ -345,15 +544,24 @@ def test_state_trained_under_tp_restores_and_remeshes(tmp_path):
     step = tts.make_train_step(model, opt)
     want = [float(step(state, data.batch(i))[1]["loss"]) for i in range(8)]
     m24, m42 = mesh_of("2x4"), mesh_of("4x2")
-    model, state = fresh()
-    step = tts.make_train_step(model, opt)
     with sh.use_mesh(m24):
+        model, state = fresh()
+        step = tts.make_train_step(model, opt)
         losses = [float(step(state, data.batch(i))[1]["loss"])
                   for i in range(4)]
         specs = sh.param_specs(model)
-    ck = Checkpointer(str(tmp_path), async_save=False)
+    assert isinstance(state["params"]["embedding"], sh.Placed)
+    ck = Checkpointer(str(tmp_path / "tp"), async_save=False)
     ck.save(4, state)
-    saved = {n: p.detach().clone() for n, p in state["params"].items()}
+    whole = whole_state(state)
+    Checkpointer(str(tmp_path / "whole"), async_save=False).save(4, whole)
+    with np.load(tmp_path / "tp" / "step_4" / "proc_0.npz") as a, \
+            np.load(tmp_path / "whole" / "step_4" / "proc_0.npz") as b:
+        assert a.files == b.files and "params/embedding" in a.files
+        for k in a.files:
+            assert a[k].dtype == b[k].dtype and a[k].shape == b[k].shape
+            assert a[k].tobytes() == b[k].tobytes(), k
+    saved = whole["params"]
     names = list(saved)
 
     def tree(leaf):
@@ -368,10 +576,12 @@ def test_state_trained_under_tp_restores_and_remeshes(tmp_path):
         lambda n: sh.P() if n is None else specs[n]), m42)
     # the experts' block on 'model', d_model's on 'data' (the reference's)
     assert placed["params"]["layers.0.mlp.wi"].spec[:2] == ("model", "data")
-    model, state = fresh()
+    with sh.use_mesh(m42):
+        model, state = fresh()
     tts.load_train_state(state, placed)
-    for n in names:
-        assert torch.equal(state["params"][n], saved[n]), n
+    check_layout(model, state, m42)
+    for n, x in whole_state(state)["params"].items():
+        assert torch.equal(x, saved[n]), n
     step = tts.make_train_step(model, opt)
     with sh.use_mesh(m42):
         losses += [float(step(state, data.batch(i))[1]["loss"])
@@ -380,9 +590,117 @@ def test_state_trained_under_tp_restores_and_remeshes(tmp_path):
     np.testing.assert_allclose(losses, want, rtol=1e-5, atol=1e-5)
 
 
+def test_step_lays_the_state_out_for_its_mesh():
+    """A state made without a mesh is placed by its first step on a
+    ('data', 'model') mesh (`lay_out_state`), laid out anew on another
+    such mesh, and gathered into whole leaves again for a step without
+    one; the moments follow, block for block. The losses of the six
+    steps against six unsharded ones (1e-5), and the state after them
+    against the unsharded one's at GRAD_TOL."""
+    cfg = tconfigs.get_arch("phi3-mini-3.8b").reduced()
+    opt = OptConfig(peak_lr=5e-3, warmup_steps=2, total_steps=20)
+    data = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=16,
+                                    global_batch=8, seed=3), device="cpu")
+
+    def fresh():
+        model = LM(cfg, generator=torch.Generator().manual_seed(0),
+                   device="cpu", param_dtype=torch.float32)
+        return model, tts.make_train_state(model)
+
+    model, state = fresh()
+    step = tts.make_train_step(model, opt)
+    want = [float(step(state, data.batch(i))[1]["loss"]) for i in range(6)]
+    want_state = whole_state(state)
+    model, state = fresh()
+    step = tts.make_train_step(model, opt)
+    losses = []
+    for i, mesh in enumerate((mesh_of("2x4"), mesh_of("2x4"),
+                              mesh_of("4x2 cpu1"), mesh_of("4x2 cpu1"),
+                              None, None)):
+        with sh.use_mesh(mesh):
+            losses.append(float(step(state, data.batch(i))[1]["loss"]))
+        if mesh is not None:
+            check_layout(model, state, mesh)
+        else:
+            assert sh.placed_mesh(model) is None
+            assert all(torch.is_tensor(x) for x in state["opt"]["mu"].values())
+    np.testing.assert_allclose(losses, want, rtol=1e-5, atol=1e-5)
+    # gathered, the parameters are registered in a fresh model's order
+    order = list(dict(fresh()[0].named_parameters()))
+    assert list(dict(model.named_parameters())) == order
+    assert list(model.state_dict()) == list(fresh()[0].state_dict())
+    assert list(state["params"]) == order
+    got = whole_state(state)
+    for part in ("mu", "nu"):
+        for n, w in want_state["opt"][part].items():
+            close(got["opt"][part][n], w.numpy(), GRAD_TOL, f"{part} {n}")
+    for n, w in want_state["params"].items():
+        close(got["params"][n], w.numpy(), GRAD_TOL, n)
+
+
+@pytest.mark.parametrize("start", ["no mesh", "4x2"])
+def test_serving_between_steps_lays_the_state_out_anew(start):
+    """A state made without a mesh (or on (4, 2)), then `generate` on
+    ("2x4 cpu1"), which lays the model out there, then two steps on that
+    mesh: the step finds the state's parameters stale (not the model's
+    leaves) and lays it out anew, so every sharded leaf trains. Then
+    `generate` without a mesh and on a data-only mesh gathers the model
+    into whole leaves, and a last step without a mesh. The losses against
+    the unsharded steps' (1e-5), the state after them at GRAD_TOL, the
+    tokens equal the unsharded model's after as many steps."""
+    cfg = tconfigs.get_arch("phi3-mini-3.8b").reduced()
+    opt = OptConfig(peak_lr=5e-3, warmup_steps=2, total_steps=20)
+    data = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=16,
+                                    global_batch=8, seed=3), device="cpu")
+    prompt = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (4, 6)).astype(np.int32))
+
+    def fresh():
+        model = LM(cfg, generator=torch.Generator().manual_seed(0),
+                   device="cpu", param_dtype=torch.float32)
+        return model, tts.make_train_state(model)
+
+    model, state = fresh()
+    step = tts.make_train_step(model, opt)
+    want = [float(step(state, data.batch(i))[1]["loss"]) for i in range(2)]
+    want_tokens = tserve.generate(model, prompt, max_new=4, max_len=16)
+    want.append(float(step(state, data.batch(2))[1]["loss"]))
+    want_state = whole_state(state)
+    with sh.use_mesh(None if start == "no mesh" else mesh_of("4x2")):
+        model, state = fresh()
+    mesh = mesh_of("2x4 cpu1")
+    with sh.use_mesh(mesh):
+        tserve.generate(model, prompt, max_new=2, max_len=16)
+        assert sh.placed_mesh(model) == mesh
+        assert state["params"]["lm_head"] is not sh.named_leaves(
+            model)[-1][1]
+        step = tts.make_train_step(model, opt)
+        losses = [float(step(state, data.batch(i))[1]["loss"])
+                  for i in range(2)]
+    check_layout(model, state, mesh)
+    tokens = []
+    for m in (None, Mesh((CPU,) * 2, ("data",))):
+        with sh.use_mesh(m):
+            tokens.append(tserve.generate(model, prompt, max_new=4,
+                                          max_len=16))
+        assert sh.placed_mesh(model) is None
+    losses.append(float(step(state, data.batch(2))[1]["loss"]))
+    assert all(state["params"][n] is p for n, p in model.named_parameters())
+    np.testing.assert_allclose(losses, want, rtol=1e-5, atol=1e-5)
+    got = whole_state(state)
+    for part in ("mu", "nu"):
+        for n, w in want_state["opt"][part].items():
+            close(got["opt"][part][n], w.numpy(), GRAD_TOL, f"{part} {n}")
+    for n, w in want_state["params"].items():
+        close(got["params"][n], w.numpy(), GRAD_TOL, n)
+    for t in tokens:        # the weights of the two steps on the mesh
+        assert torch.equal(t, want_tokens)
+
+
 def test_traced_entry_counts_a_quarter_of_the_mesh_step():
-    """The dry-run's one entry (`entry_model` + `traced_entry` on meta
-    tensors) against the real (1, 4) mesh step it stands for, phi3's
+    """The dry-run's one entry (`entry_model`, `place_model` for entry 0
+    alone, + `traced_entry` on meta tensors) against the real (1, 4)
+    mesh step on the placed state it stands for, phi3's
     reduced config with a vocab of 96 (blocks of 24) and remat, in fp32
     and with bf16 activations (float32 partials,
     `sharding.partial_product`): its FLOPs times 4 equal the mesh step's
@@ -400,9 +718,12 @@ def test_traced_entry_counts_a_quarter_of_the_mesh_step():
             remat=True, dtype=dtype)
         batch = {k: torch.from_numpy(v)
                  for k, v in uneven_batch(cfg).items()}
+        mesh = Mesh((CPU,) * 4, ("data", "model"), (1, 4))
         model = LM(cfg, generator=torch.Generator().manual_seed(0),
                    device="cpu", param_dtype=torch.float32)
-        state = tts.make_train_state(model)
+        whole = {n: tuple(p.shape) for n, p in model.named_parameters()}
+        with sh.use_mesh(mesh):
+            state = tts.make_train_state(model)
         meta = sh.entry_model(LM(cfg, device="meta",
                                  param_dtype=torch.float32), 4)
         mstate = tts.make_train_state(meta)
@@ -410,9 +731,7 @@ def test_traced_entry_counts_a_quarter_of_the_mesh_step():
                   for k, v in batch.items()}
         real, traced = {}, {}
         for early in (False, True):
-            with sh.use_mesh(Mesh((CPU,) * 4, ("data", "model"),
-                                  (1, 4))), \
-                    set_checkpoint_early_stop(early):
+            with sh.use_mesh(mesh), set_checkpoint_early_stop(early):
                 real[early] = analyze_program(
                     tts.make_train_step(model, OptConfig()), state, batch)
             with sh.use_entries(sh.traced_entry(4, "meta")), \
@@ -429,45 +748,55 @@ def test_traced_entry_counts_a_quarter_of_the_mesh_step():
                 real[early]["model_collective_counts"]
             assert traced[early]["model_collective_bytes"] == \
                 real[early]["model_collective_bytes"] > 0
-        whole = dict(model.named_parameters())
-        for name, p in meta.named_parameters():
+        for name, p in sh.named_leaves(meta):
             d = sh.model_dim(cfg, name)
-            want = list(whole[name].shape)
+            want = list(whole[name])
             if d is not None:
                 want[d] = -(-want[d] // 4)
+                p = p.shards[0]
             assert list(p.shape) == want, name
 
 
 def test_tp_serving_shard_on_another_device_runs_on_a_copy(monkeypatch):
     """A data shard whose entries are not on the model's device (`cpu:1`,
-    which compares unequal to `cpu`) serves through
-    `torch.func.functional_call` on a copy of the parameters there:
-    `generate` on (2, 4) gives the tokens of the mesh with every entry
-    on `cpu`, one call per step for that shard. The copy is made per
-    call: a step kept while the weights change serves the new ones."""
+    which compares unequal to `cpu`) serves the placed model: its
+    entries read the blocks they hold there, and only the replicated
+    leaves (norms, router, whole kv weights) run on a copy made per call
+    through `torch.func.functional_call`, one call per step for that
+    shard; no sharded leaf is copied. `generate` on (2, 4) gives the
+    tokens of the mesh with every entry on `cpu`. A change written into
+    the entries' blocks (and the replicated leaves) is served by the
+    next step."""
     cfg = tconfigs.get_arch("granite-moe-3b-a800m").reduced()
     model = LM(cfg, generator=torch.Generator().manual_seed(0),
                device="cpu")
+    sharded = {n for n, _ in model.named_parameters()
+               if sh.model_dim(cfg, n) is not None}
     prompt = torch.from_numpy(np.random.default_rng(3).integers(
         0, cfg.vocab_size, (4, 6)).astype(np.int32))
     calls = []
     call = torch.func.functional_call
     monkeypatch.setattr(torch.func, "functional_call",
-                        lambda *a, **k: calls.append(1) or call(*a, **k))
-    two = Mesh((CPU,) * 4 + (torch.device("cpu", 1),) * 4,
-               ("data", "model"), (2, 4))
+                        lambda mod, named, *a, **k: calls.append(set(named))
+                        or call(mod, named, *a, **k))
+    two = Mesh((CPU,) * 4 + (CPU1,) * 4, ("data", "model"), (2, 4))
     out = []
     for mesh in (mesh_of("2x4"), two):
         with sh.use_mesh(mesh):
             out.append(tserve.generate(model, prompt, max_new=4, max_len=16))
+        assert sh.placed_mesh(model) == mesh
     assert len(calls) == 4          # the prefill and 3 decode steps
+    copied = {n.partition(".")[2] for n in set.union(*calls)}
+    assert copied and not copied & sharded
+    assert copied == set(dict(model.named_parameters()))
     assert torch.equal(out[0], out[1])
     with sh.use_mesh(two):
         prefill = tserve.make_prefill_step(model)
         before = prefill(prompt, tserve.init_caches(model, 4, 16))[0]
         with torch.no_grad():
-            for p in model.parameters():
-                p.mul_(1.5)
+            for _, leaf in sh.named_leaves(model):
+                for t in sh.local_tensors(leaf):
+                    t.mul_(1.5)
         after = prefill(prompt, tserve.init_caches(model, 4, 16))[0]
     with sh.use_mesh(mesh_of("2x4")):
         want = tserve.make_prefill_step(model)(
