@@ -147,6 +147,12 @@ Phases, in order; any failed check exits non-zero:
      (mu after the first step) and parameter rel. L2 2e-2), then 2 more
      steps of each timed (ms side by side, peak memory, busy share,
      launches a step: flash forward 4 / 16 / 16, backward 2 / 8 / 8);
+     FSDP (the state laid out by `param_specs`: each entry its ('data',
+     'model') block) on the 4 data shards, `torch.equal` to the ZeRO
+     step (phi3 and granite), and on (2, 2) at `MESH_TP_LIMITS`, each
+     entry holding a quarter of the state (`entry_bytes`, 2 %), and
+     phi3's prefill and 8 decode steps on the FSDP model, logits
+     `torch.equal` to its 'model' layout's;
      the depth-2 fp32 parity of the 4-shard step against the unsharded
      one on an uneven mask (1e-4 of each leaf's max); the same two for
      MoE, granite-moe-3b-a800m at 2 of 32 layers, capacity factor 1.25
@@ -161,7 +167,8 @@ Phases, in order; any failed check exits non-zero:
      restart at phi3's reduced config (6 steps on 4 data shards, a
      checkpoint, `restore(shardings=)`, `remesh_state` onto a (2, 2)
      ('data', 'model') mesh, 6 steps; 12 losses within 1e-5 of 12
-     unsharded steps); `compressed_psum` over 8 shards of cuda:0 (equal
+     unsharded steps), and the same from an FSDP state remeshed by
+     `param_specs`; `compressed_psum` over 8 shards of cuda:0 (equal
      to its CPU run, within 0.05 of the exact sum); the serve_lm twin;
   8b. dryrun: the dry-run tools (`launch/{graph_analysis,specs,dryrun}
      .py`) held to the card: the card's `total_memory`; each operator
@@ -4066,17 +4073,28 @@ MESH_TP = {"tp4": (1, 4), "data2 tp2": (2, 2)}
 # the bf16 TP steps against the unsharded one, per arch: the worst
 # leaf's gradient and updated parameter (rel. L2) and the MoE aux (rel.).
 # The forward's sums round once (float32 partials,
-# `sharding.partial_product`), but a replicated input's gradient is the
-# sum of the entries' bf16 parts, and granite's combine rounds per add
-# unsharded and once under TP, so a few routings flip and their experts'
-# gradients move. Read on an NVIDIA H100 80GB HBM3 (700 W) at MESH_DEPTH
-# = 2 (the same in every run): phi3 1.10e-2 and 1.18e-3 on (1, 4) and
-# (2, 2); granite 8.48e-2, 1.92e-3 and 3.35e-5. Each limit is the
-# reading times the ratio the limit had to the 4-layer reading (phi3
-# 4e-2 / 1.69e-2 and 5e-3 / 1.55e-3; granite 0.3 / 0.136, 1e-2 / 2.46e-3),
-# rounded down; granite's aux keeps 1e-4 (its 4-layer reading was 2.85e-5)
+# `sharding.partial_product`), and so does a replicated input's gradient
+# (float32 partials, `sharding.column_product`), but the unsharded step
+# rounds each product's input gradient and their sum to bf16, which no
+# split of the columns reproduces: every leaf moves, the norms too (the
+# data shards, which round as it does, move the weights' gradients
+# alone). granite's combine rounds per add unsharded and once under TP,
+# so a few routings flip and their experts' gradients move. Read on an
+# NVIDIA H100 80GB HBM3 (700 W) at MESH_DEPTH = 2 (the same in every
+# run): phi3 1.10e-2 and 1.18e-3 on (1, 4), 9.46e-3 and 1.06e-3 since the
+# float32 input gradients ((2, 2): 9.39e-3, 1.03e-3); granite 8.48e-2,
+# 1.92e-3 and 3.35e-5. Each limit is the reading before the float32 input
+# gradients times the ratio the limit had to the 4-layer reading (phi3 4e-2 / 1.69e-2 and 5e-3 /
+# 1.55e-3; granite 0.3 / 0.136, 1e-2 / 2.46e-3), rounded down; granite's
+# aux keeps 1e-4 (its 4-layer reading was 2.85e-5). The data shards read
+# 2.35e-3 for phi3: the TP readings did not come near it, so the limits
+# stay as they were
 MESH_TP_LIMITS = {MESH_ARCH: dict(grad=2.5e-2, param=3.8e-3),
                   MESH_MOE_ARCH: dict(grad=0.18, param=7.8e-3, aux=1e-4)}
+# FSDP over 'data' (the state laid out by `param_specs`): on MESH_SHARDS
+# data shards of the card (None: `make_host_mesh`'s), and on (2, 2)
+MESH_FSDP = {f"data{MESH_SHARDS} fsdp": None, "data2 tp2 fsdp": (2, 2)}
+FSDP_SERVE_PROMPT, FSDP_SERVE_NEW = 512, 8   # the FSDP serving check
 TP_SERVE_NEW = 32            # decode steps after the prefill
 TP_SERVE_FP32_TOL = 1e-4     # of the logits' largest magnitude, fp32
 TP_SERVE_BF16_REL_L2 = 5e-2  # the serving contract's, bf16
@@ -4111,11 +4129,11 @@ def _train_snapshot(state) -> dict:
                          step=opt["step"].clone()))
 
 
-def _rel_l2_leaves(got, want, base=None) -> float:
-    """The worst relative L2 distance over the leaves, each compared on
-    got's device (a Placed leaf gathered there); with `base`, of got -
+def _rel_l2_by_leaf(got, want, base=None) -> dict:
+    """{leaf: relative L2 distance of got's leaf to want's}, each compared
+    on got's device (a Placed leaf gathered there); with `base`, of got -
     base against want - base (the updates)."""
-    worst = 0.0
+    out = {}
     for name, w in want.items():
         g = _whole(got[name])
         w = w.detach().to(g.device)
@@ -4123,24 +4141,139 @@ def _rel_l2_leaves(got, want, base=None) -> float:
             b = base[name].to(g.device)
             g, w = g - b, w - b
         g, w = g.double(), w.double()
-        worst = max(worst, float(torch.linalg.vector_norm(g - w)
-                                 / max(float(torch.linalg.vector_norm(w)),
-                                       1e-30)))
-    return worst
+        out[name] = float(torch.linalg.vector_norm(g - w)
+                          / max(float(torch.linalg.vector_norm(w)), 1e-30))
+    return out
 
 
-def _mesh_variants(mesh, tp=()):
-    """(name, mesh, ZeRO accumulator) of the steps compared: unsharded, on
-    the data shards of `mesh`, with ZeRO, then the ('data', 'model')
-    meshes of the card named in `tp` (MESH_TP)."""
+def _rel_l2_leaves(got, want, base=None) -> float:
+    """The worst relative L2 distance over the leaves (`_rel_l2_by_leaf`)."""
+    return max(_rel_l2_by_leaf(got, want, base).values(), default=0.0)
+
+
+def _mesh_variants(mesh, tp=(), fsdp=()):
+    """(name, mesh, ZeRO accumulator, FSDP state) of the steps compared:
+    unsharded, on the data shards of `mesh`, with ZeRO, then FSDP there
+    (right after the ZeRO step it is held to), the ('data', 'model')
+    meshes of the card named in `tp` (MESH_TP), then the other FSDP
+    steps named in `fsdp` (MESH_FSDP: the state laid out by
+    `param_specs`, the ZeRO accumulator's tiles its blocks)."""
     from repro_torch.core.distributed import Mesh
 
     dev = mesh.devices[0]
-    return (("unsharded", None, False),
-            (f"data{MESH_SHARDS}", mesh, False),
-            (f"data{MESH_SHARDS} zero", mesh, True)) + tuple(
-        (name, Mesh((dev,) * int(np.prod(MESH_TP[name])), ("data", "model"),
-                    MESH_TP[name]), False) for name in tp)
+
+    def of(shape):
+        return (mesh if shape is None else
+                Mesh((dev,) * int(np.prod(shape)), ("data", "model"), shape))
+
+    data = [n for n in fsdp if MESH_FSDP[n] is None]
+    return (("unsharded", None, False, False),
+            (f"data{MESH_SHARDS}", mesh, False, False),
+            (f"data{MESH_SHARDS} zero", mesh, True, False)) + tuple(
+        (name, mesh, True, True) for name in data) + tuple(
+        (name, of(MESH_TP[name]), False, False) for name in tp) + tuple(
+        (name, of(MESH_FSDP[name]), True, True) for name in fsdp
+        if name not in data)
+
+
+def _tree_bytes(tree) -> int:
+    """The bytes of the tensors of a tree of dicts."""
+    if isinstance(tree, dict):
+        return sum(_tree_bytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
+
+
+def _fsdp_equal(arch, name, metrics, state, zero_first) -> None:
+    """The FSDP step's loss, grad_norm, aux and every parameter, mu and nu
+    `torch.equal` to the ZeRO step's on the same data shards."""
+    check(zero_first is not None, f"mesh_train {name}: no ZeRO step to "
+                                  f"hold it to")
+    zm, zs = zero_first
+    bad = [k for k in ("loss", "grad_norm", "aux") if k in zm
+           and not torch.equal(metrics[k], zm[k])]
+    for part, tree, want in (
+            ("params", state["params"], zs["params"]),
+            ("mu", state["opt"]["mu"], zs["opt"]["mu"]),
+            ("nu", state["opt"]["nu"], zs["opt"]["nu"])):
+        bad += [f"{part} {n}" for n in want
+                if not torch.equal(_whole(tree[n]), want[n])]
+    check(not bad, f"mesh_train {arch} {name}: differs from the ZeRO step "
+                   f"in {bad[:8]} ({len(bad)} in all)")
+    print(f"mesh_train {arch} {name}: loss, grad_norm"
+          + (", aux" if "aux" in zm else "") + f" and all {len(zs['params'])}"
+          f" parameters, mu and nu torch.equal to the ZeRO step's")
+
+
+def _fsdp_serve(dev, card, model) -> dict:
+    """phi3's serving steps on the model laid out FSDP on (2, 2) (as the
+    "data2 tp2 fsdp" step left it: each entry its ('data', 'model')
+    blocks, a layer's gathered per step), then on the same weights in the
+    'model' layout: one prefill of B = MESH_BATCH x FSDP_SERVE_PROMPT
+    and FSDP_SERVE_NEW decode steps fed the same tokens, every step's
+    logits `torch.equal`; the ms of each."""
+    from repro_torch.core.distributed import Mesh
+    from repro_torch.kernels import ops
+    from repro_torch.models.sharding import (gather_model, is_fsdp,
+                                             lay_out_model, named_leaves,
+                                             param_specs, use_mesh)
+    from repro_torch.serve import serve_step as ss
+
+    mesh = Mesh((dev,) * 4, ("data", "model"), MESH_FSDP["data2 tp2 fsdp"])
+    prompt = torch.randint(0, model.cfg.vocab_size,
+                           (MESH_BATCH, FSDP_SERVE_PROMPT), dtype=torch.int32,
+                           generator=torch.Generator().manual_seed(22)).to(dev)
+    max_len = FSDP_SERVE_PROMPT + FSDP_SERVE_NEW + 1
+
+    def run(feed=None):
+        with use_mesh(mesh), torch.no_grad():
+            caches = ss.init_caches(model, MESH_BATCH, max_len)
+            prefill, decode = (ss.make_prefill_step(model),
+                               ss.make_decode_step(model))
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            logits, caches = prefill(prompt, caches)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            launches = ops.launch_counts()
+            steps = [logits]
+            toks = [torch.argmax(logits, -1).to(torch.int32)[:, None]]
+            for i in range(FSDP_SERVE_NEW):
+                tok = toks[-1] if feed is None else feed[i]
+                nxt, logits, caches = decode(tok, FSDP_SERVE_PROMPT + i,
+                                             caches)
+                steps.append(logits)
+                toks.append(nxt)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+        return dict(steps=steps, toks=toks, launches=launches,
+                    prefill_ms=(t1 - t0) * 1e3,
+                    decode_ms=(t2 - t1) * 1e3 / FSDP_SERVE_NEW)
+
+    with use_mesh(mesh):
+        lay_out_model(model, param_specs(model))
+    fsdp_leaves = sum(is_fsdp(x) for _, x in named_leaves(model))
+    check(fsdp_leaves > 0, "fsdp serve: the model is not laid out FSDP")
+    got = run()
+    gather_model(model)     # the steps lay it out anew: the 'model' blocks
+    want = run(feed=got["toks"])
+    same = [torch.equal(a, b) for a, b in zip(got["steps"], want["steps"])]
+    check(all(bool(torch.isfinite(a).all()) for a in got["steps"]),
+          "fsdp serve: logits not finite")
+    check(all(same), f"fsdp serve: logits of steps "
+                     f"{[i for i, s in enumerate(same) if not s]} differ from "
+                     f"the 'model' layout's")
+    out = dict(steps_equal=len(same), prefill_ms=got["prefill_ms"],
+               decode_ms=got["decode_ms"],
+               prefill_ms_model_layout=want["prefill_ms"],
+               decode_ms_model_layout=want["decode_ms"],
+               launches_prefill=got["launches"], fsdp_leaves=fsdp_leaves)
+    print(f"mesh_train fsdp serve {model.cfg.name} bf16 ({model.cfg.n_layers}"
+          f" layers, B={MESH_BATCH} prefill S={FSDP_SERVE_PROMPT}, "
+          f"{FSDP_SERVE_NEW} decode steps) on (2, 2) of {dev}: logits of all "
+          f"{len(same)} steps torch.equal to the 'model' layout's; "
+          f"{json.dumps(out)}; card {card}")
+    return out
 
 
 def _mesh_launches(cfg, m) -> dict:
@@ -4160,7 +4293,7 @@ def _mesh_launches(cfg, m) -> dict:
 
 
 def _mesh_full(dev, card, arch=MESH_ARCH, grad_limit=MESH_REL_L2,
-               tp=tuple(MESH_TP)) -> dict:
+               tp=tuple(MESH_TP), fsdp=tuple(MESH_FSDP)) -> dict:
     """`arch` (phi3, or granite's MoE) at full width, MESH_DEPTH layers,
     bf16 activations, remat, B = MESH_BATCH x MESH_SEQ: one step from a
     fresh state unsharded, on MESH_SHARDS data shards of the card, and
@@ -4176,8 +4309,15 @@ def _mesh_full(dev, card, arch=MESH_ARCH, grad_limit=MESH_REL_L2,
     distances are printed, not checked (granite's: `_mesh_moe`). The
     steps on the ('data', 'model') meshes named in `tp` are tensor
     parallel: their loss is held as above, their gradients, parameters
-    and aux at `arch`'s MESH_TP_LIMITS; with phi3 the bf16 serving steps
-    follow (`_tp_serve`)."""
+    and aux at `arch`'s MESH_TP_LIMITS, and each leaf's gradient and
+    parameter distance is printed beside the data shards'. The FSDP steps
+    named in `fsdp` (MESH_FSDP) start from the state laid out by
+    `param_specs`: on the data shards their loss, grad_norm, aux and
+    every parameter, mu and nu after the step are `torch.equal` to the
+    ZeRO step's, on (2, 2) they are held as the TP steps are; with phi3
+    the bf16 serving steps follow (`_tp_serve`), and the FSDP model's
+    prefill and decode logits against its 'model' layout's
+    (`_fsdp_serve`)."""
     import dataclasses
 
     from repro_torch.configs import get_arch
@@ -4186,7 +4326,8 @@ def _mesh_full(dev, card, arch=MESH_ARCH, grad_limit=MESH_REL_L2,
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import moe as tmoe
     from repro_torch.models.model import LM
-    from repro_torch.models.sharding import param_specs, use_mesh
+    from repro_torch.models.sharding import (gather_model, param_specs,
+                                             use_mesh)
     from repro_torch.optim.optimizer import OptConfig
     from repro_torch.train.train_step import (entry_bytes, lay_out_state,
                                               load_train_state,
@@ -4249,17 +4390,27 @@ def _mesh_full(dev, card, arch=MESH_ARCH, grad_limit=MESH_REL_L2,
     first = dict(loss=first_loss, mu=snap["opt"]["mu"], params=snap["params"])
     del snap
     harness = _held_bytes(dev) - base
-    rows = {}
-    for name, m, zero in _mesh_variants(mesh, tp):
-        # each variant's layout (a TP mesh: every entry its blocks) before
-        # its held bytes are read
+    rows, zero_first, by_leaf, snap = {}, None, {}, 0
+    for name, m, zero, fsdp_state in _mesh_variants(mesh, tp, fsdp):
+        t_row = time.perf_counter()
+        # each variant's layout (a TP mesh: every entry its blocks; FSDP:
+        # its ('data', 'model') blocks) before its held bytes are read
         with use_mesh(m):
-            lay_out_state(model, state)
+            if not fsdp_state:
+                gather_model(model)
             specs = param_specs(model) if zero else None
+            lay_out_state(model, state, specs if fsdp_state else None)
         load_train_state(state, start)
-        held_gb = (_held_bytes(dev) - harness) / 1e9
+        held_gb = (_held_bytes(dev) - harness - snap) / 1e9
         with use_mesh(m):
             per_entry = entry_bytes(model, state, MESH_BATCH, specs)
+        if fsdp_state:      # each entry its share of every part
+            share = rows["unsharded"]["state_bytes_per_entry"][0][
+                "params"] / len(m.devices)
+            off = [(j, k, v) for j, e in enumerate(per_entry)
+                   for k, v in e.items() if abs(v - share) > 0.02 * share]
+            check(not off, f"mesh_train {arch} {name}: entries hold "
+                           f"{off[:4]}, not {share / 1e9:.4f} GB each")
         torch.cuda.reset_peak_memory_stats()
         want = _mesh_launches(cfg, m)
         with use_mesh(m):
@@ -4298,9 +4449,22 @@ def _mesh_full(dev, card, arch=MESH_ARCH, grad_limit=MESH_REL_L2,
                                    aux_rel=aux_rel,
                                    aux_mean_of_shards=aux_own,
                                    aux_mean_of_shards_rel=own_rel)
+                if zero and not fsdp_state and m is mesh and fsdp:
+                    # held until the FSDP row that follows has checked
+                    # against it; its bytes come off both rows' numbers
+                    zero_first = (metrics, _train_snapshot(state))
+                    snap = _tree_bytes(zero_first[1])
+                if fsdp_state and m is mesh:
+                    _fsdp_equal(arch, name, metrics, state, zero_first)
+                    zero_first = None
                 rel = abs(loss - first["loss"]) / abs(first["loss"])
-                grad_l2 = _rel_l2_leaves(state["opt"]["mu"], first["mu"])
-                param_l2 = _rel_l2_leaves(state["params"], first["params"])
+                leaf_l2 = dict(
+                    grad=_rel_l2_by_leaf(state["opt"]["mu"], first["mu"]),
+                    param=_rel_l2_by_leaf(state["params"], first["params"]))
+                grad_l2 = max(leaf_l2["grad"].values())
+                param_l2 = max(leaf_l2["param"].values())
+                if name == f"data{MESH_SHARDS}" or tp_step:
+                    by_leaf[name] = leaf_l2
                 update_l2 = _rel_l2_leaves(state["params"], first["params"],
                                            start["params"])
                 check(rel <= MESH_LOSS_RTOL, f"mesh_train {name}: loss "
@@ -4316,7 +4480,9 @@ def _mesh_full(dev, card, arch=MESH_ARCH, grad_limit=MESH_REL_L2,
                 cmp.update(aux_cmp or {})
             prof = _profile(lambda: step(state, batch))
         torch.cuda.synchronize()
-        peak_gb = (torch.cuda.max_memory_allocated() - harness) / 1e9
+        peak_gb = (torch.cuda.max_memory_allocated() - harness - snap) / 1e9
+        if zero_first is None:
+            snap = 0
         step_ms = statistics.median(walls[1:])
         rows[name] = dict(step_ms=step_ms, step_ms_runs=walls,
                           tokens_per_s=MESH_BATCH * MESH_SEQ / step_ms * 1e3,
@@ -4325,6 +4491,7 @@ def _mesh_full(dev, card, arch=MESH_ARCH, grad_limit=MESH_REL_L2,
                           state_bytes_per_entry=per_entry,
                           busy_share=prof["busy_share"], profile_ms=prof,
                           launches_per_step=counts, **cmp)
+        rows[name]["row_s"] = time.perf_counter() - t_row
         entry_gb = [round(sum(e.values()) / 1e9, 4) for e in per_entry]
         print(f"mesh_train {arch} {name} state per entry (params / mu / nu "
               f"/ accumulator GB): " + "; ".join(
@@ -4350,12 +4517,25 @@ def _mesh_full(dev, card, arch=MESH_ARCH, grad_limit=MESH_REL_L2,
               f"per step {counts}; against the unsharded step "
               f"{json.dumps(cmp)}; card {card}")
         del step
+    print(f"mesh_train {arch} seconds by row: " + ", ".join(
+        f"{k} {r['row_s']:.1f}" for k, r in rows.items()))
     print(f"mesh_train {arch} step ms side by side ({cut}, B={MESH_BATCH} "
           f"S={MESH_SEQ}): " + ", ".join(
               f"{k} {r['step_ms']:.1f}" for k, r in rows.items())
           + f"; card {card}")
+    for part in ("grad", "param"):
+        print(f"mesh_train {arch} bf16 {part} rel. L2 to the unsharded step "
+              f"per leaf ({cut}): " + json.dumps(
+                  {k: {n: float(f"{v:.3e}") for n, v in d[part].items()}
+                   for k, d in by_leaf.items()}) + f"; card {card}")
     if not cfg.is_moe:
         rows["serve"] = _tp_serve(dev, card, model, fp32=False)
+        if "data2 tp2 fsdp" in fsdp:
+            t_serve = time.perf_counter()
+            rows["fsdp_serve"] = _fsdp_serve(dev, card, model)
+            rows["fsdp_serve"]["wall_s"] = time.perf_counter() - t_serve
+            print(f"mesh_train {arch} fsdp serve: "
+                  f"{rows['fsdp_serve']['wall_s']:.1f} s")
     del model, state, start, first
     torch.cuda.empty_cache()
     return rows
@@ -4431,14 +4611,16 @@ def _mesh_parity(dev, arch=MESH_ARCH) -> dict:
                 params_swung=swung, launches_per_step=counts)
 
 
-def _mesh_elastic(dev) -> dict:
+def _mesh_elastic(dev, fsdp: bool = False) -> dict:
     """tests/test_distributed.py:137-183 on the card at phi3's reduced
     config: 6 steps on MESH_SHARDS data shards of the card, a checkpoint,
     restore(shardings=) onto that mesh, a fresh model, `remesh_state`
     onto a (2, 2) ('data', 'model') mesh, 6 more steps (the first lays
     the state out there: each entry its blocks); the 12 losses against
     12 unsharded steps on the card within 1e-5, the optimizer's step at
-    12."""
+    12. With `fsdp`, both states are laid out by `param_specs` (FSDP on
+    'data', and the 'model' blocks on (2, 2)), and so are the restore
+    and the remesh."""
     import tempfile
 
     from repro_torch.ckpt.checkpoint import Checkpointer
@@ -4448,7 +4630,8 @@ def _mesh_elastic(dev) -> dict:
     from repro_torch.ft.elastic import remesh_state
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models.model import LM
-    from repro_torch.models.sharding import P, Placed, use_mesh
+    from repro_torch.models.sharding import (P, Placed, is_fsdp, param_specs,
+                                             use_mesh)
     from repro_torch.optim.optimizer import OptConfig
     from repro_torch.train.train_step import (load_train_state,
                                               make_train_state,
@@ -4459,54 +4642,71 @@ def _mesh_elastic(dev) -> dict:
     data = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=16,
                                     global_batch=8, seed=3), device=dev)
 
-    def fresh():
+    def fresh(mesh=None):
         model = LM(cfg, generator=torch.Generator(dev).manual_seed(0),
                    device=dev, param_dtype=torch.float32)
-        return model, make_train_state(model), make_train_step(model, opt)
+        with use_mesh(mesh):
+            state = make_train_state(model, specs=param_specs(model)
+                                     if fsdp and mesh else None)
+        return model, state, make_train_step(model, opt)
 
+    tag = "elastic fsdp" if fsdp else "elastic"
     t0 = time.perf_counter()
     _, state, step = fresh()
     want = [float(step(state, data.batch(i))[1]["loss"]) for i in range(12)]
     mesh4 = make_host_mesh(MESH_SHARDS, device=dev)
-    model, state, step = fresh()
+    mesh22 = Mesh((dev,) * 4, ("data", "model"), (2, 2))
+    model, state, step = fresh(mesh4)
     losses = []
     with use_mesh(mesh4):
         for i in range(6):
             losses.append(float(step(state, data.batch(i))[1]["loss"]))
     names = list(state["params"])
 
-    def tree(leaf):
-        return {"params": {n: leaf for n in names},
-                "opt": {"mu": {n: leaf for n in names},
-                        "nu": {n: leaf for n in names}, "step": leaf}}
+    def tree(fn):
+        """The state's structure: fn(name) at each leaf, fn(None) at the
+        step."""
+        leaves = {n: fn(n) for n in names}
+        return {"params": leaves, "opt": {"mu": leaves, "nu": leaves,
+                                          "step": fn(None)}}
 
+    def specs_on(mesh):
+        """Each leaf's spec on `mesh`: `param_specs` with `fsdp`, else
+        replicated (P())."""
+        with use_mesh(mesh):
+            ps = param_specs(model)
+        return lambda n: ps[n] if fsdp and n is not None else P()
+
+    on4, on22 = specs_on(mesh4), specs_on(mesh22)
     with tempfile.TemporaryDirectory() as ckpt_dir:
         ck = Checkpointer(ckpt_dir, async_save=False)
         ck.save(6, state)
         del model, state, step
-        restored = ck.restore(6, tree(None), shardings=tree((mesh4, P())))
-    mesh22 = Mesh((dev,) * 4, ("data", "model"), (2, 2))
-    placed = remesh_state(restored, tree(P()), mesh22)
+        restored = ck.restore(6, tree(lambda n: None),
+                              shardings=tree(lambda n: (mesh4, on4(n))))
+    placed = remesh_state(restored, tree(on22), mesh22)
     check(placed["params"]["embedding"].mesh.shape["data"] == 2,
-          "mesh_train elastic: remeshed onto the wrong mesh")
-    model, state, step = fresh()
+          f"mesh_train {tag}: remeshed onto the wrong mesh")
+    model, state, step = fresh(mesh22)
     load_train_state(state, placed)
     with use_mesh(mesh22):
         for i in range(6, 12):
             losses.append(float(step(state, data.batch(i))[1]["loss"]))
     diff = max(abs(a - b) for a, b in zip(losses, want))
     opt_step = int(state["opt"]["step"])
-    check(isinstance(state["params"]["embedding"], Placed),
-          "mesh_train elastic: the state on (2, 2) is not placed")
+    check(isinstance(state["params"]["embedding"], Placed)
+          and is_fsdp(state["params"]["embedding"]) == fsdp,
+          f"mesh_train {tag}: the state on (2, 2) is not laid out as asked")
     check(diff <= 1e-5 and opt_step == 12,
-          f"mesh_train elastic: losses differ by {diff} from the unsharded "
+          f"mesh_train {tag}: losses differ by {diff} from the unsharded "
           f"run, opt step {opt_step}")
     wall = time.perf_counter() - t0
-    print(f"mesh_train elastic {cfg.name} reduced on the card: 6 steps on "
+    print(f"mesh_train {tag} {cfg.name} reduced on the card: 6 steps on "
           f"{MESH_SHARDS} data shards, checkpoint, restore(shardings=), "
-          f"remesh onto (2, 2) ('data', 'model'), 6 steps: 12 losses "
-          f"within {diff:.3e} of 12 unsharded steps, opt step {opt_step}, "
-          f"{wall:.2f} s")
+          f"remesh onto (2, 2) ('data', 'model'), 6 steps"
+          + (", each state laid out by param_specs (FSDP)" if fsdp else "")
+          + f": 12 losses within {diff:.3e} of 12 unsharded steps, opt "
+          f"step {opt_step}, {wall:.2f} s")
     return dict(max_loss_diff=diff, opt_step=opt_step, losses=losses,
                 wall_s=wall)
 
@@ -4601,7 +4801,7 @@ def _mesh_fp32(dev, arch, data=True, tp=("tp4",), card="") -> dict:
     out, first = {}, None
     variants = [v for v in _mesh_variants(mesh, tp)
                 if data or v[1] is None or "model" in v[1].axis_names]
-    for name, m, zero in variants:
+    for name, m, zero, _ in variants:
         load_train_state(state, start)
         routes.clear()
         with use_mesh(m):
@@ -4742,7 +4942,7 @@ def _mesh_moe(dev, card) -> tuple:
     the depth-2 fp32 parity (`_mesh_parity`)."""
     t0 = time.perf_counter()
     rows = _mesh_full(dev, card, MESH_MOE_ARCH, grad_limit=None,
-                      tp=("tp4",))
+                      tp=("tp4",), fsdp=(f"data{MESH_SHARDS} fsdp",))
     t1 = time.perf_counter()
     fp32 = _mesh_fp32(dev, MESH_MOE_ARCH)
     t2 = time.perf_counter()
@@ -4756,11 +4956,13 @@ def _mesh_moe(dev, card) -> tuple:
 def phase_mesh_train(dev, card) -> dict:
     """Training on a mesh of the card (after phase_train): phi3's
     full-width step unsharded, on MESH_SHARDS data shards, with the ZeRO
-    accumulator and tensor parallel on (1, 4) and (2, 2), then its bf16
-    serving steps on (1, 4) (`_mesh_full`); its fp32 step on (1, 4) and
-    the fp32 serving steps (`_mesh_fp32`); the depth-2 fp32 parity
+    accumulator, tensor parallel on (1, 4) and (2, 2), and FSDP on the
+    data shards and on (2, 2), then its bf16 serving steps on (1, 4) and
+    on the FSDP model (`_mesh_full`); its fp32 step on (1, 4) and the
+    fp32 serving steps (`_mesh_fp32`); the depth-2 fp32 parity
     (`_mesh_parity`); the same for granite's MoE, its TP step on (1, 4)
-    with its experts over 'model' (`_mesh_moe`); the elastic restart
+    with its experts over 'model' and its FSDP step (`_mesh_moe`); the
+    elastic restart, from a replicated and from an FSDP state
     (`_mesh_elastic`), compressed_psum (`_mesh_psum`) and the serve_lm
     twin. Returns per kernel its launches a step on the dense mesh path
     ({variant: count}), on the MoE one ({"moe": {variant: count}}) and on
@@ -4779,15 +4981,17 @@ def phase_mesh_train(dev, card) -> dict:
     parity = timed(f"{MESH_ARCH} parity", _mesh_parity, dev)
     moe_rows, moe_parity = timed(MESH_MOE_ARCH, _mesh_moe, dev, card)
     elastic = timed("elastic", _mesh_elastic, dev)
+    elastic_fsdp = timed("elastic fsdp", _mesh_elastic, dev, fsdp=True)
     psum = timed("psum", _mesh_psum, dev)
     twin = timed("serve twin", _mesh_serve_twin)
     wall = time.perf_counter() - t0
     print("mesh_train seconds by part: " + ", ".join(
         f"{k} {v:.1f}" for k, v in parts.items()))
     serve = rows.pop("serve")
-    print(f"mesh_train numbers: {json.dumps(dict(runs=rows, tp_fp32=tp_fp32, tp_serve_bf16=serve, parity=parity, moe_runs=moe_rows, moe_parity=moe_parity, elastic=elastic, psum=psum, serve_twin=twin, wall_s=wall, card=card))}")
+    fsdp_serve = rows.pop("fsdp_serve")
+    print(f"mesh_train numbers: {json.dumps(dict(runs=rows, tp_fp32=tp_fp32, tp_serve_bf16=serve, fsdp_serve_bf16=fsdp_serve, parity=parity, moe_runs=moe_rows, moe_parity=moe_parity, elastic=elastic, elastic_fsdp=elastic_fsdp, psum=psum, serve_twin=twin, wall_s=wall, card=card))}")
     out = {}
-    tp_names = set(MESH_TP)
+    tp_names = set(MESH_TP) | {"data2 tp2 fsdp"}
     for kernel in ("flash_attention", "flash_attention_bwd", "radix_hist"):
         out[kernel] = {k: r["launches_per_step"][kernel]
                        for k, r in rows.items() if k not in tp_names}
@@ -4796,7 +5000,7 @@ def phase_mesh_train(dev, card) -> dict:
                               if k not in tp_names}
         out[kernel]["tp"] = {
             **{f"phi3 {k}": rows[k]["launches_per_step"][kernel]
-               for k in MESH_TP},
+               for k in sorted(tp_names)},
             "granite tp4": moe_rows["tp4"]["launches_per_step"][kernel],
             "phi3 tp4 prefill": serve["launches_prefill"][kernel],
             "phi3 tp4 fp32 prefill":

@@ -11,8 +11,8 @@ process, so every leaf is whole in `proc_0.npz`; a checkpoint that the
 reference's `Checkpointer` wrote on one process restores here (and the
 reverse), since the layout is the same (its leaves named by the
 reference's tree; `models/convert.from_reference_train_state` maps them
-to the port's). A placed leaf (a `Placed` value: a tensor-parallel
-state's blocks, `models/sharding.place_model`) is gathered into its
+to the port's). A placed leaf (a `Placed` value: a tensor-parallel or
+FSDP state's blocks, `models/sharding.place_model`) is gathered into its
 whole leaf (`Placed.full`) as it is saved, so a checkpoint of a placed
 state holds the arrays an unsharded save of the same state writes, and
 restores onto any layout. `restore(..., shardings=)` places each

@@ -11,7 +11,9 @@ of `repro.ft.elastic`'s policy layer.
   * elastic re-mesh: `remesh_state` lays a state tree (a restored
     checkpoint, or a state placed on another mesh) out over a new mesh,
     each leaf by its spec with the axes the new mesh lacks dropped
-    (`resolve_spec_for_mesh`); the values do not change.
+    (`resolve_spec_for_mesh`); the values do not change. With the
+    `param_specs` of the new mesh, an FSDP layout there
+    (`train_step.load_train_state` fills a state laid out so).
 """
 from __future__ import annotations
 

@@ -9,11 +9,17 @@ whose fake answers the meta tensors (`kernels/oplib.py`), so what is
 counted is the card's program. Each record holds:
 
   * the per-device FLOPs, bytes and peak live bytes of the traced step,
-    and whether that peak fits the card's memory (`fits`); for a tensor
-    parallel cell the trace holds entry 0's blocks of the state
-    (`state_layout` "entry blocks"): the layout that the port's mesh
-    step holds on every entry (`models.sharding.place_model`), so `fits`
-    is the port's own;
+    and whether that peak fits the card's memory (`fits`). A train cell's
+    trace holds entry 0's blocks of the state in the reference's layout
+    (`state_layout` "fsdp entry blocks": `place_model(..., specs=
+    param_specs)`, FSDP on 'data' and the 'model' blocks where the
+    config shards), the layout a port step given that spec tree holds
+    on every entry, with its parameters, mu and nu bytes
+    (`state_bytes_per_device`) beside the reference's
+    (`reference_layout_state_bytes_per_device`); a serving cell's holds
+    entry 0's 'model' blocks ("entry blocks", `place_model`), or whole
+    leaves where the config does not shard, so `fits` is the port's
+    own;
   * the bytes the port's mesh moves between devices per step
     (`collective_bytes_per_device`; see below);
   * the three roofline terms on the H100 data sheet's rates
@@ -37,26 +43,33 @@ run under `sharding.traced_entry(TP_SIZE, "meta")`, on its data shard's
 rows of each microbatch (the batch split over
 `launch.mesh.batch_axes_for`'s axes), AdamW over its blocks. Every
 entry works (`devices_with_work` = the mesh's chips). The MLA and SSM
-families keep whole leaves: only the first entry of each data
-coordinate works, and its whole step is traced.
+families keep whole heads: only the first entry of each data
+coordinate works, and its whole step is traced (a train cell's on its
+'data' blocks of the leaves, FSDP's).
 
-The collective term per step has two parts. Along 'model', the traced
+The collective term per step has three parts. Along 'model', the traced
 entry's reductions (`sharding.model_sum` and its kin, forward and
 backward, remat's recompute included), each the bytes it sends in a ring
 (`launch/graph_analysis.py`), at `axis_bandwidth(mesh, ('model',))`, by
-kind in `collectives` ("model:<kind>"). Along the data axes, the mesh
-step's exchange: each data shard's float32 gradient of the entry's
-leaves goes to the first data shard's entry, which keeps the sum, once
-per microbatch ("grads->root"); once per step AdamW's updated parameter,
-mu and nu of each block go back to the entry of each other data shard
-that holds the block ("state->replicas"), and the replicated leaves are
-copied to each other shard ("params->shards"); those bytes, which the
-keeping entry receives or sends, at the rate of the link that the data
-axes span. Serving cells have no data exchange: each data shard serves
-its own rows. `reference_layout_bytes_per_device` is what the
-reference's layout would hold (FSDP on 'data' as well as 'model', from
-`launch/specs.py`): the blocks of the train state and the batch, or of
-the parameters, the caches and the batch. An LGRASS cell traces one
+kind in `collectives` ("model:<kind>"). Along 'data', a train cell's
+FSDP collectives: each layer's gather of its weights' blocks before use
+("data:gather", the recompute's again) and its backward, the
+reduce-scatter of their gradients ("data:gather:bwd"), each (n−1)/n of
+the gathered block, at `axis_bandwidth(mesh, ('data',))`. Along the
+data axes, the rest of the mesh step's exchange: the whole leaves'
+(norms) float32 gradients go to the first data shard's entry, which
+keeps their sum, once per microbatch ("grads->root", with an FSDP
+block's gradient from a data shard of another pod, whose blocks are
+replicas), once per step AdamW's updated parameter, mu and nu of an
+FSDP block go to its replica in each other pod ("state->replicas", 0
+on one pod), and the whole leaves are copied to each other shard
+("params->shards"); those bytes, which the keeping entry receives or
+sends, at the rate of the link that the data axes span. Serving cells
+have no data exchange: each data shard serves its own rows.
+`reference_layout_bytes_per_device` is what the reference's layout
+would hold (FSDP on 'data' as well as 'model', from `launch/specs.py`):
+the blocks of the train state and the batch, or of the parameters, the
+caches and the batch. An LGRASS cell traces one
 shard of `core.distributed.make_phase1_sharded` (one MARK call on its
 block); its collective term is the home entry's copies of the tables
 and the blocks to the other shards and of their results back.
@@ -67,6 +80,7 @@ of the checkout.
 Usage:
     python -m repro_torch.launch.dryrun --all [--mesh both] [--force]
     python -m repro_torch.launch.dryrun --arch mamba2-370m --shape train_4k
+    python -m repro_torch.launch.dryrun --shape train_4k --force   # every arch
     python -m repro_torch.launch.dryrun --lgrass
 """
 from __future__ import annotations
@@ -89,6 +103,8 @@ ARTIFACT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 
 # the bytes of a float32 gradient or parameter element
 _F32 = 4
+# the mesh axes of FSDP's blocks: AXIS_RULES' 'embed'
+_FSDP_AXES = ("data",)
 # the accept table's width of an LGRASS cell, the reference's default
 K_CAP = 32
 
@@ -181,17 +197,22 @@ def _meta_batch(cfg, rows: int, seq: int) -> dict:
                                    device=meta))
 
 
-def _meta_model(cfg, tp: int, **kw):
-    """The model on the meta device; where `cfg` shards over 'model',
-    placed for entry 0 of `tp` alone (`entry_model`), with that one entry
-    to drive (else None)."""
+def _meta_model(cfg, tp: int, mesh=None, **kw):
+    """The model on the meta device, with the one entry to drive where
+    `cfg` shards over 'model' (else None): placed for entry 0 of `tp`
+    alone (`entry_model`), or with `mesh` (a production mesh) laid out
+    for entry 0 in the reference's layout (FSDP on 'data')."""
     from repro_torch.models import sharding as sh
     from repro_torch.models.model import LM
 
     model = LM(cfg, device="meta", **kw)
-    if tp == 1 or not sh.tp_family(cfg):
+    entry = (None if tp == 1 or not sh.tp_family(cfg)
+             else sh.traced_entry(tp, "meta"))
+    if mesh is not None:
+        return sh.entry_model(model, tp, mesh), entry
+    if entry is None:
         return model, None
-    return sh.entry_model(model, tp), sh.traced_entry(tp, "meta")
+    return sh.entry_model(model, tp), entry
 
 
 def _entry_elements(model) -> tuple:
@@ -208,20 +229,39 @@ def _entry_elements(model) -> tuple:
     return total, blocks
 
 
-def _trace_train(cfg, local_rows: int, seq: int, micro: int, tp: int = 1):
+def _state_bytes(state) -> int:
+    """The bytes of the parameters, mu and nu that a traced train state
+    holds (mesh entry 0's blocks and the whole leaves)."""
+    from repro_torch.models.sharding import Placed
+
+    total = 0
+    for tree in (state["params"], state["opt"]["mu"], state["opt"]["nu"]):
+        for x in tree.values():
+            t = x.shards[0] if isinstance(x, Placed) else x
+            total += t.numel() * t.element_size()
+    return total
+
+
+def _trace_train(cfg, local_rows: int, seq: int, micro: int, tp: int = 1,
+                 mesh=None):
+    """(the analysis of mesh entry 0's train step, (elements of its
+    leaves, of its placed blocks), the bytes of its parameters, mu and
+    nu), the model laid out for entry 0 of `mesh` in the reference's
+    layout (`_meta_model`)."""
     from repro_torch.launch.graph_analysis import analyze_program
     from repro_torch.models.sharding import use_entries
     from repro_torch.optim.optimizer import OptConfig
     from repro_torch.train.train_step import (make_train_state,
                                               make_train_step)
 
-    model, entry = _meta_model(cfg, tp, param_dtype=torch.float32)
+    model, entry = _meta_model(cfg, tp, mesh, param_dtype=torch.float32)
     state = make_train_state(model)
+    held = _state_bytes(state)
     step = make_train_step(model, OptConfig(), micro_batches=micro)
     batch = _meta_batch(cfg, local_rows * micro, seq)
     with use_entries(entry):
-        return analyze_program(step, state, batch,
-                               name="train_step"), _entry_elements(model)
+        return (analyze_program(step, state, batch, name="train_step"),
+                _entry_elements(model), held)
 
 
 def _trace_serve(cfg, kind: str, local_rows: int, seq: int, tp: int = 1):
@@ -259,6 +299,18 @@ def _block_bytes(tree) -> int:
               if isinstance(x, LeafSpec)]
     return sum(int(np.prod(x.block, dtype=np.int64)) * x.dtype.itemsize
                for x in leaves)
+
+
+def reference_state_bytes(cfg, mesh) -> int:
+    """One device's bytes of the parameters, mu and nu in the reference's
+    layout (`launch/specs.py`'s train state less its step counter)."""
+    from repro_torch.launch import specs as S
+    from repro_torch.models.model import LM
+
+    state = S.state_specs(LM(cfg, device="meta"), mesh)[0]
+    return _block_bytes({k: v for k, v in state.items() if k != "opt"}) + \
+        _block_bytes({k: v for k, v in state["opt"].items()
+                      if k in ("mu", "nu")})
 
 
 def reference_layout_bytes(cfg, shape, mesh) -> int:
@@ -328,18 +380,23 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
                    kind=shape.kind, chips=chips, cannot_run=refusal)
         print(f"[dryrun] {tag}: CANNOT RUN ({refusal})")
         return _save(rec, outdir, path)
+    state_bytes = ref_state_bytes = None
     if shape.kind == "train":
-        hlo, (n_params, n_blocks) = _trace_train(cfg, local, shape.seq_len,
-                                                 micro_batches, tp)
-        others = n_data - 1
-        exchange = {"grads->root": float(others * n_params * _F32
+        hlo, (n_params, n_blocks), state_bytes = _trace_train(
+            cfg, local, shape.seq_len, micro_batches, tp, mesh)
+        ref_state_bytes = reference_state_bytes(cfg, mesh)
+        others, whole = n_data - 1, n_params - n_blocks
+        # the FSDP blocks' replicas: one per pod where the batch spans it
+        pods = max(1, n_data // int(np.prod([mesh.shape[a] for a in
+                                             _FSDP_AXES])))
+        exchange = {"grads->root": float((others * whole + (pods - 1)
+                                          * n_blocks) * _F32
                                          * micro_batches),
-                    "state->replicas": float(others * 3 * n_blocks
+                    "state->replicas": float((pods - 1) * 3 * n_blocks
                                              * _F32),
-                    "params->shards": float(others * (n_params - n_blocks)
-                                            * _F32)}
+                    "params->shards": float(others * whole * _F32)}
         counts = {"grads->root": others * micro_batches,
-                  "state->replicas": others, "params->shards": others}
+                  "state->replicas": pods - 1, "params->shards": others}
     else:
         hlo = _trace_serve(cfg, shape.kind, local, shape.seq_len, tp)
         exchange, counts = {}, {}
@@ -349,11 +406,14 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
     bytes_ = float(hlo["mem_bytes"])
     data_bytes = float(sum(exchange.values())) + hlo["collective_bytes"]
     model_bytes = hlo["model_collective_bytes"]
-    coll_bytes = data_bytes + model_bytes
+    gather_bytes = hlo["data_collective_bytes"]
+    coll_bytes = data_bytes + model_bytes + gather_bytes
     t_coll = ((data_bytes / (M.axis_bandwidth(mesh, axes) if axes
                              else M.NVLINK_BW) if data_bytes else 0.0)
               + (model_bytes / M.axis_bandwidth(mesh, ("model",))
-                 if model_bytes else 0.0))
+                 if model_bytes else 0.0)
+              + (gather_bytes / M.axis_bandwidth(mesh, _FSDP_AXES)
+                 if gather_bytes else 0.0))
     peak = float(hlo["peak_bytes"])
     mf = model_flops(cfg, shape)
     rec = dict(
@@ -371,20 +431,28 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
         bytes_dots_per_device=float(hlo["mem_bytes_dots"]),
         collective_bytes_per_device=coll_bytes,
         model_collective_bytes_per_device=model_bytes,
+        fsdp_collective_bytes_per_device=gather_bytes,
         collectives={**exchange, **hlo["collective_by_kind"],
                      **{f"model:{k}": v for k, v in
                         hlo["model_collective_by_kind"].items()},
+                     **{f"data:{k}": v for k, v in
+                        hlo["data_collective_by_kind"].items()},
                      **{f"n_{k}": v for k, v in counts.items()},
                      **{f"n_{k}": v for k, v in
                         hlo["collective_counts"].items()},
                      **{f"n_model:{k}": v for k, v in
-                        hlo["model_collective_counts"].items()}},
+                        hlo["model_collective_counts"].items()},
+                     **{f"n_data:{k}": v for k, v in
+                        hlo["data_collective_counts"].items()}},
         memory=dict(peak_bytes=peak, hbm_bytes=M.HBM_BYTES,
                     host_syncs=hlo["sync_count"],
                     transfers=hlo["transfer_count"]),
         peak_bytes_per_device=peak,
         fits=peak <= M.HBM_BYTES,
-        state_layout="entry blocks" if tp > 1 else "whole leaves",
+        state_layout=("fsdp entry blocks" if shape.kind == "train" else
+                      "entry blocks" if tp > 1 else "whole leaves"),
+        state_bytes_per_device=state_bytes,
+        reference_layout_state_bytes_per_device=ref_state_bytes,
         reference_layout_bytes_per_device=reference_layout_bytes(
             cfg, shape, mesh),
         model_flops_global=mf,
@@ -523,11 +591,13 @@ def main(argv=None):
             for s in SHAPES:
                 for mp in meshes:
                     cells.append((a, s, mp))
-    elif args.arch:
+    elif args.arch or args.shape:
         shapes = [args.shape] if args.shape else list(SHAPES)
-        for s in shapes:
-            for mp in meshes:
-                cells.append((args.arch, s, mp))
+        archs = [args.arch] if args.arch else list(ARCHS)
+        for a in archs:
+            for s in shapes:
+                for mp in meshes:
+                    cells.append((a, s, mp))
 
     results = [_run_one(a, s, mp, args.out, args.force)
                for a, s, mp in cells]

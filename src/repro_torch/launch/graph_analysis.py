@@ -38,6 +38,13 @@ of a real run. The report keeps the reference's keys:
     ":bwd" for a gradient's), each as the bytes one entry sends in a
     ring: 2·(tp−1)/tp of the tensor for an all-reduce, (tp−1)/tp of the
     whole for an all-gather;
+  * `data_collective_bytes`, `data_collective_by_kind`,
+    `data_collective_counts`: FSDP's collectives over the batch axes
+    (`models.sharding.DATA_COLLECTIVES`): each `data_allgather` of a
+    leaf's blocks ("gather") as a ring all-gather, (n−1)/n of the
+    gathered block per entry, and its backward (`data_reducescatter`,
+    "gather:bwd") as the reduce-scatter of its gradient, (n−1)/n of the
+    gradient;
   * `transfer_count`: copies from the host to a device, which feed host
     data to the program while it runs (by source line in
     `transfer_sites`);
@@ -80,7 +87,8 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import FlopCounterMode, flop_registry
 
 from repro_torch.kernels.flash_attention import WORK_FLOPS
-from repro_torch.models.sharding import MODEL_ALLREDUCE, MODEL_COLLECTIVES
+from repro_torch.models.sharding import (DATA_ALLGATHER, DATA_COLLECTIVES,
+                                         MODEL_ALLREDUCE, MODEL_COLLECTIVES)
 
 _aten = torch.ops.aten
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -146,6 +154,8 @@ class _Recorder(TorchDispatchMode):
         self.coll_counts = collections.Counter()
         self.model_coll = collections.Counter()
         self.model_counts = collections.Counter()
+        self.data_coll = collections.Counter()
+        self.data_counts = collections.Counter()
         self.transfers = collections.Counter()
         self.syncs = collections.Counter()
         self.n_ops = 0
@@ -190,6 +200,12 @@ class _Recorder(TorchDispatchMode):
             share = (2 if func is MODEL_ALLREDUCE else 1) * (tp - 1) / tp
             self.model_coll[kind] += share * _nbytes(out)
             self.model_counts[kind] += 1
+        if func in DATA_COLLECTIVES:
+            n, kind = args[3], args[-1]
+            whole = _nbytes(out) if func is DATA_ALLGATHER else _nbytes(
+                args[0])
+            self.data_coll[kind] += (n - 1) / n * whole
+            self.data_counts[kind] += 1
         if func in WORK_FLOPS:
             counted, work = WORK_FLOPS[func](*args)
             self.work_delta += work - counted
@@ -281,6 +297,9 @@ def analyze_program(fn, *args, static_kwargs: Optional[dict] = None,
         model_collective_bytes=float(sum(rec.model_coll.values())),
         model_collective_by_kind=dict(rec.model_coll),
         model_collective_counts=dict(rec.model_counts),
+        data_collective_bytes=float(sum(rec.data_coll.values())),
+        data_collective_by_kind=dict(rec.data_coll),
+        data_collective_counts=dict(rec.data_counts),
         transfer_count=sum(rec.transfers.values()),
         transfer_sites=dict(rec.transfers),
         sync_count=sum(rec.syncs.values()),

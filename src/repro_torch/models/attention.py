@@ -114,7 +114,14 @@ def head_block(cfg: ArchConfig, entry: sh.Entry) -> HeadBlock:
     return HeadBlock(entry, q, kv, need, rep)
 
 
-def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def _proj(x: torch.Tensor, w: torch.Tensor,
+          act: Optional[torch.dtype] = None) -> torch.Tensor:
+    """x · w; where x is a float32 carrier of an `act` value (a column-
+    parallel entry's input in training, `sharding.model_copy(...,
+    wide=True)`), in `act` with a float32 gradient of x
+    (`sharding.column_product`)."""
+    if act is not None and x.dtype != act:
+        return sh.column_product(x, w.to(act))
     return torch.einsum("bsd,dhk->bshk", x, w.to(x.dtype))
 
 
@@ -133,8 +140,8 @@ def _weights(params: Dict, cfg: ArchConfig, blk: Optional[HeadBlock],
                 wo=e.take(params["wo"], 0, blk.q, n_h))
 
 
-def _qkv(params, x):
-    return tuple(_proj(x, params[w]) for w in ("wq", "wk", "wv"))
+def _qkv(params, x, act=None):
+    return tuple(_proj(x, params[w], act) for w in ("wq", "wk", "wv"))
 
 
 def _out(params, out: torch.Tensor,
@@ -160,13 +167,15 @@ def _repeat(blk: Optional[HeadBlock], k: torch.Tensor) -> torch.Tensor:
 def gqa_attention(params: Dict, cfg: ArchConfig, x: torch.Tensor,
                   positions: torch.Tensor, *, causal: bool = True,
                   window: Optional[int] = None,
-                  blk: Optional[HeadBlock] = None) -> torch.Tensor:
+                  blk: Optional[HeadBlock] = None,
+                  act: Optional[torch.dtype] = None) -> torch.Tensor:
     """Self-attention over full sequences (train / prefill). x: (B, S, d);
     positions: (B, S), the same row for every sequence (0..S-1). With
     `blk`, the entry's heads and its partial output (to be summed over
-    the entries)."""
+    the entries); with `act`, x may be a float32 carrier of an `act`
+    value (`_proj`)."""
     w = _weights(params, cfg, blk)
-    q, k, v = _qkv(w, x)
+    q, k, v = _qkv(w, x, act)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     pos = positions[0].to(torch.int32)

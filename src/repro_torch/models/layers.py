@@ -102,20 +102,29 @@ def mlp(params: Dict[str, torch.Tensor], x: torch.Tensor,
     if entries is None:
         return _mlp(params["wi"], wg, params["wo"], x, act)
     parts = []
-    for e, xe in zip(entries, sh.model_copy(x, entries, "mlp_in")):
+    for e, xe in zip(entries, sh.model_copy(x, entries, "mlp_in",
+                                            wide=True)):
         sl = e.block(d_ff)
         parts.append(_mlp(e.take(params["wi"], 1, sl, d_ff),
                           None if wg is None else e.take(wg, 1, sl, d_ff),
                           e.take(params["wo"], 0, sl, d_ff), xe, act,
-                          partial=True))
+                          partial=True, dt=x.dtype))
     return sh.model_sum(parts, entries, "mlp_out", x.dtype)
 
 
-def _mlp(wi, wg, wo, x, act, partial=False):
-    dt = x.dtype
-    h = torch.einsum("...d,df->...f", x, wi.to(dt))
+def _in_product(x, w, dt):
+    """x · w (d, f) in `dt`; x may be a float32 carrier of a `dt` value
+    (`sharding.column_product`)."""
+    if x.dtype != dt:
+        return sh.column_product(x, w.to(dt))
+    return torch.einsum("...d,df->...f", x, w.to(dt))
+
+
+def _mlp(wi, wg, wo, x, act, partial=False, dt=None):
+    dt = x.dtype if dt is None else dt
+    h = _in_product(x, wi, dt)
     if act == "swiglu":
-        g = torch.einsum("...d,df->...f", x, wg.to(dt))
+        g = _in_product(x, wg, dt)
         h = F.silu(g) * h
     else:
         h = F.gelu(h, approximate="tanh")
@@ -154,10 +163,16 @@ def lm_logits(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 def lm_logit_blocks(table: torch.Tensor, x: torch.Tensor,
                     entries: sh.Entries, vocab: int) -> List[torch.Tensor]:
-    """Each entry's block of the `vocab` logits, on its device."""
-    return [lm_logits(e.take(table, 0, e.block(vocab), vocab), xe)
-            for e, xe in zip(entries, sh.model_copy(x, entries,
-                                                     "logits_in"))]
+    """Each entry's block of the `vocab` logits, on its device (x · the
+    block's rows, with a float32 gradient of x in training,
+    `sharding.column_product`)."""
+    out = []
+    for e, xe in zip(entries, sh.model_copy(x, entries, "logits_in",
+                                            wide=True)):
+        rows = e.take(table, 0, e.block(vocab), vocab)
+        out.append(lm_logits(rows, xe) if xe.dtype == x.dtype else
+                   sh.column_product(xe, rows.to(x.dtype).t()))
+    return out
 
 
 def act_dtype(dtype_name: str) -> torch.dtype:

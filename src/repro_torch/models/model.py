@@ -78,7 +78,12 @@ then a `Placed` value, each entry's block on its device, read by
 under its mesh's entries only (its entry points raise without them); a
 model placed for one entry alone (`sharding.entry_model`) runs the same
 code under that one entry (`sharding.traced_entry`): the dry-run's
-trace. The MLA and SSM families do not shard.
+trace. The MLA and SSM families do not shard. A model laid out FSDP
+(`sharding.place_model(..., specs=)`) reads its leaves gathered over the
+batch axes: each layer's inside its remat region (`Block.run`, for the
+entries or the data shard at mesh entry `shard`, which the entry points
+take from `sharding.current_shard` and hand down, so that the recompute
+gathers again), the embedding, head and frontend at their use.
 
 The model lives on the CUDA device unless `device` asks for another
 (`core.sparsify.resolve_device`): without a card the default raises, and
@@ -147,85 +152,96 @@ class Block(nn.Module):
                         _params(init_mlp(cfg.d_model, cfg.d_ff, cfg.act,
                                          dtype, generator, dev)))
 
-    def _attention(self, cfg, h_in, positions, window, mode, cache, pos,
+    def _attention(self, p, cfg, h_in, positions, window, mode, cache, pos,
                    entries=None):
         if cfg.attn_type == "mla":
             if mode == "decode":
-                return attn.mla_decode(self.attn, cfg, h_in, pos,
-                                       cache["attn"])[0]
-            y = attn.mla_attention(self.attn, cfg, h_in, positions,
+                return attn.mla_decode(p, cfg, h_in, pos, cache["attn"])[0]
+            y = attn.mla_attention(p, cfg, h_in, positions,
                                    causal=self.causal)
             if mode == "prefill":
-                attn.mla_fill_cache(self.attn, cfg, h_in, positions,
-                                    cache["attn"])
+                attn.mla_fill_cache(p, cfg, h_in, positions, cache["attn"])
             return y
         if entries is None:
             if mode == "decode":
-                return attn.gqa_decode(self.attn, cfg, h_in, pos,
-                                       cache["attn"], window)[0]
-            y = attn.gqa_attention(self.attn, cfg, h_in, positions,
+                return attn.gqa_decode(p, cfg, h_in, pos, cache["attn"],
+                                       window)[0]
+            y = attn.gqa_attention(p, cfg, h_in, positions,
                                    causal=self.causal, window=window)
             if mode == "prefill":
-                attn.gqa_fill_cache(self.attn, cfg, h_in, positions,
-                                    cache["attn"], window)
+                attn.gqa_fill_cache(p, cfg, h_in, positions, cache["attn"],
+                                    window)
             return y
         parts = []
-        hs = sh.model_copy(h_in, entries, "attn_in")
+        # the training products' input gradients stay float32 per entry
+        hs = sh.model_copy(h_in, entries, "attn_in", wide=mode == "train")
         for j, (e, h) in enumerate(zip(entries, hs)):
             blk = attn.head_block(cfg, e)
             c = None if cache is None else cache["attn"][j]
             if mode == "decode":
-                parts.append(attn.gqa_decode(self.attn, cfg, h, pos, c,
-                                             window, blk)[0])
+                parts.append(attn.gqa_decode(p, cfg, h, pos, c, window,
+                                             blk)[0])
                 continue
             at = positions.to(e.device)
-            parts.append(attn.gqa_attention(self.attn, cfg, h, at,
+            parts.append(attn.gqa_attention(p, cfg, h, at,
                                             causal=self.causal,
-                                            window=window, blk=blk))
+                                            window=window, blk=blk,
+                                            act=h_in.dtype))
             if mode == "prefill":
-                attn.gqa_fill_cache(self.attn, cfg, h, at, c, window, blk)
+                attn.gqa_fill_cache(p, cfg, h, at, c, window, blk)
         return sh.model_sum(parts, entries, "attn_out", h_in.dtype)
 
-    def _ssm(self, cfg, h_in, mode, cache):
+    def _ssm(self, p, cfg, h_in, mode, cache):
         if mode == "decode":
-            return ssm.ssm_decode(self.ssm, cfg, h_in, cache["ssm"])[0]
+            return ssm.ssm_decode(p, cfg, h_in, cache["ssm"])[0]
         if mode == "prefill":
-            y, state = ssm.ssm_forward(self.ssm, cfg, h_in, return_state=True)
+            y, state = ssm.ssm_forward(p, cfg, h_in, return_state=True)
             ssm.ssm_fill_cache(cache["ssm"], state)
             return y
-        return ssm.ssm_forward(self.ssm, cfg, h_in)
+        return ssm.ssm_forward(p, cfg, h_in)
 
     def run(self, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor,
             window: Optional[int], mode: str, cache: Optional[Dict] = None,
             pos: Optional[int] = None, stats: bool = False,
-            entries: Optional[sh.Entries] = None
+            entries: Optional[sh.Entries] = None,
+            shard: Optional[int] = None
             ) -> Tuple[torch.Tensor, Optional[Dict], Optional[torch.Tensor]]:
         """mode: 'train' (full sequence), 'prefill' (also fills `cache`,
         in place) or 'decode' (one token at `pos` against `cache`).
         Returns (x, cache, the MoE layer's aux loss in 'train' mode, else
         None; with `stats`, its router statistics in the loss's place).
         With `entries`, the attention and the MLP or experts run per mesh
-        entry on its blocks (the module docstring)."""
+        entry on its blocks (the module docstring). The layer's FSDP
+        leaves are gathered first, for `entries` or the data shard at
+        mesh entry `shard` (`sharding.fsdp_layer`), in x's dtype."""
         args = (positions, window, mode, cache, pos)
+        dt = x.dtype
+
+        def use(params):
+            return sh.fsdp_layer(params, dt, entries, shard)
+
         if cfg.has_attention and cfg.has_ssm:   # hybrid: parallel heads
             h_in = rmsnorm(x, self.attn_norm, cfg.norm_eps)
-            a = self._attention(cfg, h_in, *args)
-            s = self._ssm(cfg, h_in, mode, cache)
+            a = self._attention(use(self.attn), cfg, h_in, *args)
+            s = self._ssm(use(self.ssm), cfg, h_in, mode, cache)
             x = x + 0.5 * (a + s)
         elif cfg.has_attention:
             h_in = rmsnorm(x, self.attn_norm, cfg.norm_eps)
-            x = x + self._attention(cfg, h_in, *args, entries)
+            x = x + self._attention(use(self.attn), cfg, h_in, *args,
+                                    entries)
         else:                                    # pure SSM
             h_in = rmsnorm(x, self.ssm_norm, cfg.norm_eps)
-            x = x + self._ssm(cfg, h_in, mode, cache)
+            x = x + self._ssm(use(self.ssm), cfg, h_in, mode, cache)
         aux = None
         if self.has_mlp:
             h_in = rmsnorm(x, self.mlp_norm, cfg.norm_eps)
+            p = use(self.mlp)
             if cfg.is_moe:
                 y, aux = self.mlp(cfg, h_in, with_aux=mode == "train",
-                                  stats=stats, entries=entries)
+                                  stats=stats, entries=entries,
+                                  params=None if p is self.mlp else p)
             else:
-                y = mlp(self.mlp, h_in, cfg.act, entries, cfg.d_ff)
+                y = mlp(p, h_in, cfg.act, entries, cfg.d_ff)
             x = x + y
         return x, cache, aux
 
@@ -308,45 +324,47 @@ class LM(nn.Module):
         """tokens: (B, S) int. Returns the logits of the last position
         (B, V) and the caches filled with positions 0..S-1."""
         self._decoder("prefill")
-        entries = self._entries()
-        x, positions = self._embed_inputs(tokens, entries)
+        entries, shard = self._entries(), sh.current_shard()
+        x, positions = self._embed_inputs(tokens, entries, shard)
         new_caches = []
         for blk, window, cache in zip(self.layers, self.windows, caches):
             x, cache, _ = blk.run(self.cfg, x, positions, window,
-                                  "prefill", cache, entries=entries)
+                                  "prefill", cache, entries=entries,
+                                  shard=shard)
             new_caches.append(cache)
         x = rmsnorm(x[:, -1:, :], self.final_norm, self.cfg.norm_eps)
-        return self._logits(x, entries)[:, 0, :], new_caches
+        return self._logits(x, entries, shard)[:, 0, :], new_caches
 
     def decode_step(self, tok: torch.Tensor, pos: int, caches: List[Dict]
                     ) -> Tuple[torch.Tensor, List[Dict]]:
         """tok: (B, 1) int; pos: its absolute position (a Python int)."""
         self._decoder("decode_step")
-        entries = self._entries()
-        x = embed_tokens(self.embedding, tok, self.dtype, entries,
-                         self.cfg.vocab_size)
+        entries, shard = self._entries(), sh.current_shard()
+        x = embed_tokens(self._leaf(self.embedding, entries, shard), tok,
+                         self.dtype, entries, self.cfg.vocab_size)
         new_caches = []
         for blk, window, cache in zip(self.layers, self.windows, caches):
             x, cache, _ = blk.run(self.cfg, x, None, window, "decode",
-                                  cache, pos, entries=entries)
+                                  cache, pos, entries=entries, shard=shard)
             new_caches.append(cache)
         x = rmsnorm(x, self.final_norm, self.cfg.norm_eps)
-        return self._logits(x, entries)[:, 0, :], new_caches
+        return self._logits(x, entries, shard)[:, 0, :], new_caches
 
     # ---------- full sequence ----------
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         """Logits (B, S, V) of every position: the layers of the
         reference's `_run_layers_train`, then the final norm and head."""
         self._decoder("forward")
-        entries = self._entries()
-        x, positions = self._embed_inputs(tokens, entries)
-        x, _ = self.run_layers(x, positions, entries=entries)
+        entries, shard = self._entries(), sh.current_shard()
+        x, positions = self._embed_inputs(tokens, entries, shard)
+        x, _ = self.run_layers(x, positions, entries=entries, shard=shard)
         x = rmsnorm(x, self.final_norm, self.cfg.norm_eps)
-        return self._logits(x, entries)
+        return self._logits(x, entries, shard)
 
     def run_layers(self, x: torch.Tensor, positions: torch.Tensor,
                    moe_stats: Optional[List] = None,
-                   entries: Optional[sh.Entries] = None
+                   entries: Optional[sh.Entries] = None,
+                   shard: Optional[int] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
         """The layers in 'train' mode, the reference's `_run_layers_train`:
         (x, the MoE aux loss summed over layers over n_layers; 0 without
@@ -362,18 +380,21 @@ class LM(nn.Module):
         but the last, which an entry on a device of its own (and the
         dry-run's one traced entry) skips. (A float32 partial product,
         bf16's, saves its inputs once it has run, so every recompute
-        runs it.)"""
+        runs it.) Each layer gathers its FSDP leaves inside its
+        checkpoint (`Block.run`, for `entries` or the data shard at mesh
+        entry `shard`), so the gathered weights are not saved across
+        layers and the recompute gathers them again."""
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         remat = self.cfg.remat and torch.is_grad_enabled()
         stats = moe_stats is not None
         for blk, window in zip(self.layers, self.windows):
             if remat:
                 x, a = checkpoint(self._train_layer, blk, x, positions,
-                                  window, stats, entries,
+                                  window, stats, entries, shard,
                                   use_reentrant=False)
             else:
                 x, a = self._train_layer(blk, x, positions, window, stats,
-                                         entries)
+                                         entries, shard)
             if a is None:
                 continue
             if stats:
@@ -385,9 +406,10 @@ class LM(nn.Module):
     def _train_layer(self, blk: Block, x: torch.Tensor,
                      positions: torch.Tensor, window: Optional[int],
                      stats: bool = False,
-                     entries: Optional[sh.Entries] = None):
+                     entries: Optional[sh.Entries] = None,
+                     shard: Optional[int] = None):
         x, _, a = blk.run(self.cfg, x, positions, window, "train",
-                          stats=stats, entries=entries)
+                          stats=stats, entries=entries, shard=shard)
         return x, a
 
     # ---------- train ----------
@@ -406,17 +428,17 @@ class LM(nn.Module):
         and the loss is the CE alone: the caller assembles the aux. Under
         `use_entries` the CE is vocab-parallel over the entries' blocks."""
         cfg = self.cfg
-        entries = self._entries()
+        entries, shard = self._entries(), sh.current_shard()
         if cfg.is_encoder:
-            x = self._encoded(batch["features"], entries)
+            x = self._encoded(batch["features"], entries, shard)
             loss = self._cross_entropy(x, batch["labels"], batch["mask"],
-                                       denominator, entries)
+                                       denominator, entries, shard)
             return loss, {"loss": loss}
-        x, positions = self._embed_inputs(batch["tokens"], entries)
-        x, aux = self.run_layers(x, positions, moe_stats, entries)
+        x, positions = self._embed_inputs(batch["tokens"], entries, shard)
+        x, aux = self.run_layers(x, positions, moe_stats, entries, shard)
         x = rmsnorm(x, self.final_norm, cfg.norm_eps)
         ce = self._cross_entropy(x, batch["labels"], batch.get("mask"),
-                                 denominator, entries)
+                                 denominator, entries, shard)
         loss = ce if moe_stats is not None else ce + aux
         return loss, {"loss": loss, "ce": ce, "aux": aux}
 
@@ -426,22 +448,24 @@ class LM(nn.Module):
         the reference's `encode`. The features are cast to the activation
         dtype and projected by `frontend.proj`; positions 0..T-1; the
         layers (bidirectional attention) as in `forward`."""
-        entries = self._entries()
-        return self._logits(self._encoded(features, entries), entries)
+        entries, shard = self._entries(), sh.current_shard()
+        return self._logits(self._encoded(features, entries, shard),
+                            entries, shard)
 
     def _encoded(self, features: torch.Tensor,
-                 entries: Optional[sh.Entries]) -> torch.Tensor:
+                 entries: Optional[sh.Entries],
+                 shard: Optional[int] = None) -> torch.Tensor:
         """The encoder's normed hidden states, before the head."""
         if not self.cfg.is_encoder:
             raise ValueError(f"{self.cfg.name} is a decoder: encode is the "
                              f"encoder's entry")
         feats = features.to(self.dtype)
-        x = torch.einsum("btf,fd->btd", feats,
-                         self.frontend["proj"].to(self.dtype))
+        proj = self._leaf(self.frontend["proj"], entries, shard)
+        x = torch.einsum("btf,fd->btd", feats, proj.to(self.dtype))
         b, t, _ = x.shape
         positions = torch.arange(t, dtype=torch.int32,
                                  device=x.device).expand(b, t)
-        x, _ = self.run_layers(x, positions, entries=entries)
+        x, _ = self.run_layers(x, positions, entries=entries, shard=shard)
         return rmsnorm(x, self.final_norm, self.cfg.norm_eps)
 
     # ---------- internals ----------
@@ -454,7 +478,8 @@ class LM(nn.Module):
         """The 'model' entries to drive (`sharding.use_entries`), checked
         against the config."""
         entries = sh.current_entries()
-        if entries is None and sh.placed_mesh(self) is not None:
+        if entries is None and sh.shards_over_model(sh.placed_mesh(self),
+                                                    self.cfg):
             raise ValueError(f"{self.cfg.name} is placed on a mesh "
                              f"(sharding.place_model): run it under that "
                              f"mesh's steps")
@@ -465,32 +490,47 @@ class LM(nn.Module):
             sh.check_tp(self.cfg, entries.tp)
         return entries
 
+    def _leaf(self, w, entries: Optional[sh.Entries],
+              shard: Optional[int]):
+        """A leaf as the data shard reads it (`sharding.fsdp_use`: an FSDP
+        leaf gathered in the activation dtype)."""
+        return sh.fsdp_use(w, dtype=self.dtype, entries=entries, shard=shard)
+
     def _embed_inputs(self, tokens: torch.Tensor,
-                      entries: Optional[sh.Entries] = None):
-        x = embed_tokens(self.embedding, tokens, self.dtype, entries,
-                         self.cfg.vocab_size)
+                      entries: Optional[sh.Entries] = None,
+                      shard: Optional[int] = None):
+        x = embed_tokens(self._leaf(self.embedding, entries, shard), tokens,
+                         self.dtype, entries, self.cfg.vocab_size)
         b, s = tokens.shape
         positions = torch.arange(s, dtype=torch.int32,
                                  device=tokens.device).expand(b, s)
         return x, positions
 
-    def _table(self) -> torch.Tensor:
-        return self.embedding if self.cfg.tie_embeddings else self.lm_head
+    def _table(self, entries: Optional[sh.Entries] = None,
+               shard: Optional[int] = None):
+        """The head's table (the embedding when tied), as the data shard
+        reads it."""
+        return self._leaf(self.embedding if self.cfg.tie_embeddings
+                          else self.lm_head, entries, shard)
 
     def _logits(self, x: torch.Tensor,
-                entries: Optional[sh.Entries] = None) -> torch.Tensor:
+                entries: Optional[sh.Entries] = None,
+                shard: Optional[int] = None) -> torch.Tensor:
         if entries is None:
-            return lm_logits(self._table(), x)
+            return lm_logits(self._table(None, shard), x)
         v = self.cfg.vocab_size
-        return sh.model_gather(lm_logit_blocks(self._table(), x, entries, v),
+        return sh.model_gather(lm_logit_blocks(self._table(entries), x,
+                                               entries, v),
                                entries, v, "logits")
 
-    def _cross_entropy(self, x, labels, mask, denominator, entries):
+    def _cross_entropy(self, x, labels, mask, denominator, entries,
+                       shard=None):
         cfg = self.cfg
         if entries is None:
-            return cross_entropy(lm_logits(self._table(), x), labels, mask,
-                                 cfg.real_vocab_size, denominator)
+            return cross_entropy(lm_logits(self._table(None, shard), x),
+                                 labels, mask, cfg.real_vocab_size,
+                                 denominator)
         v = cfg.vocab_size
         return cross_entropy_parallel(
-            lm_logit_blocks(self._table(), x, entries, v), labels, entries,
-            v, mask, cfg.real_vocab_size, denominator)
+            lm_logit_blocks(self._table(entries), x, entries, v), labels,
+            entries, v, mask, cfg.real_vocab_size, denominator)

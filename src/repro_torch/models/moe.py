@@ -246,7 +246,7 @@ def moe_ffn(params: Dict, cfg: ArchConfig, x: torch.Tensor,
 class MoE(nn.ParameterDict):
     """An MoE layer's weights (`init_moe`; no gradient unless a train
     state sets one) as a module whose call is `moe_ffn(self, cfg, x,
-    with_aux, stats, entries)`."""
+    with_aux, stats, entries)` (or of `params` in its place)."""
 
     __call__ = nn.Module.__call__   # a ParameterDict refuses calls
 
@@ -256,6 +256,10 @@ class MoE(nn.ParameterDict):
 
     def forward(self, cfg: ArchConfig, x: torch.Tensor,
                 with_aux: bool = True, stats: bool = False,
-                entries: Optional[sh.Entries] = None
+                entries: Optional[sh.Entries] = None,
+                params: Optional[Dict] = None
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-        return moe_ffn(self, cfg, x, with_aux, stats, entries)
+        """`moe_ffn` on the layer's weights, or on `params` (the same
+        weights as a data shard reads them: gathered FSDP leaves)."""
+        return moe_ffn(self if params is None else params, cfg, x, with_aux,
+                       stats, entries)

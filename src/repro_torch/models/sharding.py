@@ -26,8 +26,9 @@ reference leaves placement to XLA, the port places a tensor itself:
     reference, with the `scan` layout's leading `stack` axis dropped
     (the port's leaves are per layer).
 
-`shard` and `fsdp_use` return their input: placement constraints are
-XLA's, and the port's eager model has nothing to constrain.
+`shard` returns its input: placement constraints are XLA's, and the
+port's eager model has nothing to constrain. `fsdp_use` is FSDP's
+gather (below).
 
 Tensor parallelism on 'model'. Where the reference's partitioner turns
 these specs into a program, the port writes it out. A mesh *entry* is
@@ -78,7 +79,33 @@ g). In the dry-run's trace of one entry alone (`entry_model`,
 `launch/graph_analysis.py` records each call as a ring all-reduce,
 2·(tp−1)/tp of the tensor per entry, by kind (":bwd" for a gradient's).
 `model_max` (the CE's max) and `model_gather` (serving's logits: the
-vocab blocks in order) are the other two collectives.
+vocab blocks in order) are the other two collectives. In training each
+column-parallel product (q, k, v, the MLP's wi and wg, the logits) takes
+a float32 carrier of its replicated input (`model_copy(..., wide=True)`,
+`column_product`): its input gradient stays float32 per entry, and
+`model_copy`'s all-reduce rounds the sum once, as the unsharded
+product's backward rounds it (the MoE experts' inputs keep bf16 parts).
+
+FSDP over the batch axes. `place_model(model, mesh, specs=)` lays each
+leaf out by its spec in a tree such as `param_specs(model)` under
+`use_mesh` (the reference's `make_train_state_specs`): the 'embed'
+dimension on 'data' and the 'model' blocks (dropped for a family that
+does not shard over 'model', `layout_spec`), so each entry holds its
+('data', 'model') block of the leaf, and no two entries one block
+(`is_fsdp`). The layout is the caller's choice, recorded on the model
+(`placed_specs`) and kept by `lay_out_model` on its mesh. A layer reads
+its leaves through `fsdp_layer` / `fsdp_use`, inside its remat region
+(`models/model.Block.run`): each FSDP leaf's blocks along the batch axes
+are gathered in mesh order (`gather_sources`) onto the data shard's
+entries, cast first to the activation dtype (the use site's cast, so
+half the bytes and the same bits), by the `torch.ops.repro_torch`
+operator `data_allgather` (a fake for meta tensors: the traced entry's
+gather has the whole shape). Its backward (`data_reducescatter`) hands
+each block its slice of the gradient in the block's dtype; the train
+step sums the data shards' slices of a block in mesh order on the entry
+that holds it (the reduce-scatter, with no atomics). The data shard a
+model entry point runs for is `use_shard`'s (the train and serving
+steps set it; `current_shard`).
 """
 from __future__ import annotations
 
@@ -191,9 +218,82 @@ def shard(x: torch.Tensor, *logical: Axes) -> torch.Tensor:
     return x
 
 
-def fsdp_use(w: torch.Tensor, *logical: Axes) -> torch.Tensor:
-    """The reference's gathered-weight constraint: w unchanged."""
-    return w
+def fsdp_use(w, *logical: Axes, dtype: Optional[torch.dtype] = None,
+             entries: Optional["Entries"] = None,
+             shard: Optional[int] = None):
+    """The reference's gathered-weight constraint. A leaf laid out over
+    batch axes (`is_fsdp`: a `place_model(..., specs=)` leaf) comes back
+    as the current data shard reads it: its blocks along those axes
+    gathered in mesh order (`data_allgather`, differentiable), cast to
+    `dtype` first where given (the use site's cast, so the gather moves
+    the activation dtype's bytes). Where the leaf's spec still names
+    'model', a Placed value of its 'model' layout holding, for each of
+    `entries` (default: the current ones), the block that entry's
+    'model' coordinate holds, on its device, which `Entry.take` narrows;
+    otherwise the whole leaf on the data shard's root device (`shard`,
+    a mesh entry; default: the first of `entries`, else
+    `current_shard()`). Any other leaf comes back unchanged."""
+    if not is_fsdp(w):
+        return w
+    entries = current_entries() if entries is None else entries
+    targets = gather_targets(w, entries, shard)
+    rest = drop_batch_axes(w.spec)
+    if not any(rest):
+        return data_gather(w, targets[0], dtype)
+    shards: List[Optional[torch.Tensor]] = [None] * len(w.shards)
+    for j in targets:
+        shards[j] = data_gather(w, j, dtype)
+    return Placed(shards, w.mesh, rest, w.shape)
+
+
+def gather_targets(w, entries=None, shard: Optional[int] = None
+                   ) -> List[int]:
+    """The mesh entries that a data shard gathers the FSDP leaf `w` for
+    (`fsdp_use`): each of its 'model' `entries` where w's spec names
+    'model', else its root: `shard`, or the first of `entries`, or
+    `current_shard()`."""
+    if any(drop_batch_axes(w.spec)):
+        if not entries or entries.indices is None:
+            raise ValueError(f"{w!r}: its 'model' blocks are read under the "
+                             f"mesh's entries (use_entries)")
+        return list(entries.indices)
+    if shard is None:
+        shard = (entries.indices[0] if entries and entries.indices
+                 else current_shard())
+    return [shard]
+
+
+def fsdp_layer(params, dtype: torch.dtype,
+               entries: Optional["Entries"] = None,
+               shard: Optional[int] = None):
+    """A layer's leaves (a dict or ParameterDict) as the data shard reads
+    them: `params` itself where no leaf is laid out over batch axes,
+    else a dict with each such leaf gathered (`fsdp_use`, in `dtype`,
+    the activation dtype every such leaf is cast to at its use)."""
+    if not any(is_fsdp(v) for v in params.values()):
+        return params
+    return {k: fsdp_use(v, dtype=dtype, entries=entries, shard=shard)
+            for k, v in params.items()}
+
+
+def current_shard() -> int:
+    """The mesh entry of the data shard whose loss or serving step runs
+    (`use_shard`; 0, the first, by default: the dry-run's traced
+    entry)."""
+    return getattr(_state, "shard", 0)
+
+
+@contextlib.contextmanager
+def use_shard(index: Optional[int]):
+    """Make mesh entry `index` the root of the data shard that the
+    model's entry points run for in the block (where FSDP leaves are
+    gathered for it)."""
+    prev = current_shard()
+    _state.shard = 0 if index is None else index
+    try:
+        yield
+    finally:
+        _state.shard = prev
 
 
 # ------------------------- placed values -------------------------
@@ -495,6 +595,9 @@ class Entry:
         block this entry holds, which must contain `sl`; of a whole
         tensor (a replicated leaf), the part cut and moved to this
         entry's device (a view where it is there already)."""
+        if is_fsdp(w):      # a leaf read outside `fsdp_layer`
+            w = fsdp_use(w, entries=Entries(self.tp, (self.coord,),
+                                            (self.device,), (self.index,)))
         if isinstance(w, Placed):
             local = None if self.index is None else w.shards[self.index]
             held = None if local is None else w.block(self.index)[dim]
@@ -591,11 +694,25 @@ def model_dim(cfg, name: str) -> Optional[int]:
 
 
 def leaf_spec(cfg, name: str, ndim: int) -> P:
-    """The 'model' layout of the leaf `name`: its `model_dim` on 'model',
-    every other dimension whole (the 'data' axes of `param_specs` are
-    FSDP's, which the port does not shard)."""
+    """The 'model' layout of the leaf `name` (`place_model`'s default):
+    its `model_dim` on 'model', every other dimension whole. The 'data'
+    axes of `param_specs` are FSDP's, which `place_model(..., specs=)`
+    lays out too."""
     d = model_dim(cfg, name)
     return P(*[("model" if i == d else None) for i in range(ndim)])
+
+
+def layout_spec(p: Sequence, mesh: Mesh, cfg) -> Optional[P]:
+    """A leaf's spec `p` (of a spec tree, `param_specs`) as `place_model`
+    lays it out on `mesh`: the axes the mesh lacks dropped, and 'model'
+    too where `cfg` does not shard over the mesh's 'model' axis
+    (`shards_over_model`: MLA, SSM and hybrid layers keep whole heads);
+    None where no axis is left (a whole leaf)."""
+    names = set(mesh.axis_names)
+    if not shards_over_model(mesh, cfg):
+        names.discard("model")
+    p = keep_axes(p, names)
+    return p if any(_entry_axes(e) for e in p) else None
 
 
 def _owner(model, name: str):
@@ -636,38 +753,52 @@ def named_leaves(model) -> List[Tuple[str, object]]:
 
 
 def place_model(model, mesh: Mesh, values: Optional[Dict] = None,
-                only: Optional[Sequence[int]] = None):
-    """`model` (a port `LM`) laid out on `mesh`, in place, and returned:
-    each leaf whose spec puts a dimension on 'model' (`model_dim`)
-    becomes a Placed value (`leaf_spec`), each mesh entry holding its
-    `tp_block` of it on its device as a tensor of its own (entries of one
-    device share one per block); every other leaf stays a whole
-    Parameter on the mesh's first device (its data shard's root). No
-    reference to a whole sharded leaf is kept. The values are the
-    model's own (a placed model is laid out anew), or `values` ({name:
-    a whole tensor or array}), cut block by block. With `only` (mesh
-    entry indices) the other entries hold nothing: `entry_model`.
-    Parameter names and `named_leaves`' order stay the reference's."""
+                only: Optional[Sequence[int]] = None,
+                specs: Optional[Dict[str, P]] = None):
+    """`model` (a port `LM`) laid out on `mesh`, in place, and returned.
+    By default the 'model' layout: each leaf whose spec puts a dimension
+    on 'model' (`model_dim`) becomes a Placed value (`leaf_spec`), each
+    mesh entry holding its `tp_block` of it on its device as a tensor of
+    its own (entries of one device share one per block); every other
+    leaf stays a whole Parameter on the mesh's first device (its data
+    shard's root). With `specs` ({name: P}, e.g. `param_specs(model)`
+    under `use_mesh`), each leaf is laid out by its spec on the mesh
+    (`layout_spec`): one that names a mesh axis becomes a Placed value,
+    each entry its block on its device (FSDP where the spec names batch
+    axes: `is_fsdp`); one that names none stays whole on the root. The
+    layout is recorded (`placed_specs`). No reference to a whole sharded
+    leaf is kept. The values are the model's own (a placed model is laid
+    out anew), or `values` ({name: a whole tensor or array}), cut block
+    by block. With `only` (mesh entry indices) the other entries hold
+    nothing: `entry_model`. Parameter names and `named_leaves`' order
+    stay the reference's."""
     cfg = model.cfg
-    if not shards_over_model(mesh, cfg):
-        raise ValueError(f"{cfg.name} does not shard over the 'model' axis "
-                         f"of a mesh of {mesh.shape}")
-    check_tp(cfg, mesh.shape["model"])
-    root = canon_device(mesh.devices[0])
     leaves = named_leaves(model)
+    if specs is None:
+        if not shards_over_model(mesh, cfg):
+            raise ValueError(f"{cfg.name} does not shard over the 'model' "
+                             f"axis of a mesh of {mesh.shape}")
+        check_tp(cfg, mesh.shape["model"])
+        layout = {n: None if model_dim(cfg, n) is None else leaf_spec(
+            cfg, n, len(local_tensors(x)[0].shape)) for n, x in leaves}
+    else:
+        if shards_over_model(mesh, cfg):
+            check_tp(cfg, mesh.shape["model"])
+        layout = {n: layout_spec(specs[n], mesh, cfg) for n, _ in leaves}
+    root = canon_device(mesh.devices[0])
     # (a serving step may place the model inside inference mode: the
     # blocks stay ordinary tensors, which a train step may update)
     with torch.inference_mode(False), torch.no_grad():
-        _place_leaves(model, mesh, leaves, root, values, only)
+        _place_leaves(model, mesh, leaves, root, values, only, layout)
     model._leaf_names = [n for n, _ in leaves]
     model._placed_on = mesh
     model._placed_only = only
+    model._placed_specs = None if specs is None else dict(specs)
     _restore_order(model)
     return model
 
 
-def _place_leaves(model, mesh, leaves, root, values, only) -> None:
-    cfg = model.cfg
+def _place_leaves(model, mesh, leaves, root, values, only, layout) -> None:
     for name, leaf in leaves:
         src = leaf if values is None else values[name]
         if isinstance(src, Placed):
@@ -675,19 +806,26 @@ def _place_leaves(model, mesh, leaves, root, values, only) -> None:
         src = src if torch.is_tensor(src) else torch.as_tensor(
             np.asarray(src))
         grad = local_tensors(leaf)[0].requires_grad
-        if model_dim(cfg, name) is None:
+        dtype = local_tensors(leaf)[0].dtype
+        if layout[name] is None:
             if values is None and not isinstance(leaf, Placed) and (
                     canon_device(leaf.device) == root):
                 continue
             new = torch.nn.Parameter(src.detach().to(
-                root, leaf.dtype, copy=True), requires_grad=grad)
+                root, dtype, copy=True), requires_grad=grad)
         else:
-            new = place(src, mesh, leaf_spec(cfg, name, src.dim()),
-                        own=True, only=only, dtype=leaf.dtype)
+            new = place(src, mesh, layout[name], own=True, only=only,
+                        dtype=dtype)
             for t in local_tensors(new):
                 t.requires_grad_(grad)
         _set_leaf(model, name, new)
         del src
+
+
+def placed_specs(model) -> Optional[Dict[str, P]]:
+    """The spec tree `model` was laid out by (`place_model(...,
+    specs=)`), or None."""
+    return getattr(model, "_placed_specs", None)
 
 
 def gather_model(model):
@@ -703,7 +841,9 @@ def gather_model(model):
                 _set_leaf(model, name, torch.nn.Parameter(
                     leaf.full(root), requires_grad=grad))
     _restore_order(model)
-    del model._leaf_names, model._placed_on, model._placed_only
+    for attr in ("_leaf_names", "_placed_on", "_placed_only",
+                 "_placed_specs"):
+        model.__dict__.pop(attr, None)
     return model
 
 
@@ -725,17 +865,28 @@ def _restore_order(model) -> None:
         params.update(items)
 
 
-def lay_out_model(model):
+def lay_out_model(model, specs: Optional[Dict[str, P]] = None):
     """`model` laid out, in place, for the active mesh (`use_mesh`), and
-    returned: placed on it where its config shards over its 'model' axis
-    (`place_model`; a model placed on another mesh is laid out anew),
-    whole leaves otherwise (`gather_model`). A model placed for some
-    entries alone (`entry_model`, the dry-run's traced entry) cannot be
-    gathered and stays as it is without such a mesh. The train and
-    serving steps call it first."""
+    returned. With `specs` (a spec tree, `param_specs`), by that tree
+    (`place_model(..., specs=)`) unless it is laid out so already. A
+    model laid out by a spec tree keeps that layout on its mesh, and on
+    another mesh is laid out anew by the same tree (the axes that mesh
+    lacks dropped). Otherwise placed on the mesh where its config shards
+    over its 'model' axis (`place_model`; a model placed on another mesh
+    is laid out anew), whole leaves otherwise (`gather_model`). Without
+    a mesh the leaves are whole, but a model placed for some entries
+    alone (`entry_model`, the dry-run's traced entry) cannot be gathered
+    and stays as it is. The train and serving steps call it first."""
     mesh = current_mesh()
-    target = mesh if shards_over_model(mesh, model.cfg) else None
     placed = placed_mesh(model)
+    if mesh is not None:
+        held = placed_specs(model)
+        if specs is not None or held is not None:
+            want = held if specs is None else dict(specs)
+            if placed == mesh and held == want:
+                return model
+            return place_model(model, mesh, specs=want)
+    target = mesh if shards_over_model(mesh, model.cfg) else None
     if placed == target or (target is None and getattr(
             model, "_placed_only", None) is not None):
         return model
@@ -744,11 +895,17 @@ def lay_out_model(model):
     return place_model(model, target)
 
 
-def entry_model(model, tp: int):
-    """`place_model` for mesh entry 0 alone (`traced_entry`) of a 'model'
-    extent `tp` on `model`'s device: the dry-run traces such a model,
-    whose state holds that entry's blocks, as entry 0 of a real mesh
-    does."""
+def entry_model(model, tp: int, mesh: Optional[Mesh] = None):
+    """The model the dry-run traces, laid out for mesh entry 0 alone,
+    whose state holds what entry 0 of a real mesh holds: `place_model`
+    for entry 0 (`traced_entry`) of a 'model' extent `tp` on `model`'s
+    device; with `mesh` (a production mesh, of meta devices like
+    `model`), the reference's layout on it instead (`param_specs`:
+    FSDP on 'data' and the 'model' blocks where the config shards)."""
+    if mesh is not None:
+        with use_mesh(mesh):
+            specs = param_specs(model)
+        return place_model(model, mesh, only=(0,), specs=specs)
     mesh = Mesh((model.device,) * tp, ("model",), (tp,))
     return place_model(model, mesh, only=(0,))
 
@@ -835,14 +992,56 @@ def partial_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         x.shape[:-1] + w.shape[-1:])
 
 
-class _ModelCopy(torch.autograd.Function):
-    """A replicated input handed to each entry (on its device); the
-    backward sums the entries' gradients of it (`model_allreduce`): the
-    gradient's all-reduce at the input of a sharded region."""
+class _ColumnMM(torch.autograd.Function):
+    """a @ w, where a is a float32 carrier of values of w's dtype (below
+    float32): the product in w's dtype, as the unsharded one; the
+    backward gives a's gradient in float32, unrounded (the sum over this
+    entry's columns alone), and w's in its dtype, as the unsharded
+    product's backward does."""
 
     @staticmethod
-    def forward(ctx, tp, kind, devices, x):
+    def forward(ctx, a, w):
+        a = a.to(w.dtype)
+        ctx.save_for_backward(a, w)
+        return a @ w
+
+    @staticmethod
+    def backward(ctx, g):
+        a, w = ctx.saved_tensors
+        ga = gw = None
+        if ctx.needs_input_grad[0]:
+            ga = (g.float() @ w.float().t() if g.device.type == "cpu"
+                  else torch.mm(g, w.t(), out_dtype=torch.float32))
+        if ctx.needs_input_grad[1]:
+            gw = a.t() @ g
+        return ga, gw
+
+
+def column_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """An entry's column-parallel product (its block of q, k, v heads, of
+    the MLP's d_ff columns, of the vocab's logits) of x (..., K), a
+    float32 carrier from `model_copy(..., wide=True)`, and w (K, ...) in
+    the activation dtype: x · w in that dtype, whose backward hands x a
+    float32 gradient, so that `model_copy`'s all-reduce sums the
+    entries' partials unrounded and rounds the input's gradient once,
+    as the unsharded product's backward rounds it."""
+    k = w.shape[0]
+    y = _ColumnMM.apply(x.reshape(-1, k), w.reshape(k, -1))
+    return y.reshape(x.shape[:-1] + w.shape[1:])
+
+
+class _ModelCopy(torch.autograd.Function):
+    """A replicated input handed to each entry (on its device), or a
+    float32 carrier of it (`wide`); the backward sums the entries'
+    gradients of it (`model_allreduce`, in float32) and casts the sum
+    once to its dtype: the gradient's all-reduce at the input of a
+    sharded region."""
+
+    @staticmethod
+    def forward(ctx, tp, kind, devices, wide, x):
         ctx.tp, ctx.kind, ctx.src = tp, kind, (x.device, x.dtype)
+        if wide:
+            x = x.to(torch.float32)
         return tuple(x.to(d).view_as(x) for d in devices)
 
     @staticmethod
@@ -850,18 +1049,24 @@ class _ModelCopy(torch.autograd.Function):
         dev, dt = ctx.src
         gs = [g for g in grads if g is not None]
         if not gs:
-            return None, None, None, None
+            return None, None, None, None, None
         g = MODEL_ALLREDUCE([x.to(dev) for x in gs], ctx.tp, "sum",
                             ctx.kind + ":bwd")
-        return None, None, None, g.to(dt)
+        return None, None, None, None, g.to(dt)
 
 
-def model_copy(x: torch.Tensor, entries: Entries,
-               kind: str) -> List[torch.Tensor]:
+def model_copy(x: torch.Tensor, entries: Entries, kind: str,
+               wide: bool = False) -> List[torch.Tensor]:
     """`x` (replicated) for each entry, on its device; differentiable: the
     entries' gradients of it are summed in mesh order in float32 and
-    cast to its dtype. `kind` names the gradient's all-reduce."""
-    return list(_ModelCopy.apply(entries.tp, kind, entries.devices, x))
+    cast to its dtype. `kind` names the gradient's all-reduce. With
+    `wide`, where x is below float32 and autograd records it, each entry
+    gets a float32 carrier of x instead, for its column-parallel
+    products (`column_product`), whose float32 gradients are then summed
+    and rounded once."""
+    wide = (wide and x.dtype != torch.float32 and x.requires_grad
+            and torch.is_grad_enabled())
+    return list(_ModelCopy.apply(entries.tp, kind, entries.devices, wide, x))
 
 
 def model_sum(parts: Sequence[torch.Tensor], entries: Entries, kind: str,
@@ -891,3 +1096,144 @@ def model_gather(parts: Sequence[torch.Tensor], entries: Entries, size: int,
 
 
 MODEL_COLLECTIVES = (MODEL_ALLREDUCE, MODEL_ALLGATHER)
+
+
+# ------------------------- FSDP over the batch axes -------------------------
+BATCH_AXES = ("pod", "data")
+
+
+def drop_batch_axes(p: Sequence) -> P:
+    """`p` without the batch axes: the 'model' layout of an FSDP leaf."""
+    def fix(entry):
+        kept = tuple(a for a in _entry_axes(entry) if a not in BATCH_AXES)
+        return kept if kept else None
+
+    return P(*[fix(e) for e in p])
+
+
+def is_fsdp(w) -> bool:
+    """Whether `w` is a Placed value whose spec names a batch axis."""
+    return isinstance(w, Placed) and any(
+        a in BATCH_AXES for e in w.spec for a in _entry_axes(e))
+
+
+def gather_sources(w: Placed, j: int) -> Tuple[int, List[int]]:
+    """(the dimension of an FSDP leaf `w` that its spec gives to batch
+    axes, the mesh entries whose blocks make up mesh entry j's gathered
+    block, in block order: those at j's coordinates on every other axis).
+    Raises where batch axes shard more than one dimension or share one
+    with 'model'. Kept on `w` per entry (a step asks for each many
+    times)."""
+    cache = w.__dict__.setdefault("_sources", {})
+    if j not in cache:
+        cache[j] = _gather_sources(w, j)
+    return cache[j]
+
+
+def _gather_sources(w: Placed, j: int) -> Tuple[int, List[int]]:
+    dims = [d for d, e in enumerate(w.spec)
+            if set(_entry_axes(e)) & set(BATCH_AXES)]
+    if len(dims) != 1 or not set(_entry_axes(w.spec[dims[0]])) <= set(
+            BATCH_AXES):
+        raise ValueError(f"{w!r}: FSDP gathers one dimension of batch axes "
+                         f"alone")
+    d, mesh = dims[0], w.mesh
+    axes = _entry_axes(w.spec[d])
+    sizes = [mesh.shape[a] for a in axes]
+    at = entry_coords(mesh, j)
+    out = []
+    for k in range(int(np.prod(sizes, dtype=np.int64))):
+        at.update(zip(axes, (int(c) for c in np.unravel_index(k, sizes))))
+        out.append(int(np.ravel_multi_index(
+            [at[a] for a in mesh.axis_names], mesh.axis_sizes)))
+    return d, out
+
+
+def data_gather(w: Placed, j: int,
+                dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Mesh entry j's block of the FSDP leaf `w` with its batch-axis
+    blocks gathered (`gather_sources`), in `dtype` (default: w's), on
+    j's device; differentiable (`data_allgather`). Blocks that the value
+    does not hold (a model placed for some entries, `entry_model`) are
+    left out: the gather holds the present ones, then zeros."""
+    d, src = gather_sources(w, j)
+    parts = [w.shards[i] for i in src if w.shards[i] is not None]
+    dev = canon_device(w.mesh.devices[j])
+    return _DataGather.apply(d, w.shape[d], len(src),
+                             w.dtype if dtype is None else dtype, dev,
+                             "gather", *parts)
+
+
+def _datagather(parts: List[torch.Tensor], dim: int, size: int, n: int,
+                dtype: torch.dtype, device: torch.device,
+                kind: str) -> torch.Tensor:
+    shape = list(parts[0].shape)
+    shape[dim] = size
+    held = sum(p.shape[dim] for p in parts)
+    out = (torch.empty if held == size else torch.zeros)(
+        shape, dtype=dtype, device=device)
+    if held == size and all(p.device == out.device for p in parts):
+        return torch.cat(parts, dim, out=out)    # one launch, cast included
+    off = 0
+    for p in parts:
+        out.narrow(dim, off, p.shape[dim]).copy_(p)
+        off += p.shape[dim]
+    return out
+
+
+def _datagather_fake(parts, dim, size, n, dtype, device, kind):
+    shape = list(parts[0].shape)
+    shape[dim] = size
+    return parts[0].new_empty(shape, dtype=dtype, device=device)
+
+
+def _datascatter(grad: torch.Tensor, dim: int, sizes: List[int], n: int,
+                 dtype: torch.dtype, kind: str) -> List[torch.Tensor]:
+    out, off = [], 0
+    for k in sizes:
+        out.append(grad.narrow(dim, off, k).to(
+            dtype, memory_format=torch.contiguous_format, copy=True))
+        off += k
+    return out
+
+
+def _datascatter_fake(grad, dim, sizes, n, dtype, kind):
+    out = []
+    for k in sizes:
+        shape = list(grad.shape)
+        shape[dim] = k
+        out.append(grad.new_empty(shape, dtype=dtype))
+    return out
+
+
+DATA_ALLGATHER = oplib.define(
+    "data_allgather(Tensor[] parts, int dim, int size, int n, "
+    "ScalarType dtype, Device device, str kind) -> Tensor",
+    _datagather, _datagather_fake, _datagather)
+DATA_REDUCESCATTER = oplib.define(
+    "data_reducescatter(Tensor grad, int dim, int[] sizes, int n, "
+    "ScalarType dtype, str kind) -> Tensor[]",
+    _datascatter, _datascatter_fake, _datascatter)
+DATA_COLLECTIVES = (DATA_ALLGATHER, DATA_REDUCESCATTER)
+
+
+class _DataGather(torch.autograd.Function):
+    """The blocks of an FSDP leaf cast to a dtype and concatenated along
+    their dimension on one device (`data_allgather`); the backward hands
+    each block its slice of the gradient, in its dtype, on its device
+    (`data_reducescatter`: the data shards' slices of a block are then
+    summed by the train step, on the block's keeper)."""
+
+    @staticmethod
+    def forward(ctx, dim, size, n, dtype, device, kind, *parts):
+        ctx.dim, ctx.n, ctx.kind = dim, n, kind
+        ctx.dests = [(p.device, p.dtype, p.shape[dim]) for p in parts]
+        return DATA_ALLGATHER(list(parts), dim, size, n, dtype, device, kind)
+
+    @staticmethod
+    def backward(ctx, g):
+        pieces = DATA_REDUCESCATTER(g, ctx.dim, [k for *_, k in ctx.dests],
+                                    ctx.n, ctx.dests[0][1],
+                                    ctx.kind + ":bwd")
+        return (None,) * 6 + tuple(p.to(dev) for p, (dev, _, _) in
+                                   zip(pieces, ctx.dests))

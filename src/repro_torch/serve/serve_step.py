@@ -17,7 +17,10 @@ mesh first (`models.sharding.lay_out_model`, as the train step does):
 placed on it where the config shards over its 'model' axis (a model
 placed on another mesh is laid out anew), so each entry reads the blocks
 it holds and no sharded leaf is copied; gathered into whole leaves on
-any other mesh, or without one. A shard on another device than the
+any other mesh, or without one. A model laid out FSDP
+(`sharding.place_model(..., specs=)`) keeps that layout: each data shard
+(`use_shard`) gathers a layer's blocks as it runs the layer, as the
+reference's partitioned decode does. A shard on another device than the
 model's runs on a copy of the whole leaves (every leaf of an unplaced
 model, the replicated ones of a placed one) made per call
 (`launch.mesh.call_with`), so it reads the model's current weights. The
@@ -29,24 +32,28 @@ from __future__ import annotations
 
 from typing import Any, List
 
+import numpy as np
 import torch
 
 from repro_torch.launch.mesh import call_with, copy_params, data_shards
 from repro_torch.models.model import LM
 from repro_torch.models.sharding import (current_mesh, lay_out_model,
-                                         model_entries, use_entries)
+                                         model_entries, use_entries,
+                                         use_shard)
 
 
 def _plan(model: LM, rows: int):
     """Per data shard of the active mesh: (its device, its 'model'
-    entries, its rows' slice); the model laid out for the mesh first
-    (`lay_out_model`)."""
+    entries, its rows' slice, its root's mesh entry); the model laid out
+    for the mesh first (`lay_out_model`)."""
     mesh = current_mesh()
     lay_out_model(model)
     _, shards = data_shards(mesh, rows)
     per = rows // len(shards)
     return [(dev, model_entries(mesh, at, model.cfg),
-             slice(j * per, (j + 1) * per))
+             slice(j * per, (j + 1) * per),
+             int(np.ravel_multi_index([at.get(a, 0) for a in mesh.axis_names],
+                                      mesh.axis_sizes)))
             for j, (at, dev) in enumerate(shards)]
 
 
@@ -57,9 +64,10 @@ def _on_shards(model: LM, name: str, x: torch.Tensor, caches, *args):
     leaves made for this call, so it reads the model's current
     weights."""
     outs, new, copies = [], [], {}
-    for j, (dev, entries, rows) in enumerate(_plan(model, x.shape[0])):
+    for j, (dev, entries, rows, root) in enumerate(_plan(model,
+                                                         x.shape[0])):
         call = (x[rows].to(dev), *args, caches[j])
-        with use_entries(entries):
+        with use_entries(entries), use_shard(root):
             if dev == model.device:
                 out = getattr(model, name)(*call)
             else:
@@ -78,7 +86,7 @@ def init_caches(model: LM, batch: int, max_len: int) -> List[Any]:
     if current_mesh() is None:
         return lay_out_model(model).init_caches(batch, max_len)
     out = []
-    for dev, entries, rows in _plan(model, batch):
+    for dev, entries, rows, _ in _plan(model, batch):
         with use_entries(entries):
             out.append(model.init_caches(rows.stop - rows.start, max_len,
                                          device=dev))

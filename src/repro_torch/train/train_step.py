@@ -81,6 +81,21 @@ mesh the step runs under the caller's entries, if any: the dry-run's
 one traced entry, whose model holds that entry's blocks alone
 (`models.sharding.entry_model`).
 
+FSDP: `make_train_state(model, specs=param_specs(model))` under
+`use_mesh` (or `lay_out_state(model, state, specs)`) lays the state out
+by the reference's full specs (`models.sharding.place_model(...,
+specs=)`): each entry holds its ('pod', 'data', 'model') block of every
+parameter, mu and nu, as a tensor of its own, and no entry holds
+another's. Each data shard's loss reads a layer's blocks through its
+gathers (`models.sharding.fsdp_use`, under the shard's entries and
+`use_shard`), so its gradients come back per block (`reads`,
+`_fsdp_sources`); the data shards' gradients of a block are summed in
+float32 in mesh order into the tile of the entry that holds it (one
+tile per distinct block, `_tiles`: the ZeRO tiles of the same mesh, in
+the same order, so the step is bit-equal to the ZeRO step), AdamW runs
+on the blocks in place, and no block has another tensor to copy to
+(`_replicas`), but across pods, whose blocks are replicas.
+
 `grad_shard_specs` ({name: P}, `models.sharding.param_specs`' layout),
 on a mesh, makes the accumulator ZeRO-sharded: each data shard keeps
 only its block of each whole leaf's gradient sum, along the spec's
@@ -104,15 +119,18 @@ import numpy as np
 import torch
 
 from repro_torch.ft.elastic import resolve_spec_for_mesh
-from repro_torch.launch.mesh import call_with, copy_params, data_shards
+from repro_torch.launch.mesh import (call_with, canon_device, copy_params,
+                                     data_shards)
 from repro_torch.models import moe
 from repro_torch.models.model import LM
 from repro_torch.models.sharding import (Placed, block_slices,
                                          current_entries, current_mesh,
-                                         keep_axes, lay_out_model,
+                                         gather_sources, gather_targets,
+                                         is_fsdp, keep_axes, lay_out_model,
                                          local_tensors, model_entries,
                                          named_leaves, place, placed_mesh,
-                                         shards_over_model, use_entries)
+                                         shards_over_model, use_entries,
+                                         use_shard)
 from repro_torch.optim import compression as comp
 from repro_torch.optim.optimizer import (OptConfig, adamw_update,
                                          init_opt_state)
@@ -129,17 +147,21 @@ def _zeros(x):
 
 
 def make_train_state(model: LM,
-                     generator: Optional[torch.Generator] = None) -> Dict:
+                     generator: Optional[torch.Generator] = None,
+                     specs: Optional[Dict] = None) -> Dict:
     """The train state over `model`'s parameters, which must be float32
     (`LM(..., param_dtype=torch.float32)`); sets requires_grad on them.
     The model is laid out for the active mesh first (`sharding.
     lay_out_model`): under `use_mesh` of a mesh whose 'model' axis
     `model`'s config shards over, it is placed on it, and the state's
     sharded leaves, mu and nu are Placed values, each entry's block on
-    its device. With `generator`, the weights are drawn anew from it
-    first (the reference's `make_train_state(model, rng)`), whole, then
-    cut."""
-    params = dict(named_leaves(lay_out_model(model)))
+    its device. With `specs` ({name: P}: `param_specs(model)` under
+    `use_mesh`, the reference's `make_train_state_specs`), it is laid out
+    by them instead: FSDP on the batch axes and the 'model' blocks, each
+    entry its ('pod', 'data', 'model') block of every parameter, mu and
+    nu. With `generator`, the weights are drawn anew from it first (the
+    reference's `make_train_state(model, rng)`), whole, then cut."""
+    params = dict(named_leaves(lay_out_model(model, specs)))
     if generator is not None:
         fresh = LM(model.cfg, generator=generator, device=model.device,
                    param_dtype=torch.float32)
@@ -257,6 +279,18 @@ def _shard_index(mesh, at: Dict[str, int]) -> int:
                                     mesh.axis_sizes))
 
 
+def _fsdp_sources(leaf: Placed, entries, root: int) -> List[int]:
+    """The mesh entries whose blocks of an FSDP leaf a data shard's loss
+    reads through its gathers (`sharding.fsdp_use`), in the order of the
+    leaf's tiles: for each entry it gathers for (`gather_targets`: its
+    'model' `entries`, or its root at mesh entry `root`), the blocks
+    along the batch axes in mesh order; the blocks the leaf holds (all
+    but on the dry-run's traced entry)."""
+    return [i for j in gather_targets(leaf, entries, root)
+            for i in gather_sources(leaf, j)[1]
+            if leaf.shards[i] is not None]
+
+
 def _tiles(params: Dict, specs: Optional[Dict], mesh, axes, shards,
            groups, root) -> Dict[str, List[Tile]]:
     """Per leaf, the tiles of its gradient sum (`Tile`). A whole leaf:
@@ -264,9 +298,19 @@ def _tiles(params: Dict, specs: Optional[Dict], mesh, axes, shards,
     blocks of the spec's batch axes, each on the first shard that holds
     it. A placed leaf: per 'model' entry m, its block, kept by the first
     data shard's entry m, or with specs that block's blocks along the
-    batch axes, each kept by entry m of the first shard that holds it."""
+    batch axes, each kept by entry m of the first shard that holds it.
+    An FSDP leaf (`sharding.is_fsdp`): each block it holds, kept by the
+    entry that holds it, in the order above (per 'model' entry, the
+    blocks along the batch axes), whatever the specs."""
     out = {}
     for n, p in params.items():
+        if is_fsdp(p):
+            full = (slice(None),) * len(p.shape)
+            out[n] = [Tile(b, full, p.block(j),
+                           canon_device(p.mesh.devices[j]), j, True)
+                      for b, j in enumerate(_fsdp_sources(
+                          p, groups[0], _shard_index(mesh, shards[0][0])))]
+            continue
         zs = (None if specs is None else
               keep_axes(resolve_spec_for_mesh(specs[n], mesh), set(axes)))
         if not isinstance(p, Placed):
@@ -322,17 +366,19 @@ def _replicas(leaf: Placed, keep: int) -> List[int]:
                      if t is not own and leaf.block_key(j) == key]
 
 
-def lay_out_state(model: LM, state: Dict) -> Dict:
+def lay_out_state(model: LM, state: Dict,
+                  specs: Optional[Dict] = None) -> Dict:
     """`model` and its train `state` laid out, in place, for the active
-    mesh (`use_mesh`): the model by `sharding.lay_out_model` (placed on a
-    mesh whose 'model' axis the config shards over, whole leaves
-    otherwise), then, wherever the state's parameters are not the
-    model's leaves (the model was laid out anew, here or by a serving
-    step), the state's parameters become them and the moments and the
-    error feedback follow, block for block. The step does this first;
-    call it to lay a state out before a step (to measure what it holds,
-    `entry_bytes`). Returns `state`."""
-    leaves = named_leaves(lay_out_model(model))
+    mesh (`use_mesh`): the model by `sharding.lay_out_model` (by `specs`
+    where given, FSDP; a model laid out by specs keeps that layout;
+    otherwise placed on a mesh whose 'model' axis the config shards
+    over, whole leaves elsewhere), then, wherever the state's parameters
+    are not the model's leaves (the model was laid out anew, here or by
+    a serving step), the state's parameters become them and the moments
+    and the error feedback follow, block for block. The step does this
+    first; call it to lay a state out before a step (to measure what it
+    holds, `entry_bytes`). Returns `state`."""
+    leaves = named_leaves(lay_out_model(model, specs))
     if all(state["params"].get(n) is x for n, x in leaves):
         return state
     state["params"] = params = dict(leaves)
@@ -442,26 +488,30 @@ def make_train_step(model: LM, opt_cfg: OptConfig, micro_batches: int = 1,
         load_train_state(state["err"], new_err)
         return grads
 
-    def reads(params, names, entries, dev, copies):
-        """Per leaf, the tensors a data shard's loss reads: a placed
-        leaf's blocks of its entries, a whole leaf itself where the
-        shard is on the model's device, else its copy there (made once
-        per step)."""
+    def reads(params, names, entries, dev, copies, root):
+        """Per leaf, the tensors a data shard's loss reads: an FSDP
+        leaf's blocks that its gathers read (`_fsdp_sources`, the
+        shard's root at mesh entry `root`), a placed leaf's blocks of its
+        entries, a whole leaf itself where the shard is on the model's
+        device, else its copy there (made once per step)."""
         whole = [n for n in names if not isinstance(params[n], Placed)]
         if dev != model.device and dev not in copies:
             copies[dev] = copy_params(((n, params[n]) for n in whole), dev,
                                       requires_grad=True)
         own = copies.get(dev) if dev != model.device else None
-        return [[params[n].shards[e.index] for e in entries]
+        return [[params[n].shards[i] for i in _fsdp_sources(
+                    params[n], entries, root)] if is_fsdp(params[n])
+                else [params[n].shards[e.index] for e in entries]
                 if isinstance(params[n], Placed)
                 else [params[n] if own is None else own[n]]
                 for n in names]
 
-    def shard_loss(rows, dev, den, copies, stats, entries):
+    def shard_loss(rows, dev, den, copies, stats, entries, root):
         """(loss, loss_fn's metrics) of one data shard's rows on its
-        device, under its 'model' `entries`; `stats` (a list, or None)
-        collects its MoE statistics."""
-        with use_entries(entries):
+        device, under its 'model' `entries` (its root at mesh entry
+        `root`); `stats` (a list, or None) collects its MoE
+        statistics."""
+        with use_entries(entries), use_shard(root):
             if dev == model.device:
                 return model.loss_fn(rows, den, stats)
             return call_with(model, copies[dev], "loss_fn", rows, den, stats)
@@ -479,7 +529,7 @@ def make_train_step(model: LM, opt_cfg: OptConfig, micro_batches: int = 1,
         return out
 
     def shard_grads(params, names, mb, shards, per, den, copies, root,
-                    auxes, groups):
+                    auxes, groups, roots):
         """Per data shard in mesh order, (loss on `root`, grads: per leaf
         the list of its `reads`' gradients); an MoE config appends the
         microbatch's aux (on `root`) to `auxes`. On more than one shard
@@ -489,11 +539,12 @@ def make_train_step(model: LM, opt_cfg: OptConfig, micro_batches: int = 1,
         fwd = []
         for j, (_, dev) in enumerate(shards):
             stats = [] if moe_mesh else None
-            use = reads(params, names, groups[j] or (), dev, copies)
+            use = reads(params, names, groups[j] or (), dev, copies,
+                        roots[j])
             loss, metrics = shard_loss(
                 {k: x[j * per:(j + 1) * per].to(dev) for k, x in mb.items()},
                 dev, None if den is None else den.to(dev), copies, stats,
-                groups[j])
+                groups[j], roots[j])
             if not moe_mesh:       # one shard's graph alive at a time
                 if model.cfg.is_moe:
                     auxes.append(metrics["aux"].detach().to(root))
@@ -525,6 +576,8 @@ def make_train_step(model: LM, opt_cfg: OptConfig, micro_batches: int = 1,
         rows = next(iter(mbs[0].values())).shape[0]
         _, shards, groups, tiles = _layout(model, params, grad_shard_specs,
                                            rows)
+        mesh = current_mesh()
+        roots = [_shard_index(mesh, at) for at, _ in shards]
         per = rows // len(shards)
         moe_mesh = model.cfg.is_moe and len(shards) > 1
         acc, lsum, copies, auxes = None, None, {}, []
@@ -534,7 +587,7 @@ def make_train_step(model: LM, opt_cfg: OptConfig, micro_batches: int = 1,
             part, mloss = None, None
             for loss, grads in shard_grads(params, names, mb, shards, per,
                                            den, copies, root, auxes,
-                                           groups):
+                                           groups, roots):
                 mloss = loss if mloss is None else mloss + loss
                 if part is None:
                     part = [[g[t.part][t.sl].to(t.device, torch.float32,
